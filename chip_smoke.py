@@ -5,20 +5,36 @@
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1. device: the card's name and power limit; TF32 must be off;
-  2. build: compile the kernels in sfm_tpu_torch/csrc with nvcc (sm_90a);
-  3. kernels: each kernel of the two-view path against its plain PyTorch
-     version on the card, at the path's shapes, with the tolerance stated,
-     and the median time of both (CUDA events, 20+ runs);
-  4. slice: sfm_tpu_torch.reconstruct on two rendered 1024x1024 images with
-     the default config; 2 images registered, >= 100 points, mean
-     reprojection error < 1 px, and every kernel launched by that run.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits
-non-zero and prints no result.
+  2. build: compile the kernels in sfm_tpu_torch/csrc (one nvcc per source,
+     all at once, sm_90a);
+  3. features kernels: K1 and K2 against their plain PyTorch versions on
+     the card at the slices' shapes;
+  4. two-view slice: sfm_tpu_torch.reconstruct on two rendered 1024x1024
+     images with the default config; 2 images registered, >= 100 points,
+     mean reprojection error < 1 px, pose against the ground truth, and
+     every kernel of that path launched by that run; then K3, K5 and K9 on
+     the BA problem that run solved;
+  5. incremental slice: sfm_tpu_torch.reconstruct on a rendered ring of
+     1024x1024 views with the default config; >= 95% of the images
+     registered, mean reprojection error < 1 px, camera-centre RMSE after
+     Sim(3) alignment < 1% of the orbit radius, the final global BA on the
+     PCG branch, and all seven kernels launched by that run; then K3, K5,
+     K9, K7 and K11 on that final BA's problem, and K7 and K11 once more on
+     an orbit problem with long tracks.
+Each kernel check holds the kernel against its plain version with the
+tolerance stated and takes the median time of the kernel, the plain version
+and (where one PyTorch call computes the same function) that call (CUDA
+events, 21 runs), and the least time the card could take (bytes over
+3.35 TB/s or operations over the peak rate, whichever is larger). The
+record reports each kernel at the incremental slice's shapes.
+The line before the last two is the kernels' JSON record, then the card's
+name and power limit; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -32,13 +48,31 @@ KERNELS = {
     "fused_ne_payloads": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:366"),
     "fused_cost_sums": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:524"),
     "cam_segment_sum": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:752"),
+    "whw_cam_reduce": ("sfm_tpu_torch/csrc/schur_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:639"),
+    "schur_coupling_matvec": ("sfm_tpu_torch/csrc/schur_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:975"),
 }
+TWO_VIEW_KERNELS = ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums",
+                    "cam_segment_sum")
+# Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 SLICE_IMAGE = 1024
 SLICE_FOCAL = 1200.0
 SLICE_BLOBS = 1500
 SLICE_ARC = 0.015   # 5.4 degrees between the views: wide enough to triangulate,
                     # narrow enough for the blob descriptors to pass the ratio test
-
+# The incremental slice: 100 views on a half ring (1.8 degrees apart) around
+# 1500 blobs, radius 7, focal 1228.8 (the prior ingest assumes without EXIF,
+# 1.2 x the long side). Sized so that the final global BA's padded problem
+# (C = 128 cameras, O = 65536) crosses the unchanged dense gate (C * O > 4M)
+# and takes PCG while every earlier BA stays dense; tools/torch_perf.py
+# scene compares the candidates (PERF.md).
+INC_IMAGES = 100
+INC_BLOBS = 1500
+INC_ARC = 0.5
+INC_FOCAL = 1228.8
+INC_RADIUS = 7.0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -74,6 +108,18 @@ def max_rel(a, b) -> tuple[float, float]:
     return err, err / max(float(b.double().abs().max()), 1.0)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
+    """Least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 # ---- phase 3: kernels against their plain versions -------------------------
 
 
@@ -98,9 +144,15 @@ def check_dog(device, size: int):
     if not torch.equal(out, ref) or n_ext == 0:
         raise AssertionError(f"dog_extrema_scores: not bit-exact ({int((out != ref).sum())} "
                              f"voxels differ, {n_ext} extrema)")
+    B, L, H, W = gauss.shape
+    # Operations: the L-1 DoG differences per pixel, then for the L-3 scored
+    # levels 26 neighbour compares for the maximum, 26 for the minimum and
+    # the threshold.
+    ops = B * H * W * ((L - 1) + (L - 3) * 53)
     return dict(max_abs_err=float((out - ref).abs().max()),
                 ms=time_ms(lambda: k1.dog_extrema_scores(gauss, pre), device),
                 plain_ms=time_ms(lambda: k1.dog_extrema_scores_plain(gauss, pre), device),
+                library_ms=None, **bound(nbytes(gauss, out), ops, FP32_OPS_PER_S),
                 note=f"exact, {n_ext} extrema")
 
 
@@ -145,90 +197,94 @@ def check_match(device, n: int):
     _compare_topk2(k2.match_topk2(*ragged), k2.match_topk2_plain(*ragged), "ragged")
     da, db, vb = _planted_descriptors(device, n, n, seed=0)
     n_clear, err = _compare_topk2(k2.match_topk2(da, db, vb), k2.match_topk2_plain(da, db, vb), f"{n}^2")
+    out = k2.match_topk2(da, db, vb)
+    # The bf16 Gram is tensor-core work: 2 * n1 * n2 * 128 operations.
+    ops = 2 * da.shape[1] * db.shape[1] * da.shape[2]
     return dict(max_abs_err=err,
                 ms=time_ms(lambda: k2.match_topk2(da, db, vb), device),
                 plain_ms=time_ms(lambda: k2.match_topk2_plain(da, db, vb), device),
-                note=f"{n_clear}/{n} rows clear of near-ties; ragged 1000x999 also checked")
+                library_ms=None, **bound(nbytes(da, db, vb, *out), ops, BF16_TENSOR_OPS_PER_S),
+                note=f"{n_clear}/{n} rows clear of near-ties; ragged 1000x999 also checked; "
+                     "no single library call (the plain version is a cuBLAS matmul + topk)")
 
 
-def slice_ba_problem(device, num_points: int):
-    """The slice's BA shape: 2 cameras (C = 8 after padding), O = 4096 at
-    num_points = 2000, perturbed so residuals and the robust loss matter."""
-    import numpy as np
-
-    from sfm_tpu_torch.ba.problem import build_problem
-    from sfm_tpu_torch.scene.state import Reconstruction
-    from sfm_tpu_torch.utils.synthetic import make_orbit_scene
-
-    scene = make_orbit_scene(num_cameras=2, num_points=num_points, image_size=(SLICE_IMAGE,) * 2,
-                             focal=SLICE_FOCAL, noise_px=0.5, seed=3, arc_fraction=SLICE_ARC)
-    rng = np.random.default_rng(4)
-    obs = np.argwhere(scene.visible)
-    uv = scene.pixels[obs[:, 0], obs[:, 1]].copy()
-    uv[rng.random(len(uv)) < 0.05] += rng.normal(0, 20, (1, 2)).astype(np.float32)  # outliers
-    rec = Reconstruction(
-        intrinsics=scene.intrinsics.copy(),
-        rvecs=scene.rvecs + rng.normal(0, 0.01, (2, 3)).astype(np.float32),
-        tvecs=scene.tvecs + rng.normal(0, 0.01, (2, 3)).astype(np.float32),
-        registered=np.ones(2, bool),
-        points=scene.points + rng.normal(0, 0.02, scene.points.shape).astype(np.float32),
-        point_errors=np.zeros(num_points, np.float32), point_valid=np.ones(num_points, bool),
-        obs_point=obs[:, 1].astype(np.int32), obs_image=obs[:, 0].astype(np.int32),
-        obs_kp=obs[:, 1].astype(np.int32), obs_uv=uv.astype(np.float32),
-    )
-    prob, _, _ = build_problem(rec, device=device)
-    return prob
-
-
-def check_ba(device, num_points: int):
-    """K3, K5 and K9 on the slice BA problem against their plain versions.
-    Tolerances: K3 payloads 1e-4 of each block's max (closed-form vs
-    matmul-composed Jacobians, fp32); K5 rtol 1e-5 (sum order); K9 2e-6 of
-    the output's max against its plain version evaluated in float64 on the
-    same values (the fp32 plain version on a GPU adds with atomics in an
-    order that changes from run to run), which leaves the kernel's own fp32
-    tree sum over ~2000 terms (bound log2(n) * eps of the summed magnitudes,
-    ~7e-7). K9 must also give identical bits on a rerun."""
+def first_iteration_inputs(prob, cfg):
+    """What the main path's bundle_adjust(prob, cfg) hands the kernels in its
+    first LM iteration: (solve invariants with the near-plane floor, normal
+    equations at the initial damping)."""
     import torch
 
     from sfm_tpu_torch.ba import core
-    from sfm_tpu_torch.config import BAConfig
+
+    inv = core.solve_invariants(prob, core.near_plane_floor(prob))
+    lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=prob.cam_params.device)
+    return inv, core.build_normal_equations(prob, prob.cam_params, prob.points, lam, cfg, inv)
+
+
+def check_ba(prob, cfg, device):
+    """K3, K5 and K9 on a BA problem the main path solved, at the inputs of
+    its first LM iteration, against their plain versions. Tolerances: K3
+    payloads 1e-4 of each block's max (closed-form vs matmul-composed
+    Jacobians, fp32); K5 rtol 1e-5 (sum order); K9 2e-6 of the output's max
+    against its plain version evaluated in float64 on the same values (the
+    fp32 plain version on a GPU adds with atomics in an order that changes
+    from run to run), which leaves the kernel's own fp32 tree sum over up to
+    a few thousand terms (bound log2(n) * eps of the summed magnitudes,
+    < 1e-6). K9 must also give identical bits on a rerun. K3 and K5 are
+    checked once more with the near-plane floor raised to the nearest tenth
+    of the depths, so that the gate removes observations."""
+    import torch
+
+    from sfm_tpu_torch.ba import core
     from sfm_tpu_torch.kernels import ba_kernels as kb
 
-    prob = slice_ba_problem(device, num_points)
-    cfg = BAConfig()
-    z = kb.projection(prob.cam_params[prob.obs_cam.long()], prob.intrinsics[prob.obs_cam.long()],
-                      prob.points[prob.obs_point.long()], prob.obs_uv)["xc2"]
-    zs = z[prob.obs_w > 0].sort().values
-    z_floor = zs[len(zs) // 10].reshape(())                      # gates the nearest tenth
-    inv = core.solve_invariants(prob, z_floor)
-    args = (prob.obs_cam, core._pts_t(prob, prob.points), inv.static_t, prob.cam_params.contiguous(),
-            prob.intrinsics, z_floor, cfg.robust_loss, cfg.robust_scale_px)
-    O, C = prob.obs_w.shape[0], prob.num_cameras
+    inv, _ = first_iteration_inputs(prob, cfg)
+    O, C, N = prob.obs_w.shape[0], prob.num_cameras, inv.cam_perm.numel()
     results = {}
 
-    out = kb.fused_ne_payloads(*args)
-    ne_ref = kb.fused_ne_payloads_plain(*args)
-    errs = [max_rel(a, b) for a, b in zip(out, ne_ref)]
-    if max(e[1] for e in errs) > 1e-4:
-        raise AssertionError(f"fused_ne_payloads: relative errors {errs}")
+    def ne_args(z_floor):
+        return (prob.obs_cam, core._pts_t(prob, prob.points), inv.static_t,
+                prob.cam_params.contiguous(), prob.intrinsics, z_floor, cfg.robust_loss,
+                cfg.robust_scale_px)
+
+    z = kb.projection(prob.cam_params[prob.obs_cam.long()], prob.intrinsics[prob.obs_cam.long()],
+                      prob.points[prob.obs_point.long()], prob.obs_uv)["xc2"]
+    # The raised floor lies midway in the first gap between sorted depths
+    # past the nearest tenth that is wider than fp32 rounding: at a floor
+    # equal to an observation's own depth, the kernel's and the plain
+    # version's roundings of that depth would gate it differently.
+    zs = z[prob.obs_w > 0].sort().values
+    gaps = torch.nonzero(zs[1:] - zs[:-1] > 1e-5 * zs[:-1].abs()).flatten()
+    k = int(gaps[gaps >= len(zs) // 10][0])
+    gated = ne_args(((zs[k] + zs[k + 1]) / 2).reshape(()))
+    args = ne_args(inv.z_floor)
+    for a in (gated, args):
+        out = kb.fused_ne_payloads(*a)
+        ne_ref = kb.fused_ne_payloads_plain(*a)
+        errs = [max_rel(x, y) for x, y in zip(out, ne_ref)]
+        if max(e[1] for e in errs) > 1e-4:
+            raise AssertionError(f"fused_ne_payloads{' (gate raised)' if a is gated else ''}: "
+                                 f"relative errors {errs}")
+        sums = kb.fused_cost_sums(*a)
+        sums_ref = kb.fused_cost_sums_plain(*a)
+        if not torch.allclose(sums, sums_ref, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"fused_cost_sums{' (gate raised)' if a is gated else ''}: "
+                                 f"{sums.tolist()} vs {sums_ref.tolist()}")
+        if a is gated and not float(sums[1]) < float(prob.obs_w.sum()):
+            raise AssertionError("fused_cost_sums: the near-plane gate removed nothing")
+    obs_in = nbytes(*args[:6])
     results["fused_ne_payloads"] = dict(
         max_abs_err=max(e[0] for e in errs),
         ms=time_ms(lambda: kb.fused_ne_payloads(*args), device),
         plain_ms=time_ms(lambda: kb.fused_ne_payloads_plain(*args), device),
-        note=f"O={O} C={C}, rel err {max(e[1] for e in errs):.2e}")
-
-    out = kb.fused_cost_sums(*args)
-    ref = kb.fused_cost_sums_plain(*args)
-    if not torch.allclose(out, ref, rtol=1e-5, atol=0.0):
-        raise AssertionError(f"fused_cost_sums: {out.tolist()} vs {ref.tolist()}")
-    if not float(out[1]) < float(prob.obs_w.sum()):
-        raise AssertionError("fused_cost_sums: the near-plane gate removed nothing")
+        library_ms=None, **bound(obs_in + nbytes(*out), 300 * O, FP32_OPS_PER_S),
+        note=f"O={O} C={C}, rel err {max(e[1] for e in errs):.2e}; also with the gate raised")
     results["fused_cost_sums"] = dict(
-        max_abs_err=float((out - ref).abs().max()),
+        max_abs_err=float((sums - sums_ref).abs().max()),
         ms=time_ms(lambda: kb.fused_cost_sums(*args), device),
         plain_ms=time_ms(lambda: kb.fused_cost_sums_plain(*args), device),
-        note=f"O={O}, sums {out.tolist()}")
+        library_ms=None, **bound(obs_in + nbytes(sums), 60 * O, FP32_OPS_PER_S),
+        note=f"O={O}, sums {sums.tolist()}; also with the gate raised")
 
     cam_t = ne_ref[2]
     out = kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds)
@@ -239,13 +295,135 @@ def check_ba(device, num_points: int):
     again = kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds)
     if not torch.equal(out, again):
         raise AssertionError("cam_segment_sum: two runs differ (must be deterministic)")
+    # The library yardstick, torch.segment_reduce, takes sorted segments
+    # only: it is timed on the point side (perm None), beside the kernel.
+    yp_t = ne_ref[1]
+    pb = inv.point_bounds
+    lib = torch.segment_reduce(yp_t.T, "sum", offsets=pb, axis=0)
+    if max_rel(kb.cam_segment_sum(yp_t, None, pb), lib.double())[1] > 2e-6:
+        raise AssertionError("cam_segment_sum: point side disagrees with torch.segment_reduce")
+    point_ms = time_ms(lambda: kb.cam_segment_sum(yp_t, None, pb), device)
+    K = cam_t.shape[0]
+    # Bytes: the N weighted observations' rows (the segment tables end at
+    # the last one), the permutation and bounds, the output.
     results["cam_segment_sum"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds), device),
         plain_ms=time_ms(lambda: kb.cam_segment_sum_plain(cam_t, inv.cam_perm, inv.cam_bounds), device),
-        note=f"[{cam_t.shape[0]}, {O}] -> [{C}, {cam_t.shape[0]}], rel err {rel:.2e} vs the plain "
-             "version in float64, deterministic")
+        library_ms=time_ms(lambda: torch.segment_reduce(yp_t.T, "sum", offsets=pb, axis=0), device),
+        **bound(4 * (K * N + N + C + 1 + C * K), K * N, FP32_OPS_PER_S),
+        note=f"[{K}, {O}] ({N} weighted) -> [{C}, {K}], rel err {rel:.2e} vs the plain version "
+             f"in float64, deterministic; library_ms: torch.segment_reduce on the point side "
+             f"[{yp_t.shape[0]}, {N}] -> [{prob.num_points}, {yp_t.shape[0]}], where the kernel "
+             f"takes {point_ms:.4f} ms")
     return results
+
+
+def schur_problem(device, num_cameras: int = 100, num_points: int = 500):
+    """An orbit scene of num_cameras cameras seeing num_points points,
+    perturbed, with 5% outliers: at the defaults C = 128 and O = 65536 after
+    padding, every point in ~100 views (long point segments, which the
+    incremental slice's short tracks do not exercise). tools/torch_perf.py
+    crossover sweeps its sizes."""
+    import numpy as np
+
+    from sfm_tpu_torch.ba.problem import build_problem
+    from sfm_tpu_torch.scene.state import Reconstruction
+    from sfm_tpu_torch.utils.synthetic import make_orbit_scene
+
+    scene = make_orbit_scene(num_cameras=num_cameras, num_points=num_points,
+                             image_size=(SLICE_IMAGE,) * 2, focal=SLICE_FOCAL, noise_px=0.5, seed=5)
+    rng = np.random.default_rng(6)
+    obs = np.argwhere(scene.visible)
+    uv = scene.pixels[obs[:, 0], obs[:, 1]].copy()
+    out = rng.random(len(uv)) < 0.05
+    uv[out] += rng.normal(0, 20, (int(out.sum()), 2)).astype(np.float32)
+    K = num_cameras
+    rec = Reconstruction(
+        intrinsics=scene.intrinsics.copy(),
+        rvecs=scene.rvecs + rng.normal(0, 0.01, (K, 3)).astype(np.float32),
+        tvecs=scene.tvecs + rng.normal(0, 0.01, (K, 3)).astype(np.float32),
+        registered=np.ones(K, bool),
+        points=scene.points + rng.normal(0, 0.02, scene.points.shape).astype(np.float32),
+        point_errors=np.zeros(num_points, np.float32), point_valid=np.ones(num_points, bool),
+        obs_point=obs[:, 1].astype(np.int32), obs_image=obs[:, 0].astype(np.int32),
+        obs_kp=obs[:, 1].astype(np.int32), obs_uv=uv.astype(np.float32),
+    )
+    prob, _, _ = build_problem(rec, device=device)
+    return prob
+
+
+def check_schur(prob, cfg, device):
+    """K7 and K11 on a PCG-sized BA problem, at the normal equations of its
+    first LM iteration (K11 on a random v), against their plain versions
+    evaluated in float64 on the same inputs. Tolerance 1e-5 of the output's
+    max: both kernels sum in fp32, each camera's (and each point's) terms in
+    a fixed tree order, so the error is bounded by ~log2(n) * eps of the
+    summed magnitudes (n up to ~1000 terms per camera, ~1e-6), with a margin
+    for the cancellation in K11's signed sums. Both must give identical bits
+    on a rerun."""
+    import torch
+
+    from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    inv, ne = first_iteration_inputs(prob, cfg)
+    O, C, P, N = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, inv.cam_perm.numel()
+    if core.uses_dense_solver(prob, cfg):
+        raise AssertionError(f"schur check: C={C}, O={O} takes the dense solver, not PCG")
+    W_t, Hinv = ne.W_t, ne.Hpp_inv
+    shape = f"O={O} ({N} weighted) C={C} P={P}"
+    results = {}
+
+    k7 = (W_t, Hinv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
+    out = kb.whw_cam_reduce(*k7)
+    ref = kb.whw_cam_reduce_plain(W_t.double(), Hinv.double(), *k7[2:])
+    err, rel = max_rel(out, ref)
+    if rel > 1e-5:
+        raise AssertionError(f"whw_cam_reduce: relative error {rel} ({shape})")
+    if not torch.equal(out, kb.whw_cam_reduce(*k7)):
+        raise AssertionError("whw_cam_reduce: two runs differ (must be deterministic)")
+    # Bytes: the N weighted observations' W and ids, each point's H^-1, the
+    # camera segments, the output. Operations: the 6x6 product per observation.
+    moved = 4 * (18 * N + 9 * P + 2 * N + C + 1 + 36 * C)
+    results["whw_cam_reduce"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kb.whw_cam_reduce(*k7), device),
+        plain_ms=time_ms(lambda: kb.whw_cam_reduce_plain(*k7), device),
+        library_ms=None, **bound(moved, 324 * N, FP32_OPS_PER_S),
+        note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic")
+
+    v = torch.randn((C, 6), generator=torch.Generator(device=device).manual_seed(7),
+                    device=device)
+    k11 = (W_t, Hinv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
+           inv.cam_bounds, v)
+    out = kb.schur_coupling_matvec(*k11)
+    ref = kb.schur_coupling_matvec_plain(W_t.double(), Hinv.double(), *k11[2:7], v.double())
+    err, rel = max_rel(out, ref)
+    if rel > 1e-5:
+        raise AssertionError(f"schur_coupling_matvec: relative error {rel} ({shape})")
+    if not torch.equal(out, kb.schur_coupling_matvec(*k11)):
+        raise AssertionError("schur_coupling_matvec: two runs differ (must be deterministic)")
+    # Bytes: the N weighted observations' W and camera ids, each point's
+    # H^-1 and bounds, the camera segments, v and the output (obs_point is
+    # not needed: the point segments come from point_bounds). Operations: u
+    # and y (36 multiply-adds each) and the sums per observation, h per point.
+    moved = 4 * (18 * N + N + 9 * P + P + 1 + N + C + 1 + 6 * C + 6 * C)
+    results["schur_coupling_matvec"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kb.schur_coupling_matvec(*k11), device),
+        plain_ms=time_ms(lambda: kb.schur_coupling_matvec_plain(*k11), device),
+        library_ms=None, **bound(moved, 81 * N + 18 * P, FP32_OPS_PER_S),
+        note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic")
+    return results
+
+
+def log_results(what: str, results: dict) -> None:
+    for k, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"[kernel] {what + ': ' if what else ''}{k}: max_abs_err {r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms | "
+            f"plain {r['plain_ms']:.4f} ms | library {lib} | bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}) | {r['note']}")
 
 
 # ---- phase 4: the slice -----------------------------------------------------
@@ -254,7 +432,7 @@ def check_ba(device, num_points: int):
 def run_slice(device, size: int, blobs: int, **overrides):
     """Two rendered size x size views of a 3D blob scene through
     sfm_tpu_torch.reconstruct; returns (reconstruction, launch counts of that
-    call, wall seconds, ground-truth scene)."""
+    call, BA log, wall seconds, ground-truth scene)."""
     from sfm_tpu_torch import kernels, reconstruct
     from sfm_tpu_torch.utils.synthetic import render_blob_scene
 
@@ -262,12 +440,13 @@ def run_slice(device, size: int, blobs: int, **overrides):
     imgs, scene = render_blob_scene(image_size=(size, size), num_images=2, num_blobs=blobs,
                                 focal=SLICE_FOCAL * size / SLICE_IMAGE, arc_fraction=SLICE_ARC)
     log(f"[slice] rendered 2 x {size}^2 images with {blobs} blobs in {time.perf_counter() - t0:.2f}s")
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    rec = reconstruct(list(imgs), device=device, **overrides)
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    return rec, launches, wall, scene
+    with record_bundle_adjustments() as ba_log:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rec = reconstruct(list(imgs), device=device, **overrides)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    return rec, launches, ba_log, wall, scene
 
 
 def pose_errors_deg(rec, scene) -> tuple[float, float]:
@@ -304,9 +483,123 @@ def check_slice(rec, launches, scene, min_points: int = 100):
     rot, trans = pose_errors_deg(rec, scene)
     if not (rot < 2.0 and trans < 8.0):
         raise AssertionError(f"slice: pose error {rot:.3f} deg rotation, {trans:.3f} deg translation")
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in TWO_VIEW_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"slice: kernels never launched by the main path: {missing}")
+
+
+# ---- phase 5: the incremental slice ----------------------------------------
+
+
+@contextlib.contextmanager
+def record_bundle_adjustments():
+    """Record (cameras, observations, solver, LM iterations, seconds) of each
+    bundle adjustment the pipeline runs (padded capacities, which decide the
+    solver), and the problem and config it was given, by wrapping the BA
+    entry point for the duration."""
+    import torch
+
+    from sfm_tpu_torch import ba
+    from sfm_tpu_torch.ba.core import uses_dense_solver
+
+    log, inner = [], ba.bundle_adjust
+
+    def wrapped(prob, cfg):
+        t0 = time.perf_counter()
+        out, stats = inner(prob, cfg)
+        if prob.cam_params.is_cuda:
+            torch.cuda.synchronize()
+        log.append(dict(C=prob.num_cameras, O=int(prob.obs_w.shape[0]),
+                        solver="dense" if uses_dense_solver(prob, cfg) else "pcg",
+                        iterations=int(stats.iterations), seconds=time.perf_counter() - t0,
+                        problem=prob, cfg=cfg))
+        return out, stats
+
+    ba.bundle_adjust = wrapped
+    try:
+        yield log
+    finally:
+        ba.bundle_adjust = inner
+
+
+def render_ring(images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
+                radius: float = INC_RADIUS):
+    """render_blob_scene's ring of images x 1024^2 views, rendered by a pool
+    of spawned worker processes (numpy only; the same bits as one process)."""
+    import multiprocessing
+    import os
+
+    import numpy as np
+
+    from sfm_tpu_torch.utils.synthetic import blob_scene_views, render_blob_view
+
+    views, scene = blob_scene_views(image_size=(SLICE_IMAGE, SLICE_IMAGE), num_images=images,
+                                    num_blobs=blobs, focal=focal, arc_fraction=arc,
+                                    radius=radius, seed=1)
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        return np.stack(pool.map(render_blob_view, views)), scene
+
+
+def run_incremental(device, images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
+                    radius: float = INC_RADIUS):
+    """A ring of images x 1024^2 rendered views of the blob scene through
+    sfm_tpu_torch.reconstruct with the default config; returns
+    (reconstruction, launch counts of that call, BA log, wall seconds,
+    ground-truth scene)."""
+    from sfm_tpu_torch import kernels, reconstruct
+
+    t0 = time.perf_counter()
+    imgs, scene = render_ring(images, blobs, arc, focal, radius)
+    log(f"[incremental] rendered {images} x {SLICE_IMAGE}^2 images with {blobs} blobs "
+        f"(ring arc {arc}, focal {focal}, radius {radius}) in {time.perf_counter() - t0:.2f}s")
+    with record_bundle_adjustments() as ba_log:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rec = reconstruct(list(imgs), device=device)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    return rec, launches, ba_log, wall, scene
+
+
+def camera_rmse(rec, scene) -> float:
+    """RMSE of the registered camera centres against the ground truth after
+    the least-squares Sim(3) alignment (gauge freedom)."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.geometry.rotations import so3_exp
+    from sfm_tpu_torch.geometry.similarity import umeyama_np
+
+    reg = np.where(rec.registered)[0]
+
+    def centres(rv, tv):
+        R = so3_exp(torch.from_numpy(np.asarray(rv[reg], np.float32))).numpy()
+        return -np.einsum("kji,kj->ki", R, np.asarray(tv[reg], np.float64))
+
+    est, gt = centres(rec.rvecs, rec.tvecs), centres(scene.rvecs, scene.tvecs)
+    s, R, t = umeyama_np(est, gt)
+    return float(np.sqrt((((s * est @ R.T + t) - gt) ** 2).sum(-1).mean()))
+
+
+def check_incremental(rec, launches, ba_log, scene):
+    """The bars of tests/integration/test_incremental.py (all but a few
+    images registered, camera RMSE < 1% of the orbit radius) at < 1 px, with
+    the final global BA on the PCG branch and all seven kernels launched."""
+    s = rec.summary()
+    n = len(rec.registered)
+    if s["num_registered"] < 0.95 * n:
+        raise AssertionError(f"incremental: {s['num_registered']}/{n} images registered")
+    if not s["mean_reproj_error_px"] < 1.0:
+        raise AssertionError(f"incremental: mean reprojection error {s['mean_reproj_error_px']} px")
+    rmse = camera_rmse(rec, scene)
+    if not rmse < 0.01 * INC_RADIUS:
+        raise AssertionError(f"incremental: camera RMSE {rmse} >= 1% of the orbit radius")
+    if not ba_log or ba_log[-1]["solver"] != "pcg":
+        raise AssertionError(f"incremental: the final global BA did not take PCG: {ba_log[-1:]}")
+    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"incremental: kernels never launched by the main path: {missing}")
+    return rmse
 
 
 def main() -> int:
@@ -330,12 +623,9 @@ def main() -> int:
 
     results = {"dog_extrema_scores": check_dog(device, SLICE_IMAGE),
                "match_topk2": check_match(device, 4096)}
-    results.update(check_ba(device, 2000))
-    for k, r in results.items():
-        log(f"[kernel] {k}: max_abs_err {r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms | "
-            f"plain {r['plain_ms']:.4f} ms | {r['note']}")
+    log_results("features", results)
 
-    rec, launches, wall, scene = run_slice(device, SLICE_IMAGE, SLICE_BLOBS)
+    rec, launches, ba_log, wall, scene = run_slice(device, SLICE_IMAGE, SLICE_BLOBS)
     log(f"[slice] reconstruct wall {wall:.2f}s | stages " +
         ", ".join(f"{k} {v:.3f}s" for k, v in rec.stage_seconds.items()))
     log(f"[slice] summary {json.dumps(rec.summary())}")
@@ -343,11 +633,38 @@ def main() -> int:
     log("[slice] relative pose error vs ground truth: %.4f deg rotation, %.4f deg translation"
         % pose_errors_deg(rec, scene))
     check_slice(rec, launches, scene)
+    two_view_launches = launches
+    log_results("two-view BA", check_ba(ba_log[-1]["problem"], ba_log[-1]["cfg"], device))
+
+    rec, launches, ba_log, wall, scene = run_incremental(device, INC_IMAGES, INC_BLOBS, INC_ARC)
+    log(f"[incremental] reconstruct wall {wall:.2f}s | stages " +
+        ", ".join(f"{k} {v:.3f}s" for k, v in rec.stage_seconds.items()))
+    for i, b in enumerate(ba_log):
+        log(f"[incremental] BA {i}: C={b['C']} O={b['O']} C*O={b['C'] * b['O']} {b['solver']} "
+            f"{b['iterations']} LM iterations {b['seconds']:.3f}s")
+    log(f"[incremental] summary {json.dumps(rec.summary())}")
+    log(f"[incremental] launches {json.dumps(launches)}")
+    rmse = check_incremental(rec, launches, ba_log, scene)
+    log(f"[incremental] camera-centre RMSE after Sim(3) alignment {rmse:.5f} "
+        f"({100 * rmse / INC_RADIUS:.3f}% of the orbit radius)")
+
+    # The BA kernels are held and timed on the incremental slice's final
+    # global BA problem (PCG), as that run handed it to bundle_adjust; K7 and
+    # K11 once more on an orbit problem whose points each lie in ~100 views.
+    final = ba_log[-1]
+    incremental = {**check_ba(final["problem"], final["cfg"], device),
+                   **check_schur(final["problem"], final["cfg"], device)}
+    log_results("final global BA", incremental)
+    results.update(incremental)
+    log_results("orbit", check_schur(schur_problem(device), final["cfg"], device))
 
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
-         "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
+         "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
+         "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
+         "library_ms": results[k]["library_ms"],
+         "launches_by_path": {"two_view": two_view_launches.get(k, 0), "incremental": launches[k]}}
         for k in KERNELS]}
     print(json.dumps(record))
     print(smi)

@@ -1,6 +1,5 @@
-"""Schur-complement Levenberg-Marquardt bundle adjustment, single device,
-dense reduced-camera solve (port of the small-problem path of
-sfm_tpu/ba/core.py).
+"""Schur-complement Levenberg-Marquardt bundle adjustment, single device
+(port of the single-chip path of sfm_tpu/ba/core.py).
 
   residual r_o = project(point_p, cam_c) - uv_o, robustified by IRLS
   normal equations in segment-sum form (kernel K3 per observation, then
@@ -9,14 +8,17 @@ sfm_tpu/ba/core.py).
     W_o = Jc_o^T Jp_o  [O, 6, 3] (kept per observation, feature-major)
     bc = -segsum_c Jc^T r,  bp = -segsum_p Jp^T r
   reduced camera system S dc = bc - W Hpp^-1 bp with S = Hcc - W Hpp^-1 W^T,
-  S assembled column-block-wise through the implicit matvec and solved by
-  Cholesky; back-substitution dp = Hpp^-1 (bp - W^T dc); LM accept/reject on
-  the true robust cost (kernel K5), multiplicative damping.
+  solved either
+  - densely (at most cfg.dense_schur_max_cameras cameras and C*O within
+    the volume gate, the JAX package's gate unchanged): S assembled
+    column-block-wise through the implicit matvec, Cholesky; or
+  - by preconditioned CG in the Jacobi-equilibrated space: the Schur-Jacobi
+    preconditioner's blocks sum_c W Hpp^-1 W^T come from kernel K7, every
+    CG step's implicit S p from kernel K11 (coupling) and Hcc p;
+  back-substitution dp = Hpp^-1 (bp - W^T dc); LM accept/reject on the true
+  robust cost (kernel K5), multiplicative damping.
 
-Problems that would take the JAX package's PCG solver (more than
-cfg.dense_schur_max_cameras cameras, or C*O past the dense gate) raise
-NotImplementedError: PCG, its Schur-Jacobi preconditioner (whw_cam_reduce)
-and the coupling-matvec kernel come with the incremental slice.
+Intrinsics refinement (8-wide camera blocks) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from sfm_tpu_torch.ba.problem import BAProblem, CAM_DIM, PT_DIM
 from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.geometry.rotations import so3_hat, so3_right_jacobian
 from sfm_tpu_torch.kernels.ba_kernels import (
-    cam_segment_sum, fused_cost_sums, fused_ne_payloads, projection, segment_bounds,
+    cam_segment_sum, fused_cost_sums, fused_ne_payloads, projection, schur_coupling_matvec,
+    segment_bounds, whw_cam_reduce,
 )
 
 _DENSE_MAX_VOLUME = 4 << 20   # C * O gate of the dense reduced solve
@@ -61,12 +64,18 @@ def residual_jac_analytic(cams_o, pts_o, intr_o, uv):
 
 
 class SolveInvariants(NamedTuple):
-    """LM-iteration-invariant precomputations of one solve."""
+    """LM-iteration-invariant precomputations of one solve.
+
+    The segment tables cover the observations [0, N): N is one past the last
+    observation with a nonzero weight. The zero-weight tail past it (the
+    capacity padding) contributes exact zeros to every sum, and leaving it
+    out keeps it from forming one long segment (padding rows carry the last
+    point slot and camera 0) that a single warp or block would walk."""
 
     static_t: torch.Tensor      # [5, O] u, v, weight, camera-free, point-free
-    point_bounds: torch.Tensor  # [P+1] int32 segment offsets (obs sorted by point)
-    cam_perm: torch.Tensor      # [O] int32 permutation sorting obs by camera (stable)
-    cam_bounds: torch.Tensor    # [C+1] int32 camera segment offsets
+    point_bounds: torch.Tensor  # [P+1] int32 segment offsets in [0, N) (obs sorted by point)
+    cam_perm: torch.Tensor      # [N] int32 permutation sorting obs [0, N) by camera (stable)
+    cam_bounds: torch.Tensor    # [C+1] int32 camera segment offsets into cam_perm
     z_floor: torch.Tensor | None = None   # near-plane depth floor (0-d)
 
 
@@ -77,12 +86,14 @@ def solve_invariants(prob: BAProblem, z_floor: torch.Tensor | None = None) -> So
         prob.obs_uv[:, 0], prob.obs_uv[:, 1], prob.obs_w,
         (~prob.cam_fixed)[oc].float(), (~prob.point_fixed)[op].float(),
     ]).contiguous()
-    cam_perm = torch.argsort(prob.obs_cam, stable=True)
+    weighted = torch.nonzero(prob.obs_w).flatten()
+    n = int(weighted[-1]) + 1 if weighted.numel() else 0
+    cam_perm = torch.argsort(prob.obs_cam[:n], stable=True)
     return SolveInvariants(
         static_t=static_t,
-        point_bounds=segment_bounds(prob.obs_point, prob.num_points),
+        point_bounds=segment_bounds(prob.obs_point[:n], prob.num_points),
         cam_perm=cam_perm.to(torch.int32),
-        cam_bounds=segment_bounds(prob.obs_cam[cam_perm], prob.num_cameras),
+        cam_bounds=segment_bounds(prob.obs_cam[:n][cam_perm], prob.num_cameras),
         z_floor=z_floor,
     )
 
@@ -147,7 +158,7 @@ def _sym3(red6: torch.Tensor) -> torch.Tensor:
 def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConfig,
                            inv: SolveInvariants) -> NormalEq:
     """Damped normal-equation blocks at (cam_params, points)."""
-    C, P = prob.num_cameras, prob.num_points
+    C = prob.num_cameras
     w_t, yp_t, cam_t = fused_ne_payloads(
         prob.obs_cam, _pts_t(prob, points), inv.static_t, cam_params.contiguous(),
         prob.intrinsics, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
@@ -167,6 +178,21 @@ def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConf
     Hcc_d = Hcc + (lam * dc[:, :, None] + 1e-6) * eyec
     Hpp_d = Hpp + (lam * dp[:, :, None] + 1e-6) * eyep
     return NormalEq(Hcc=Hcc_d, Hpp_inv=_sym_solve3(Hpp_d), W_t=w_t, bc=bc, bp=bp)
+
+
+def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Schur-Jacobi preconditioner: the exact block diagonal of S,
+    M = Hcc - sum_c W Hpp^-1 W^T (K7) + 1e-6 I, inverted Jacobi-equilibrated
+    so huge blocks cannot overflow the fp32 inversion: M^-1 = D (D M D)^-1 D
+    with D = diag(M)^-1/2. Returns (M^-1 [C, 6, 6], sqrt|diag M| [C, 6])."""
+    C = prob.num_cameras
+    whw = whw_cam_reduce(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
+    M = ne.Hcc - whw.reshape(C, CAM_DIM, CAM_DIM) + 1e-6 * torch.eye(CAM_DIM, device=ne.Hcc.device)
+    dg = torch.sqrt(M.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
+    Dinv = 1.0 / dg
+    M_eq = M * Dinv[:, :, None] * Dinv[:, None, :]
+    return torch.linalg.inv_ex(M_eq).inverse * Dinv[:, :, None] * Dinv[:, None, :], dg
 
 
 def _w_apply(W_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
@@ -203,6 +229,59 @@ def _schur_matvec(ne: NormalEq, prob: BAProblem, V: torch.Tensor, inv: SolveInva
     return torch.einsum("cij,...cj->...ci", ne.Hcc, V) - _cam_reduce(y_t, inv)
 
 
+def _schur_matvec_pcg(ne: NormalEq, prob: BAProblem, v: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
+    """Implicit S @ v for one v [C, 6]: Hcc v minus the coupling term (K11)."""
+    coupling = schur_coupling_matvec(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point,
+                                     inv.point_bounds, inv.cam_perm, inv.cam_bounds,
+                                     v.contiguous())
+    return torch.einsum("cij,cj->ci", ne.Hcc, v) - coupling
+
+
+def _pcg(ne: NormalEq, prob: BAProblem, rhs: torch.Tensor, cfg: BAConfig,
+         inv: SolveInvariants) -> torch.Tensor:
+    """Preconditioned CG on the reduced camera system, in the
+    Jacobi-equilibrated space: solve (D^-1 S D^-1) y = D^-1 rhs with
+    D = sqrt|diag M| of the Schur-Jacobi preconditioner M
+    (pcg_preconditioner), return x = D^-1 y (every iterate O(1)-scaled, so
+    fp32 CG cannot overflow in p.(S p) when diag S spans many decades).
+
+    cfg.cg_iterations steps, always: a converged or dead solve freezes its
+    updates through torch.where instead of leaving the loop, so the loop
+    never reads a value back to the host. A non-finite or non-positive
+    curvature p.(S p) freezes the solve for good (CG keeps its best x).
+    """
+    M_inv, d = pcg_preconditioner(ne, prob, inv)
+    dinv = 1.0 / d
+
+    def precond(r):
+        return d * torch.einsum("cij,cj->ci", M_inv, d * r)
+
+    zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
+    one = torch.ones((), dtype=rhs.dtype, device=rhs.device)
+    b = dinv * rhs
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = (r * z).sum()
+    rhs_norm = torch.sqrt((b * b).sum()) + 1e-20
+    dead = torch.zeros((), dtype=torch.bool, device=rhs.device)
+    for _ in range(cfg.cg_iterations):
+        Ap = dinv * _schur_matvec_pcg(ne, prob, dinv * p, inv)
+        pAp = (p * Ap).sum()
+        dead = dead | ~torch.isfinite(pAp) | (pAp <= 0.0)
+        done = dead | (torch.sqrt((r * r).sum()) / rhs_norm < cfg.cg_tolerance)
+        alpha = torch.where(done, zero, rz / torch.where(done, one, pAp))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.where(done, rz, (r * z).sum())
+        beta = rz_new / rz.clamp_min(1e-20)
+        p = torch.where(done, p, z + beta * p)
+        rz = rz_new
+    return dinv * x
+
+
 def _schur_rhs(ne: NormalEq, prob: BAProblem, inv: SolveInvariants) -> torch.Tensor:
     """rhs = bc - W Hpp^-1 bp."""
     h = torch.einsum("pij,pj->pi", ne.Hpp_inv, ne.bp)
@@ -236,6 +315,25 @@ def _back_substitute(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, inv: Solve
     return torch.einsum("pij,pj->pi", ne.Hpp_inv, g)
 
 
+def uses_dense_solver(prob: BAProblem, cfg: BAConfig) -> bool:
+    """The JAX package's reduced-solver gate, unchanged: dense Cholesky for
+    at most cfg.dense_schur_max_cameras (padded) cameras and C * O (padded
+    capacities) within the volume gate, PCG otherwise."""
+    C, O = prob.num_cameras, prob.obs_w.shape[0]
+    return C <= cfg.dense_schur_max_cameras and C * O <= _DENSE_MAX_VOLUME
+
+
+def near_plane_floor(prob: BAProblem) -> torch.Tensor:
+    """The near-plane/cheirality gate's depth floor (0-d): 1e-3 of the
+    weighted RMS depth at prob's parameters. Points at or behind a camera
+    plane would inflate the normal equations by decades; every NE build and
+    cost of a solve drops the observations at or below it."""
+    z0 = projection(prob.cam_params[prob.obs_cam.long()], prob.intrinsics[prob.obs_cam.long()],
+                    prob.points[prob.obs_point.long()], prob.obs_uv)["xc2"]
+    z_rms = torch.sqrt((prob.obs_w * z0 * z0).sum() / prob.obs_w.sum().clamp_min(1.0))
+    return 1e-3 * z_rms.clamp_min(1e-9)
+
+
 class BAStats(NamedTuple):
     initial_cost: torch.Tensor
     final_cost: torch.Tensor
@@ -249,21 +347,8 @@ def bundle_adjust(prob: BAProblem, cfg: BAConfig) -> tuple[BAProblem, BAStats]:
         raise NotImplementedError(
             "intrinsics refinement (8-wide camera blocks) is not ported yet "
             "(ROADMAP.md queue 1 item 2: intrinsics refinement)")
-    C, O = prob.num_cameras, prob.obs_w.shape[0]
-    if not (C <= cfg.dense_schur_max_cameras and C * O <= _DENSE_MAX_VOLUME):
-        raise NotImplementedError(
-            f"BA with C={C}, O={O} needs the PCG reduced solver, not ported yet "
-            "(ROADMAP.md queue 1 item 2: PCG with K7 whw_cam_reduce and K11 schur_coupling_matvec)")
-
-    # Near-plane/cheirality gate, relative to the weighted RMS depth: points
-    # at or behind a camera plane would inflate the normal equations by
-    # decades. Applied at the current parameters in every NE build and cost.
-    z0 = projection(prob.cam_params[prob.obs_cam.long()], prob.intrinsics[prob.obs_cam.long()],
-                    prob.points[prob.obs_point.long()], prob.obs_uv)["xc2"]
-    w_sum = prob.obs_w.sum()
-    z_rms = torch.sqrt((prob.obs_w * z0 * z0).sum() / w_sum.clamp_min(1.0))
-    z_floor = 1e-3 * z_rms.clamp_min(1e-9)
-    inv = solve_invariants(prob, z_floor)
+    use_dense = uses_dense_solver(prob, cfg)
+    inv = solve_invariants(prob, near_plane_floor(prob))
 
     cam_params, points = prob.cam_params, prob.points
     cost = cost0 = compute_cost(prob, cam_params, points, cfg, inv)
@@ -273,7 +358,10 @@ def bundle_adjust(prob: BAProblem, cfg: BAConfig) -> tuple[BAProblem, BAStats]:
     while it < cfg.max_iterations:
         ne = build_normal_equations(prob, cam_params, points, lam, cfg, inv)
         rhs = _schur_rhs(ne, prob, inv)
-        dc = _dense_schur_solve(ne, prob, rhs, inv)
+        if use_dense:
+            dc = _dense_schur_solve(ne, prob, rhs, inv)
+        else:
+            dc = _pcg(ne, prob, rhs, cfg, inv)
         dp = _back_substitute(ne, prob, dc, inv)
         dc = torch.where(prob.cam_fixed[:, None], zero, dc)
         dp = torch.where(prob.point_fixed[:, None], zero, dp)

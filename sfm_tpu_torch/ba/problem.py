@@ -29,8 +29,9 @@ class BAProblem:
     padded to a fixed budget with obs_w = 0 and sorted by point. cam_fixed
     marks gauge-fixed or out-of-window cameras (their updates are zeroed).
     point_align != 0 certifies that no point's segment straddles a multiple
-    of point_align (padding tail exempt); the dense-Schur path does not need
-    it, the point-aligned coupling-matvec kernel of the PCG path will.
+    of point_align (padding tail exempt). No kernel of the port reads it
+    (K11 walks point segments directly); the alignment padding is kept so
+    the padded capacities, which pick the reduced solver, match sfm_tpu's.
     """
 
     cam_params: torch.Tensor   # [C, 6] rvec + tvec
@@ -123,7 +124,8 @@ def build_problem(
     point_capacity: int | None = None,
     refine_intrinsics: bool = False,
     tight: bool = False,
-    device: torch.device | str = "cpu",
+    *,
+    device: torch.device | str,
 ) -> tuple[BAProblem, np.ndarray, np.ndarray]:
     """Extract a BA problem from the reconstruction.
 
@@ -139,6 +141,8 @@ def build_problem(
       solve (the merged-model global polish) prefers tight caps — the
       9,998-camera 10k polish otherwise pads to C=16384 and wastes ~64% of
       every camera-axis op on dead slots.
+    device: where the problem's tensors live (required: a BA runs where
+      its problem is, so a default would silently pick the solver's device).
     Returns (problem, cam_indices, point_ids) where point_ids maps local
     point rows back to reconstruction point ids.
     """

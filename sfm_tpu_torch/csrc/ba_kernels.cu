@@ -23,14 +23,13 @@
 //
 // segment_sum replaces schur_spmv.py cam_segment_sum (Pallas one-hot MXU
 // reduction into a VMEM accumulator). Bound: bytes (one read per value).
-// One block per (segment, feature row) walks its segment of a sorting
-// permutation (or of the identity, for already-sorted point segments) and
-// tree-reduces in shared memory: no float atomics, so every run adds in the
-// same order and gives the same bits.
+// The kernel (segment_sum.cuh) is a deterministic sorted-segment tree
+// reduction: no float atomics, so every run gives the same bits.
 
 #include <cuda_runtime.h>
 
 #include "ba_project.cuh"
+#include "segment_sum.cuh"
 
 namespace {
 
@@ -209,27 +208,6 @@ __global__ __launch_bounds__(kCostThreads) void cost_finish_kernel(
   }
 }
 
-__global__ void segment_sum_kernel(const float* __restrict__ values,
-                                   const int* __restrict__ perm,
-                                   const int* __restrict__ bounds, int O,
-                                   int K, float* __restrict__ out) {
-  extern __shared__ float sh[];
-  const int seg = blockIdx.x;
-  const int k = blockIdx.y;
-  const int lo = bounds[seg], hi = bounds[seg + 1];
-  const float* row = values + (size_t)k * O;
-  float acc = 0.0f;
-  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x)
-    acc += row[perm != nullptr ? perm[i] : i];
-  sh[threadIdx.x] = acc;
-  __syncthreads();
-  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) sh[threadIdx.x] += sh[threadIdx.x + off];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[(size_t)seg * K + k] = sh[0];
-}
-
 }  // namespace
 
 extern "C" int sfm_fused_ne_payloads(const int* obs_cam, const float* pts_t,
@@ -261,8 +239,6 @@ extern "C" int sfm_fused_cost_sums(const int* obs_cam, const float* pts_t,
 extern "C" int sfm_segment_sum(const float* values, const int* perm,
                                const int* bounds, int O, int K, int S,
                                int threads, float* out, void* stream) {
-  dim3 grid(S, K);
-  segment_sum_kernel<<<grid, threads, threads * sizeof(float),
-                       (cudaStream_t)stream>>>(values, perm, bounds, O, K, out);
-  return (int)cudaGetLastError();
+  return sfm::launch_segment_sum(values, perm, bounds, O, K, S, threads, out,
+                                 (cudaStream_t)stream);
 }

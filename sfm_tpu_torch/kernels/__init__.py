@@ -1,10 +1,12 @@
 """Hand-written Hopper kernels (CUDA C++ for sm_90a) and their wrappers.
 
-Every kernel of the port lives in ``sfm_tpu_torch/csrc/`` and is compiled
-with ``nvcc`` into one shared library with a plain C interface, loaded with
-``ctypes`` at first use and cached under ``sfm_tpu_torch/build/`` by a hash
-of the sources. Nothing is compiled or loaded at import time, so the package
-imports (and its CPU tests run) on machines without a GPU or a CUDA toolkit.
+Every kernel of the port lives in ``sfm_tpu_torch/csrc/``. At first use
+each ``.cu`` source is compiled by its own ``nvcc`` process (all started
+together), the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes`` and cached under ``sfm_tpu_torch/build/``
+by a hash of the sources. Nothing is compiled or loaded at import time, so
+the package imports (and its CPU tests run) on machines without a GPU or a
+CUDA toolkit.
 
 Wrapper contract (one Python function per kernel):
 
@@ -34,7 +36,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 LAUNCHES: dict[str, int] = {
     "dog_extrema_scores": 0,
@@ -42,6 +44,8 @@ LAUNCHES: dict[str, int] = {
     "fused_ne_payloads": 0,
     "fused_cost_sums": 0,
     "cam_segment_sum": 0,
+    "whw_cam_reduce": 0,
+    "schur_coupling_matvec": 0,
 }
 
 _P = ctypes.c_void_p
@@ -54,6 +58,8 @@ _SIGNATURES = {
     "sfm_fused_ne_payloads": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
     "sfm_fused_cost_sums": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P, _P),
     "sfm_segment_sum": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "sfm_whw_cam_reduce": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "sfm_schur_coupling_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -95,12 +101,27 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs, procs = [], []
+            for f in files:
+                if f.suffix != ".cu":
+                    continue
+                objs.append(str(Path(tmp) / (f.stem + ".o")))
+                procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(f), "-o", objs[-1]],
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True))
+            errors = []
+            for proc in procs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"{' '.join(proc.args)} ({proc.returncode}):\n{err}")
+            if errors:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
             out = Path(tmp) / so.name
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out),
-                   *[str(f) for f in files if f.suffix == ".cu"]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            proc = subprocess.run([nvcc, "-shared", "-o", str(out), *objs],
+                                  capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
             os.replace(out, so)
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

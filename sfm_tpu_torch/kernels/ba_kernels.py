@@ -1,9 +1,11 @@
 """K3 fused_ne_payloads, K5 fused_cost_sums and K9 cam_segment_sum
-(csrc/ba_kernels.cu, csrc/ba_project.cuh).
+(csrc/ba_kernels.cu, csrc/ba_project.cuh), K7 whw_cam_reduce and K11
+schur_coupling_matvec (csrc/schur_kernels.cu).
 
-Replace sfm_tpu/kernels/schur_spmv.py fused_ne_payloads, fused_cost_sums and
-cam_segment_sum. Layouts are feature-major ([rows, O]) wherever a kernel
-reads or writes per-observation rows, so a warp touches contiguous memory.
+Replace sfm_tpu/kernels/schur_spmv.py fused_ne_payloads, fused_cost_sums,
+cam_segment_sum, whw_cam_reduce and schur_coupling_matvec. Layouts are
+feature-major ([rows, O]) wherever a kernel reads or writes per-observation
+rows, so a warp touches contiguous memory.
 
 Per-observation inputs shared by K3 and K5:
   obs_cam  [O] int32      camera of each observation
@@ -181,9 +183,10 @@ def _block_threads(O: int, S: int) -> int:
 
 
 def cam_segment_sum(values_t, perm, bounds):
-    """Deterministic sorted-segment reduction: values_t [K, O] f32, perm [O]
-    int32 (a permutation sorting observations by segment; None when they
-    already are), bounds [S+1] int32 -> [S, K]."""
+    """Deterministic sorted-segment reduction: values_t [K, O] f32, perm [N]
+    int32 (N <= O: observation indices sorted by segment; None when the
+    observations already are), bounds [S+1] int32 offsets into perm (or
+    into [0, O)) -> [S, K]."""
     if not on_cuda(values_t):
         return cam_segment_sum_plain(values_t, perm, bounds)
     K, O = values_t.shape
@@ -192,10 +195,91 @@ def cam_segment_sum(values_t, perm, bounds):
     check(values_t, "values_t", torch.float32, (K, O), dev)
     check(bounds, "bounds", torch.int32, (S + 1,), dev)
     if perm is not None:
-        check(perm, "perm", torch.int32, (O,), dev)
+        check(perm, "perm", torch.int32, (None,), dev)
     out = torch.empty((S, K), dtype=torch.float32, device=dev)
     if S == 0 or K == 0:
         return out
     launch("sfm_segment_sum", "cam_segment_sum",
            ptr(values_t), ptr(perm), ptr(bounds), O, K, S, _block_threads(O, S), ptr(out))
+    return out
+
+
+def _whw_rows_t(W_t: torch.Tensor, hinv_o: torch.Tensor) -> torch.Tensor:
+    """vec(W_o Hinv_o W_o^T) per observation: W_t [18, O], hinv_o [O, 3, 3]
+    -> [36, O] (the plain versions' intermediate)."""
+    Wm = W_t.reshape(6, 3, -1)
+    u = torch.einsum("iko,okl->ilo", Wm, hinv_o)
+    return torch.einsum("ilo,jlo->ijo", u, Wm).reshape(36, -1)
+
+
+def whw_cam_reduce_plain(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
+    """Plain K7: out[c] = sum over observations o of camera c of
+    vec(W_o Hpp_inv[p(o)] W_o^T) -> [C, 36], in W_t's dtype."""
+    return cam_segment_sum_plain(_whw_rows_t(W_t, Hpp_inv[obs_point.long()]), cam_perm, cam_bounds)
+
+
+def whw_cam_reduce(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
+    """Schur-Jacobi blocks sum_{o in c} W_o Hpp^-1_{p(o)} W_o^T: W_t [18, O]
+    (row i*3+k = W[i, k]), Hpp_inv [P, 3, 3], obs_point [O] int32,
+    cam_perm [N] int32 and cam_bounds [C+1] int32 (a stable camera sort of
+    the observations [0, N), N <= O) -> [C, 36]. Deterministic."""
+    if not on_cuda(W_t):
+        return whw_cam_reduce_plain(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds)
+    O = W_t.shape[1]
+    P = Hpp_inv.shape[0]
+    C = cam_bounds.shape[0] - 1
+    dev = W_t.device
+    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
+    check(obs_point, "obs_point", torch.int32, (O,), dev)
+    check(cam_perm, "cam_perm", torch.int32, (None,), dev)
+    check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
+    out = torch.empty((C, 36), dtype=torch.float32, device=dev)
+    if C == 0:
+        return out
+    launch("sfm_whw_cam_reduce", "whw_cam_reduce",
+           ptr(W_t), ptr(Hpp_inv), ptr(obs_point), ptr(cam_perm), ptr(cam_bounds), O, C, ptr(out))
+    return out
+
+
+def schur_coupling_matvec_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm,
+                                cam_bounds, v):
+    """Plain K11: (W Hpp^-1 W^T) v -> [C, 6], in W_t's dtype, by the
+    feature-major einsums and the plain sorted-segment sums."""
+    Wm = W_t.reshape(6, 3, -1)
+    u_t = torch.einsum("iko,io->ko", Wm, v[obs_cam.long()].T)                  # [3, O]
+    g = cam_segment_sum_plain(u_t, None, point_bounds)                         # [P, 3]
+    h = torch.einsum("pij,pj->pi", Hpp_inv, g)
+    y_t = torch.einsum("iko,ko->io", Wm, h[obs_point.long()].T)                # [6, O]
+    return cam_segment_sum_plain(y_t, cam_perm, cam_bounds)
+
+
+def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_bounds, v):
+    """The Schur coupling term (W Hpp^-1 W^T) v for v [C, 6] -> [C, 6]:
+    per observation u_o = W_o^T v[cam_o], per point g_p = sum u_o and
+    h_p = Hpp^-1_p g_p, per observation y_o = W_o h_p, per camera the sum of
+    y_o. Observations must be sorted by point; point_bounds [P+1] covers
+    [0, N) and cam_perm/cam_bounds (as for whw_cam_reduce) the same N
+    observations (SolveInvariants' contract). Deterministic."""
+    if not on_cuda(W_t):
+        return schur_coupling_matvec_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds,
+                                           cam_perm, cam_bounds, v)
+    O = W_t.shape[1]
+    P = Hpp_inv.shape[0]
+    C = v.shape[0]
+    dev = W_t.device
+    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
+    check(obs_cam, "obs_cam", torch.int32, (O,), dev)
+    check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
+    check(cam_perm, "cam_perm", torch.int32, (None,), dev)
+    check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
+    check(v, "v", torch.float32, (C, 6), dev)
+    out = torch.empty((C, 6), dtype=torch.float32, device=dev)
+    if C == 0 or O == 0 or P == 0:
+        return out.zero_()
+    y_t = torch.empty((6, O), dtype=torch.float32, device=dev)
+    launch("sfm_schur_coupling_matvec", "schur_coupling_matvec",
+           ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(v), ptr(cam_perm),
+           ptr(cam_bounds), O, P, C, _block_threads(O, C), ptr(y_t), ptr(out))
     return out

@@ -95,7 +95,10 @@ def irls_refit(model: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor, mask: to
         model = fit_fn(x1, x2, w)
         count = ((error_fn(model, x1, x2) < thr) & mask).sum(-1)
         better = count >= best_count
-        best_model = torch.where(better[..., None, None], model, best_model)
+        # Broadcast over the model's own trailing shape: [..., 3, 3] for E
+        # and H, [..., 6] for a PnP pose.
+        tail = (1,) * (model.dim() - better.dim())
+        best_model = torch.where(better.reshape(better.shape + tail), model, best_model)
         best_count = torch.where(better, count, best_count)
     errs = error_fn(best_model, x1, x2)
     return best_model, (errs < thr) & mask

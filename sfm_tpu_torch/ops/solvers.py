@@ -325,6 +325,29 @@ def decompose_essential(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor, mas
     return R, tt, torch.gather(n, -1, best[..., None])[..., 0]
 
 
+def decompose_essential_all(E: torch.Tensor):
+    """All four (R, t) interpretations of E, unvoted: ([..., 4, 3, 3],
+    [..., 4, 3]), in decompose_essential's candidate order. The bootstrap
+    pose search scores each by what it triangulates."""
+    U, _, V = svd3_twoview(E)
+    Vt = V.transpose(-1, -2)
+    W = torch.tensor(_W90, dtype=E.dtype, device=E.device)
+    Ra = U @ W @ Vt
+    Rb = U @ W.T @ Vt
+    t = U[..., 2]
+    return torch.stack([Ra, Ra, Rb, Rb], dim=-3), torch.stack([t, -t, t, -t], dim=-2)
+
+
+def decompose_homography_all(Hn: torch.Tensor):
+    """All four (R, t) interpretations of a calibrated homography, unvoted:
+    ([..., 4, 3, 3], [..., 4, 3]), in decompose_homography's candidate
+    order; the physical-solution choice is left to the caller."""
+    U, V, s, d1, d2, d3, xa, xc, sin_t, cos_t = _homography_frame(Hn)
+    cands = [_homography_candidate(U, V, s, d1, d3, xa, xc, sin_t, cos_t, e1, e3)
+             for e1 in (1.0, -1.0) for e3 in (1.0, -1.0)]
+    return torch.stack([c[0] for c in cands], -3), torch.stack([c[1] for c in cands], -2)
+
+
 def _homography_frame(Hn: torch.Tensor):
     """Shared Faugeras/Zhang quantities of a calibrated homography."""
     A = Hn.transpose(-1, -2) @ Hn

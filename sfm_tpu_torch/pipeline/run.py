@@ -1,7 +1,8 @@
 """End-to-end pipeline driver (port of sfm_tpu/pipeline/run.py).
 
 Ported: in-memory or path inputs loaded eagerly, exhaustive pairs, match +
-verification, and the two-image branch (two-view bootstrap + BA). Every
+verification, the two-image branch (two-view bootstrap + BA) and, for any
+other image count, the incremental engine without partitioning. Every
 other branch raises NotImplementedError naming its ROADMAP.md item.
 """
 
@@ -46,8 +47,8 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
             _not_ported("engine_mode='global'", "item 5: partition, merge and the global engine")
         if cfg.engine_mode != "incremental":
             raise ValueError(f"unknown engine_mode: {cfg.engine_mode}")
-        _not_ported(f"reconstruction of {num_images} images (incremental engine)",
-                    "items 1-2: tracks, native/ and PnP, then PCG and the incremental engine")
+        if cfg.partition.enabled:
+            _not_ported("partition.enabled", "item 5: partition, merge and the global engine")
 
     with timer.stage("features"):
         feats = stages.extract_stage(batch, cfg, device)
@@ -56,17 +57,25 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
     with timer.stage("match+verify"):
         graph = stages.match_and_verify_stage(feats, pairs, batch.intrinsics, cfg, device,
                                               seed=cfg.seed)
-    with timer.stage("two_view"):
-        ok_edges = np.where(graph.ok & graph.pose_ok)[0]
-        if len(ok_edges) == 0:
-            raise RuntimeError("two-view reconstruction failed: no verified pair")
-        from sfm_tpu_torch.pipeline.two_view import bootstrap_two_view
+    engine_seconds = {}
+    if num_images == 2:
+        with timer.stage("two_view"):
+            ok_edges = np.where(graph.ok & graph.pose_ok)[0]
+            if len(ok_edges) == 0:
+                raise RuntimeError("two-view reconstruction failed: no verified pair")
+            from sfm_tpu_torch.pipeline.two_view import bootstrap_two_view
 
-        rec = bootstrap_two_view(feats, graph, int(ok_edges[0]), batch.intrinsics, cfg, device)
+            rec = bootstrap_two_view(feats, graph, int(ok_edges[0]), batch.intrinsics, cfg, device)
+    else:
+        with timer.stage("incremental"):
+            from sfm_tpu_torch.pipeline.engine import incremental_reconstruct
+
+            rec = incremental_reconstruct(feats, graph, batch.intrinsics, cfg, device)
+            engine_seconds = rec.stage_seconds
 
     rec.image_names = batch.names
     rec.image_sizes = np.asarray(batch.valid_hw)[:, ::-1].astype(np.int32)
-    rec.stage_seconds = dict(timer.durations)
+    rec.stage_seconds = {**timer.durations, **engine_seconds}
     if cfg.verbose:
         print(f"[sfm_tpu_torch] {rec.summary()}")
     return rec

@@ -18,6 +18,7 @@ from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.ops.sift import Features
 from sfm_tpu_torch.pipeline.stages import FeatureSet, MatchGraph
 from sfm_tpu_torch.scene.state import Reconstruction
+from sfm_tpu_torch.scene.tracks import TrackSet
 
 
 def _fields(cls) -> list[str]:
@@ -58,6 +59,12 @@ def from_numpy_problem(src, device="cpu") -> BAProblem:
     arrays = {k: torch.from_numpy(np.array(v)).to(device)
               for k, v in _arrays(BAProblem, src, names).items()}
     return BAProblem(**arrays, point_align=int(_get(src, "point_align")))
+
+
+def from_numpy_tracks(src) -> TrackSet:
+    """TrackSet; num_tracks is taken as an int."""
+    arrays = _arrays(TrackSet, src, ["obs_image", "obs_kp", "track_id"])
+    return TrackSet(**arrays, num_tracks=int(_get(src, "num_tracks")))
 
 
 def from_numpy_reconstruction(src) -> Reconstruction:

@@ -188,9 +188,24 @@ def render_blob_scene(
     viewpoint-invariant because the substructure is itself 3D. Returns
     (images [N, H, W] float32 in [0, 1], ground-truth scene of the parents).
     """
-    rng = np.random.default_rng(seed)
-    w, h = image_size
+    views, scene = blob_scene_views(image_size, num_images, num_blobs, focal, seed,
+                                    arc_fraction, radius)
+    return np.stack([render_blob_view(v) for v in views]), scene
 
+
+def blob_scene_views(
+    image_size: tuple[int, int] = (256, 256),
+    num_images: int = 2,
+    num_blobs: int = 120,
+    focal: float = 300.0,
+    seed: int = 0,
+    arc_fraction: float = 0.04,
+    radius: float = 4.0,
+) -> tuple[list, SyntheticScene]:
+    """render_blob_scene's scene and one render_blob_view argument per view
+    (the views render independently, e.g. in a process pool, with the same
+    bits)."""
+    rng = np.random.default_rng(seed)
     scene = make_orbit_scene(
         num_cameras=num_images, num_points=num_blobs, radius=radius,
         point_extent=1.2, image_size=image_size, focal=focal, seed=seed,
@@ -207,43 +222,41 @@ def render_blob_scene(
     child_size = rng.uniform(0.02, 0.045, size=(num_blobs, n_child))  # world units
 
     children = (scene.points[:, None, :] + child_off).reshape(-1, 3)
-    amps = child_amp.reshape(-1)
-    sizes = child_size.reshape(-1)
+    views = [(image_size, children, child_amp.reshape(-1), child_size.reshape(-1),
+              scene.rvecs[i], scene.tvecs[i], scene.intrinsics[i]) for i in range(num_images)]
+    return views, scene
 
-    images = []
-    ys, xs = np.mgrid[0:h, 0:w]
-    grid = np.stack([xs + 0.5, ys + 0.5], -1).reshape(-1, 2).astype(np.float32)
-    for i in range(num_images):
-        uv, depth = _np_project(
-            children.astype(np.float64), scene.rvecs[i], scene.tvecs[i], scene.intrinsics[i].astype(np.float64)
-        )
-        sigma_px = scene.intrinsics[i, 0] * sizes / np.maximum(depth, 0.5)
-        img = np.full((h, w), 0.45, dtype=np.float32)
-        # Low-frequency background so the image is not flat.
-        img += (0.05 * np.sin((np.arange(w) + 0.5) / 37.0))[None, :] * (
-            np.cos((np.arange(h) + 0.5) / 53.0)
-        )[:, None]
-        # Windowed splatting: each blob only touches its +-4 sigma box
-        # (truncation error < 3e-4 of amplitude) — orders of magnitude
-        # cheaper than full-image distance fields at ladder scales.
-        for c in range(len(children)):
-            sp = float(sigma_px[c])
-            if not np.isfinite(sp) or sp <= 0 or depth[c] <= 0.5:
-                continue
-            r = max(2, int(np.ceil(4.0 * sp)))
-            cx, cy = uv[c]
-            x0, x1 = int(np.floor(cx - r)), int(np.ceil(cx + r)) + 1
-            y0, y1 = int(np.floor(cy - r)), int(np.ceil(cy + r)) + 1
-            x0, x1 = max(x0, 0), min(x1, w)
-            y0, y1 = max(y0, 0), min(y1, h)
-            if x0 >= x1 or y0 >= y1:
-                continue
-            xs = np.arange(x0, x1) + 0.5 - cx
-            ys = np.arange(y0, y1) + 0.5 - cy
-            d2 = ys[:, None] ** 2 + xs[None, :] ** 2
-            img[y0:y1, x0:x1] += amps[c] * 0.35 * np.exp(-d2 / (2 * sp * sp + 1e-6))
-        images.append(np.clip(img, 0.0, 1.0))
-    return np.stack(images), scene
+
+def render_blob_view(view) -> np.ndarray:
+    """One view of render_blob_scene: view = (image_size, children [n, 3],
+    amplitudes [n], world sizes [n], rvec, tvec, intrinsics)."""
+    (w, h), children, amps, sizes, rvec, tvec, intr = view
+    uv, depth = _np_project(children.astype(np.float64), rvec, tvec, intr.astype(np.float64))
+    sigma_px = intr[0] * sizes / np.maximum(depth, 0.5)
+    img = np.full((h, w), 0.45, dtype=np.float32)
+    # Low-frequency background so the image is not flat.
+    img += (0.05 * np.sin((np.arange(w) + 0.5) / 37.0))[None, :] * (
+        np.cos((np.arange(h) + 0.5) / 53.0)
+    )[:, None]
+    # Windowed splatting: each blob only touches its +-4 sigma box
+    # (truncation error < 3e-4 of amplitude).
+    for c in range(len(children)):
+        sp = float(sigma_px[c])
+        if not np.isfinite(sp) or sp <= 0 or depth[c] <= 0.5:
+            continue
+        r = max(2, int(np.ceil(4.0 * sp)))
+        cx, cy = uv[c]
+        x0, x1 = int(np.floor(cx - r)), int(np.ceil(cx + r)) + 1
+        y0, y1 = int(np.floor(cy - r)), int(np.ceil(cy + r)) + 1
+        x0, x1 = max(x0, 0), min(x1, w)
+        y0, y1 = max(y0, 0), min(y1, h)
+        if x0 >= x1 or y0 >= y1:
+            continue
+        xs = np.arange(x0, x1) + 0.5 - cx
+        ys = np.arange(y0, y1) + 0.5 - cy
+        d2 = ys[:, None] ** 2 + xs[None, :] ** 2
+        img[y0:y1, x0:x1] += amps[c] * 0.35 * np.exp(-d2 / (2 * sp * sp + 1e-6))
+    return np.clip(img, 0.0, 1.0)
 
 
 def render_checkerboard_scene(

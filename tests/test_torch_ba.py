@@ -1,5 +1,5 @@
-"""Bundle adjustment: kernels K3, K5 and K9 (plain versions) and the LM
-solve against sfm_tpu.ba.
+"""Bundle adjustment: kernels K3, K5, K7, K9 and K11 (plain versions), the
+PCG solver and the LM solve against sfm_tpu.ba.
 
 Tolerances:
 - normal-equation blocks vs sfm_tpu build_normal_equations (its plain path)
@@ -9,8 +9,18 @@ Tolerances:
 - robust cost vs compute_cost: rtol 1e-5 (summation order);
 - K9 plain version vs jax.ops.segment_sum: rtol 1e-6 (on the CPU both add
   each segment's rows in the same, original order);
-- bundle_adjust on a noisy two-camera problem: final cost within 1e-3
-  relative of sfm_tpu's (same LM schedule; rounding moves the iterates).
+- bundle_adjust on a noisy two-camera problem (dense) and a 12-camera one
+  forced onto PCG: final cost within 1e-3 relative of sfm_tpu's (same LM
+  schedule; rounding moves the iterates);
+- K7 plain version vs sfm_tpu's whw_cam_reduce Pallas kernel in interpret
+  mode: 2e-5 of the output's scale; K11 plain version vs
+  schur_coupling_matvec in interpret mode: 3e-5 of scale (the kernels split
+  fp32 into three bf16 terms for the MXU; tests/unit/test_ba.py's bars);
+- the Schur-Jacobi preconditioner vs sfm_tpu's: 1e-4 of scale; _pcg vs
+  sfm_tpu's _pcg on the same normal equations (each package builds its
+  preconditioner from them): 1e-3 of the solution's scale (64 fp32 CG
+  steps; summation order drifts the iterates), and residuals of the same
+  size.
 """
 
 import jax
@@ -27,7 +37,9 @@ from sfm_tpu.scene.state import Reconstruction as JReconstruction
 from sfm_tpu.utils.synthetic import make_orbit_scene
 from sfm_tpu_torch.ba import core
 from sfm_tpu_torch.config import BAConfig
-from sfm_tpu_torch.kernels.ba_kernels import cam_segment_sum, fused_ne_payloads, segment_bounds
+from sfm_tpu_torch.kernels.ba_kernels import (
+    cam_segment_sum, fused_ne_payloads, schur_coupling_matvec, segment_bounds, whw_cam_reduce,
+)
 from sfm_tpu_torch.utils.interop import from_numpy_problem, to_numpy
 
 torch.set_num_threads(2)
@@ -138,10 +150,160 @@ def test_bundle_adjust_matches_jax():
     assert not out_t.cam_params[0].ne(prob.cam_params[0]).any()   # gauge camera fixed
 
 
-def test_pcg_sized_problem_is_refused(ne_problem):
+def test_bundle_adjust_pcg_matches_jax():
+    """A problem past the dense gate (dense_schur_max_cameras=0) takes PCG in
+    both packages: the same LM schedule lands on the same cost."""
+    jprob, prob = scene_problem(12, 300, 0.02, 0.05, seed=9)
+    out_j, st_j = jcore.bundle_adjust(jprob, JBAConfig(dense_schur_max_cameras=0, max_iterations=8))
+    cfg = BAConfig(dense_schur_max_cameras=0, max_iterations=8)
+    assert not core.uses_dense_solver(prob, cfg) and core.uses_dense_solver(prob, BAConfig())
+    out_t, st_t = core.bundle_adjust(prob, cfg)
+    assert float(st_t.initial_cost) == pytest.approx(float(st_j.initial_cost), rel=1e-5)
+    assert float(st_t.final_cost) == pytest.approx(float(st_j.final_cost), rel=1e-3)
+    assert float(st_t.final_cost) < 0.05 * float(st_t.initial_cost)
+    assert not out_t.cam_params[0].ne(prob.cam_params[0]).any()   # gauge camera fixed
+
+
+def _random_whw_inputs(seed=2, O=2048, C=48, P=300):
+    rng = np.random.default_rng(seed)
+    W = rng.normal(size=(O, 18)).astype(np.float32)
+    A = rng.normal(size=(P, 3, 3)).astype(np.float32)
+    hinv = (A @ A.transpose(0, 2, 1)).astype(np.float32)          # SPD-ish blocks
+    obs_point = np.sort(rng.integers(0, P, O)).astype(np.int32)
+    ids = rng.integers(0, C, O).astype(np.int32)
+    return W, hinv, obs_point, ids
+
+
+def test_whw_cam_reduce_plain_matches_pallas_kernel():
+    W, hinv, obs_point, ids = _random_whw_inputs()
+    C = 48
+    ref = np.asarray(schur_spmv.whw_cam_reduce(jnp.asarray(W.T), jnp.asarray(hinv[obs_point].reshape(-1, 9).T),
+                                               jnp.asarray(ids), C, interpret=True))
+    ids_t = torch.from_numpy(ids)
+    perm = torch.argsort(ids_t, stable=True)
+    got = whw_cam_reduce(torch.from_numpy(W.T.copy()), torch.from_numpy(hinv), torch.from_numpy(obs_point),
+                         perm.to(torch.int32), segment_bounds(ids_t[perm], C)).numpy()
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got / scale, ref / scale, atol=2e-5)
+
+
+def test_schur_coupling_matvec_plain_matches_pallas_kernel():
+    """tests/unit/test_ba.py's fixture: the port takes Hpp^-1 per point and
+    point segments where the TPU kernel took a [9, O] gather and tile-local
+    point ids."""
+    jprob, prob = scene_problem(12, 300, 0.02, 0.05, seed=23)
+    assert prob.point_align > 0
+    ne = jcore.build_normal_equations(jprob, jprob.cam_params, jprob.points, jnp.asarray(1e-3),
+                                      JBAConfig(robust_loss="huber"))
+    C, O, P = prob.num_cameras, prob.obs_w.shape[0], prob.num_points
+    tile = schur_spmv.matvec_tile(C, prob.point_align)
+    assert tile > 0 and O % tile == 0
+    w_t = ne.W.reshape(O, 18).T
+    op = jprob.obs_point.reshape(O // tile, tile)
+    lids = (op - op[:, :1]).reshape(O)
+    v = np.random.default_rng(3).normal(size=(C, 6)).astype(np.float32)
+    ref = np.asarray(schur_spmv.schur_coupling_matvec(
+        jprob.obs_cam, lids, w_t, ne.Hpp_inv.reshape(P, 9)[jprob.obs_point].T, jnp.asarray(v),
+        tile=tile, interpret=True))
+    inv = core.solve_invariants(prob)
+    got = schur_coupling_matvec(torch.from_numpy(np.array(w_t)), torch.from_numpy(np.array(ne.Hpp_inv)),
+                                prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
+                                inv.cam_bounds, torch.from_numpy(v)).numpy()
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got / scale, ref / scale, atol=3e-5)
+
+
+def _jax_pcg_setup(seed=9):
+    jprob, prob = scene_problem(12, 300, 0.02, 0.05, seed=seed)
+    jcfg = JBAConfig(dense_schur_max_cameras=0)
+    ne_j = jcore.build_normal_equations(jprob, jprob.cam_params, jprob.points, jnp.asarray(1e-3), jcfg)
+    return jprob, prob, jcfg, ne_j
+
+
+def test_preconditioner_matches_jax(monkeypatch):
+    jprob, prob, _, ne_j = _jax_pcg_setup()
+    inv = core.solve_invariants(prob)
+    ne_t = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3),
+                                       BAConfig(dense_schur_max_cameras=0), inv)
+    M_inv, sdiag = core.pcg_preconditioner(ne_t, prob, inv)
+    close(sdiag, ne_j.sdiag, "sdiag")
+    close(M_inv * sdiag[:, :, None] * sdiag[:, None, :],
+          ne_j.M_inv * ne_j.sdiag[:, :, None] * ne_j.sdiag[:, None, :], "M_inv (equilibrated)")
+
+    def refused(*args):
+        raise AssertionError("the dense path built the PCG preconditioner (K7)")
+
+    monkeypatch.setattr(core, "whw_cam_reduce", refused)       # the dense path never builds it
+    core.bundle_adjust(prob, BAConfig(max_iterations=1))
+
+
+def test_pcg_matches_jax():
+    jprob, prob, jcfg, ne_j = _jax_pcg_setup()
+    O = prob.obs_w.shape[0]
+    ne_t = core.NormalEq(
+        Hcc=torch.from_numpy(np.array(ne_j.Hcc)), Hpp_inv=torch.from_numpy(np.array(ne_j.Hpp_inv)),
+        W_t=torch.from_numpy(np.array(ne_j.W.reshape(O, 18).T)), bc=torch.from_numpy(np.array(ne_j.bc)),
+        bp=torch.from_numpy(np.array(ne_j.bp)))
+    rhs = jcore._schur_rhs(ne_j, jprob)
+    x_j = np.asarray(jcore._pcg(ne_j, jprob, rhs, jcfg))
+    inv = core.solve_invariants(prob)
+    x_t = core._pcg(ne_t, prob, torch.from_numpy(np.array(rhs)), BAConfig(dense_schur_max_cameras=0), inv)
+    close(x_t, x_j, "x", tol=1e-3)
+    S_x = core._schur_matvec_pcg(ne_t, prob, x_t, inv).numpy()
+    S_xj = core._schur_matvec_pcg(ne_t, prob, torch.from_numpy(np.array(x_j)), inv).numpy()
+    r_t = np.linalg.norm(S_x - np.asarray(rhs))
+    r_j = np.linalg.norm(S_xj - np.asarray(rhs))
+    assert r_t < 1e-2 * np.linalg.norm(np.asarray(rhs)) and r_t < 2.0 * r_j + 1e-6
+
+
+def test_build_problem_requires_device():
+    from sfm_tpu_torch.ba.problem import build_problem
+    from sfm_tpu_torch.utils.interop import from_numpy_reconstruction
+
+    scene = make_orbit_scene(num_cameras=3, num_points=40, noise_px=0.5, seed=1)
+    obs = np.argwhere(scene.visible)
+    rec = from_numpy_reconstruction(dict(
+        intrinsics=scene.intrinsics, rvecs=scene.rvecs, tvecs=scene.tvecs, registered=np.ones(3, bool),
+        image_sizes=None, points=scene.points, point_errors=np.zeros(40, np.float32),
+        point_valid=np.ones(40, bool), obs_point=obs[:, 1].astype(np.int32),
+        obs_image=obs[:, 0].astype(np.int32), obs_kp=obs[:, 1].astype(np.int32),
+        obs_uv=scene.pixels[obs[:, 0], obs[:, 1]], image_names=[]))
+    with pytest.raises(TypeError):
+        build_problem(rec)
+    prob, _, _ = build_problem(rec, device="cpu")
+    assert prob.obs_w.device.type == "cpu"
+
+
+def test_intrinsics_refinement_is_refused(ne_problem):
     _, prob = ne_problem
+    wide = prob._replace(cam_params=torch.cat([prob.cam_params, torch.zeros(prob.num_cameras, 2)], 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.bundle_adjust(prob, BAConfig(dense_schur_max_cameras=4))
+        core.bundle_adjust(wide, BAConfig())
+
+
+def test_segment_tables_leave_out_the_padding_tail(ne_problem):
+    """The zero-weight capacity tail (one long segment of the last point slot
+    and camera 0) is left out of the segment tables; the sums are the same
+    as over every row."""
+    _, prob = ne_problem
+    O = prob.obs_w.shape[0]
+    n = int(torch.nonzero(prob.obs_w).max()) + 1
+    assert n < O
+    inv = core.solve_invariants(prob)
+    assert inv.cam_perm.numel() == n == int(inv.cam_bounds[-1]) == int(inv.point_bounds[-1])
+    full_perm = torch.argsort(prob.obs_cam, stable=True)
+    full = inv._replace(point_bounds=segment_bounds(prob.obs_point, prob.num_points),
+                        cam_perm=full_perm.to(torch.int32),
+                        cam_bounds=segment_bounds(prob.obs_cam[full_perm], prob.num_cameras))
+    ne = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3), BAConfig(), inv)
+    ne_full = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3),
+                                          BAConfig(), full)
+    for a, b in zip((*ne, *core.pcg_preconditioner(ne, prob, inv)),
+                    (*ne_full, *core.pcg_preconditioner(ne_full, prob, full))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    v = torch.from_numpy(np.random.default_rng(4).normal(size=(prob.num_cameras, 6)).astype(np.float32))
+    torch.testing.assert_close(core._schur_matvec_pcg(ne, prob, v, inv),
+                               core._schur_matvec_pcg(ne, prob, v, full), rtol=0, atol=0)
 
 
 def test_kernel_input_checks():

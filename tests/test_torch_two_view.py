@@ -122,11 +122,13 @@ def test_bootstrap_from_jax_stage_outputs(fixture):
     assert rec.mean_reprojection_error() == pytest.approx(ref.mean_reprojection_error(), rel=0.01)
 
 
-def test_unported_branches_raise(fixture):
+def test_unported_branches_raise(fixture, tmp_path):
     imgs = fixture[0]
     three = [imgs[0], imgs[1], imgs[0]]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sfm_tpu_torch.reconstruct(three, device="cpu", verbose=False)
+        sfm_tpu_torch.reconstruct(three, device="cpu", engine_mode="global", verbose=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sfm_tpu_torch.reconstruct(three, device="cpu", artifact_dir=str(tmp_path), verbose=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sfm_tpu_torch.reconstruct(list(imgs), device="cpu", pair_mode="vocab_tree", verbose=False)
 
