@@ -18,6 +18,15 @@
   back-substitution dp = Hpp^-1 (bp - W^T dc); LM accept/reject on the true
   robust cost (kernel K5), multiplicative damping.
 
+Past MAX_CAMS = 4096 cameras (the JAX package's _MAX_CAMS, where its one-hot
+kernels stop) the same solve goes through the large-camera-count kernel set:
+camera, intrinsic and v rows are gathered per observation by plain indexing
+and K4 (normal equations), K6 (cost), K8 (preconditioner payloads, then K9)
+and K10 (coupling payloads, then K9) take the place of K3, K5, K7 and K11.
+The JAX package switches its coupling matvec later (past 16384 cameras or on
+unaligned tiles, where its two-level in-kernel matvec cannot run); this
+package has no two-level kernel, so the whole set switches at one threshold.
+
 Intrinsics refinement (8-wide camera blocks) raises NotImplementedError.
 """
 
@@ -31,8 +40,9 @@ from sfm_tpu_torch.ba.problem import BAProblem, CAM_DIM, PT_DIM
 from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.geometry.rotations import so3_hat, so3_right_jacobian
 from sfm_tpu_torch.kernels.ba_kernels import (
-    cam_segment_sum, fused_cost_sums, fused_ne_payloads, projection, schur_coupling_matvec,
-    segment_bounds, whw_cam_reduce,
+    MAX_CAMS, cam_segment_sum, fused_cost_sums, fused_cost_sums_big, fused_ne_payloads,
+    fused_ne_payloads_big, projection, schur_coupling_matvec, schur_coupling_payloads_big,
+    segment_bounds, whw_cam_reduce, whw_payloads_big,
 )
 
 _DENSE_MAX_VOLUME = 4 << 20   # C * O gate of the dense reduced solve
@@ -77,6 +87,17 @@ class SolveInvariants(NamedTuple):
     cam_perm: torch.Tensor      # [N] int32 permutation sorting obs [0, N) by camera (stable)
     cam_bounds: torch.Tensor    # [C+1] int32 camera segment offsets into cam_perm
     z_floor: torch.Tensor | None = None   # near-plane depth floor (0-d)
+    intr_t: torch.Tensor | None = None    # [6, O] intrinsics per observation (large-C set only)
+
+
+def uses_big_kernels(prob: BAProblem) -> bool:
+    """Whether a solve of `prob` takes the large-camera-count kernel set."""
+    return prob.num_cameras > MAX_CAMS
+
+
+def _rows_t(table: torch.Tensor, obs_cam: torch.Tensor) -> torch.Tensor:
+    """Rows of a per-camera table [C, K] gathered per observation -> [K, O]."""
+    return table.T[:, obs_cam.long()].contiguous()
 
 
 def solve_invariants(prob: BAProblem, z_floor: torch.Tensor | None = None) -> SolveInvariants:
@@ -95,6 +116,7 @@ def solve_invariants(prob: BAProblem, z_floor: torch.Tensor | None = None) -> So
         cam_perm=cam_perm.to(torch.int32),
         cam_bounds=segment_bounds(prob.obs_cam[:n][cam_perm], prob.num_cameras),
         z_floor=z_floor,
+        intr_t=_rows_t(prob.intrinsics, prob.obs_cam) if uses_big_kernels(prob) else None,
     )
 
 
@@ -108,9 +130,14 @@ def compute_cost(prob: BAProblem, cam_params, points, cfg: BAConfig,
     near-plane gate of inv.z_floor at these parameters."""
     if inv is None:
         inv = solve_invariants(prob)
-    sums = fused_cost_sums(prob.obs_cam, _pts_t(prob, points), inv.static_t,
-                           cam_params.contiguous(), prob.intrinsics, inv.z_floor,
-                           cfg.robust_loss, cfg.robust_scale_px)
+    if uses_big_kernels(prob):
+        sums = fused_cost_sums_big(_pts_t(prob, points), inv.static_t,
+                                   _rows_t(cam_params, prob.obs_cam), inv.intr_t, inv.z_floor,
+                                   cfg.robust_loss, cfg.robust_scale_px)
+    else:
+        sums = fused_cost_sums(prob.obs_cam, _pts_t(prob, points), inv.static_t,
+                               cam_params.contiguous(), prob.intrinsics, inv.z_floor,
+                               cfg.robust_loss, cfg.robust_scale_px)
     return sums[0] / sums[1].clamp_min(1.0)
 
 
@@ -159,9 +186,14 @@ def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConf
                            inv: SolveInvariants) -> NormalEq:
     """Damped normal-equation blocks at (cam_params, points)."""
     C = prob.num_cameras
-    w_t, yp_t, cam_t = fused_ne_payloads(
-        prob.obs_cam, _pts_t(prob, points), inv.static_t, cam_params.contiguous(),
-        prob.intrinsics, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
+    if uses_big_kernels(prob):
+        w_t, yp_t, cam_t = fused_ne_payloads_big(
+            _pts_t(prob, points), inv.static_t, _rows_t(cam_params, prob.obs_cam), inv.intr_t,
+            inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
+    else:
+        w_t, yp_t, cam_t = fused_ne_payloads(
+            prob.obs_cam, _pts_t(prob, points), inv.static_t, cam_params.contiguous(),
+            prob.intrinsics, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
     camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds)       # [C, 42]
     Hcc = camred[:, :36].reshape(C, CAM_DIM, CAM_DIM)
     bc = camred[:, 36:42]
@@ -183,11 +215,15 @@ def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConf
 def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The Schur-Jacobi preconditioner: the exact block diagonal of S,
-    M = Hcc - sum_c W Hpp^-1 W^T (K7) + 1e-6 I, inverted Jacobi-equilibrated
+    M = Hcc - sum_c W Hpp^-1 W^T (K7, or K8 then K9) + 1e-6 I, inverted Jacobi-equilibrated
     so huge blocks cannot overflow the fp32 inversion: M^-1 = D (D M D)^-1 D
     with D = diag(M)^-1/2. Returns (M^-1 [C, 6, 6], sqrt|diag M| [C, 6])."""
     C = prob.num_cameras
-    whw = whw_cam_reduce(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
+    if uses_big_kernels(prob):
+        whw = cam_segment_sum(whw_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point),
+                              inv.cam_perm, inv.cam_bounds)
+    else:
+        whw = whw_cam_reduce(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
     M = ne.Hcc - whw.reshape(C, CAM_DIM, CAM_DIM) + 1e-6 * torch.eye(CAM_DIM, device=ne.Hcc.device)
     dg = torch.sqrt(M.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
     Dinv = 1.0 / dg
@@ -230,10 +266,16 @@ def _schur_matvec(ne: NormalEq, prob: BAProblem, V: torch.Tensor, inv: SolveInva
 
 
 def _schur_matvec_pcg(ne: NormalEq, prob: BAProblem, v: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
-    """Implicit S @ v for one v [C, 6]: Hcc v minus the coupling term (K11)."""
-    coupling = schur_coupling_matvec(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point,
-                                     inv.point_bounds, inv.cam_perm, inv.cam_bounds,
-                                     v.contiguous())
+    """Implicit S @ v for one v [C, 6]: Hcc v minus the coupling term (K11,
+    or K10 then K9)."""
+    if uses_big_kernels(prob):
+        y_t = schur_coupling_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.point_bounds,
+                                          inv.cam_perm.shape[0], _rows_t(v, prob.obs_cam))
+        coupling = cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds)
+    else:
+        coupling = schur_coupling_matvec(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point,
+                                         inv.point_bounds, inv.cam_perm, inv.cam_bounds,
+                                         v.contiguous())
     return torch.einsum("cij,cj->ci", ne.Hcc, v) - coupling
 
 

@@ -21,6 +21,16 @@
 // partial sums, and a single-block second pass adds the partials in a fixed
 // order, so both sums are deterministic.
 //
+// fused_ne_payloads_big and fused_cost_sums_big replace schur_spmv.py
+// fused_ne_payloads_big and fused_cost_sums_big (Pallas: the same tiles on
+// camera and intrinsic rows gathered per observation outside the kernel, for
+// camera counts whose one-hot tiles do not fit VMEM). Bound: bytes — 80 bytes
+// in per observation (points, statics and the two pre-gathered [6, O] row
+// sets) against 276 out for the NE payloads, 80 in for the cost. One thread
+// per observation reads its own feature-major rows, so every load of a warp
+// is contiguous and nothing depends on the camera count; the arithmetic is
+// the device code of the two kernels above, shared line for line.
+//
 // segment_sum replaces schur_spmv.py cam_segment_sum (Pallas one-hot MXU
 // reduction into a VMEM accumulator). Bound: bytes (one read per value).
 // The kernel (segment_sum.cuh) is a deterministic sorted-segment tree
@@ -38,22 +48,18 @@ using sfm::Projection;
 constexpr int kNeThreads = 128;
 constexpr int kCostThreads = 256;
 
-__global__ __launch_bounds__(kNeThreads) void fused_ne_kernel(
-    const int* __restrict__ obs_cam, const float* __restrict__ pts_t,
-    const float* __restrict__ static_t, const float* __restrict__ cams,
-    const float* __restrict__ intr, const float* __restrict__ zf, int O,
-    int loss, float scale, float* __restrict__ w_t, float* __restrict__ yp_t,
-    float* __restrict__ cam_t) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= O) return;
-  const int c = obs_cam[o];
+// Normal-equation payloads of observation o from its camera row `cam`
+// (rvec, tvec) and intrinsic row `in`, stored feature-major.
+__device__ __forceinline__ void ne_payloads_obs(
+    const float* cam, const float* in, const float* __restrict__ pts_t,
+    const float* __restrict__ static_t, const float* __restrict__ zf, int O,
+    int o, int loss, float scale, float* __restrict__ w_t,
+    float* __restrict__ yp_t, float* __restrict__ cam_t) {
   const float px = pts_t[o], py = pts_t[O + o], pz = pts_t[2 * O + o];
   const float u = static_t[o], v = static_t[O + o];
   float w_obs = static_t[2 * O + o];
   const float cam_free = static_t[3 * O + o];
   const float pt_free = static_t[4 * O + o];
-  const float* cam = cams + 6 * c;
-  const float* in = intr + 6 * c;
   const Projection P = sfm::project_obs(cam, in, px, py, pz, u, v);
   if (zf != nullptr) w_obs = (P.xc2 > *zf) ? w_obs : 0.0f;
 
@@ -149,6 +155,71 @@ __global__ __launch_bounds__(kNeThreads) void fused_ne_kernel(
     yp_t[(size_t)(6 + j) * O + o] = -(p0[j] * ru_w + p1[j] * rv_w);
 }
 
+__global__ __launch_bounds__(kNeThreads) void fused_ne_kernel(
+    const int* __restrict__ obs_cam, const float* __restrict__ pts_t,
+    const float* __restrict__ static_t, const float* __restrict__ cams,
+    const float* __restrict__ intr, const float* __restrict__ zf, int O,
+    int loss, float scale, float* __restrict__ w_t, float* __restrict__ yp_t,
+    float* __restrict__ cam_t) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= O) return;
+  const int c = obs_cam[o];
+  ne_payloads_obs(cams + 6 * c, intr + 6 * c, pts_t, static_t, zf, O, o, loss,
+                  scale, w_t, yp_t, cam_t);
+}
+
+// Row k of a feature-major [6, O] table at observation o, for k = 0..5.
+__device__ __forceinline__ void load_rows6(const float* __restrict__ rows_t,
+                                           int O, int o, float out[6]) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) out[k] = rows_t[(size_t)k * O + o];
+}
+
+__global__ __launch_bounds__(kNeThreads) void fused_ne_big_kernel(
+    const float* __restrict__ pts_t, const float* __restrict__ static_t,
+    const float* __restrict__ cams_t, const float* __restrict__ intr_t,
+    const float* __restrict__ zf, int O, int loss, float scale,
+    float* __restrict__ w_t, float* __restrict__ yp_t,
+    float* __restrict__ cam_t) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= O) return;
+  float cam[6], in[6];
+  load_rows6(cams_t, O, o, cam);
+  load_rows6(intr_t, O, o, in);
+  ne_payloads_obs(cam, in, pts_t, static_t, zf, O, o, loss, scale, w_t, yp_t,
+                  cam_t);
+}
+
+// Fixed-shape tree sum of (c, w) over the block into sc[0], sw[0].
+__device__ __forceinline__ void cost_block_sum(float c, float w, float* sc,
+                                               float* sw) {
+  sc[threadIdx.x] = c;
+  sw[threadIdx.x] = w;
+  __syncthreads();
+  for (int off = kCostThreads / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off) {
+      sc[threadIdx.x] += sc[threadIdx.x + off];
+      sw[threadIdx.x] += sw[threadIdx.x + off];
+    }
+    __syncthreads();
+  }
+}
+
+// Robust cost times weight, and the (gated) weight, of observation o.
+__device__ __forceinline__ void cost_obs(const float* cam, const float* in,
+                                         const float* __restrict__ pts_t,
+                                         const float* __restrict__ static_t,
+                                         const float* __restrict__ zf, int O,
+                                         int o, int loss, float scale,
+                                         float* c, float* w) {
+  const Projection P =
+      sfm::project_obs(cam, in, pts_t[o], pts_t[O + o], pts_t[2 * O + o],
+                       static_t[o], static_t[O + o]);
+  *w = static_t[2 * O + o];
+  if (zf != nullptr) *w = (P.xc2 > *zf) ? *w : 0.0f;
+  *c = sfm::robust_cost(P.ru * P.ru + P.rv * P.rv, loss, scale) * *w;
+}
+
 __global__ __launch_bounds__(kCostThreads) void cost_partials_kernel(
     const int* __restrict__ obs_cam, const float* __restrict__ pts_t,
     const float* __restrict__ static_t, const float* __restrict__ cams,
@@ -160,23 +231,32 @@ __global__ __launch_bounds__(kCostThreads) void cost_partials_kernel(
   float c = 0.0f, w = 0.0f;
   if (o < O) {
     const int cam = obs_cam[o];
-    const Projection P = sfm::project_obs(
-        cams + 6 * cam, intr + 6 * cam, pts_t[o], pts_t[O + o],
-        pts_t[2 * O + o], static_t[o], static_t[O + o]);
-    w = static_t[2 * O + o];
-    if (zf != nullptr) w = (P.xc2 > *zf) ? w : 0.0f;
-    c = sfm::robust_cost(P.ru * P.ru + P.rv * P.rv, loss, scale) * w;
+    cost_obs(cams + 6 * cam, intr + 6 * cam, pts_t, static_t, zf, O, o, loss,
+             scale, &c, &w);
   }
-  sc[threadIdx.x] = c;
-  sw[threadIdx.x] = w;
-  __syncthreads();
-  for (int off = kCostThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) {
-      sc[threadIdx.x] += sc[threadIdx.x + off];
-      sw[threadIdx.x] += sw[threadIdx.x + off];
-    }
-    __syncthreads();
+  cost_block_sum(c, w, sc, sw);
+  if (threadIdx.x == 0) {
+    partials[2 * blockIdx.x] = sc[0];
+    partials[2 * blockIdx.x + 1] = sw[0];
   }
+}
+
+__global__ __launch_bounds__(kCostThreads) void cost_partials_big_kernel(
+    const float* __restrict__ pts_t, const float* __restrict__ static_t,
+    const float* __restrict__ cams_t, const float* __restrict__ intr_t,
+    const float* __restrict__ zf, int O, int loss, float scale,
+    float* __restrict__ partials) {
+  __shared__ float sc[kCostThreads];
+  __shared__ float sw[kCostThreads];
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  float c = 0.0f, w = 0.0f;
+  if (o < O) {
+    float cam[6], in[6];
+    load_rows6(cams_t, O, o, cam);
+    load_rows6(intr_t, O, o, in);
+    cost_obs(cam, in, pts_t, static_t, zf, O, o, loss, scale, &c, &w);
+  }
+  cost_block_sum(c, w, sc, sw);
   if (threadIdx.x == 0) {
     partials[2 * blockIdx.x] = sc[0];
     partials[2 * blockIdx.x + 1] = sw[0];
@@ -192,16 +272,7 @@ __global__ __launch_bounds__(kCostThreads) void cost_finish_kernel(
     c += partials[2 * i];
     w += partials[2 * i + 1];
   }
-  sc[threadIdx.x] = c;
-  sw[threadIdx.x] = w;
-  __syncthreads();
-  for (int off = kCostThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) {
-      sc[threadIdx.x] += sc[threadIdx.x + off];
-      sw[threadIdx.x] += sw[threadIdx.x + off];
-    }
-    __syncthreads();
-  }
+  cost_block_sum(c, w, sc, sw);
   if (threadIdx.x == 0) {
     out[0] = sc[0];
     out[1] = sw[0];
@@ -229,6 +300,36 @@ extern "C" int sfm_fused_cost_sums(const int* obs_cam, const float* pts_t,
                                    int num_partials, float* out, void* stream) {
   cost_partials_kernel<<<num_partials, kCostThreads, 0, (cudaStream_t)stream>>>(
       obs_cam, pts_t, static_t, cams, intr, zf, O, loss, scale, partials);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  cost_finish_kernel<<<1, kCostThreads, 0, (cudaStream_t)stream>>>(
+      partials, num_partials, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sfm_fused_ne_payloads_big(const float* pts_t,
+                                         const float* static_t,
+                                         const float* cams_t,
+                                         const float* intr_t, const float* zf,
+                                         int O, int loss, float scale,
+                                         float* w_t, float* yp_t, float* cam_t,
+                                         void* stream) {
+  const int blocks = (O + kNeThreads - 1) / kNeThreads;
+  fused_ne_big_kernel<<<blocks, kNeThreads, 0, (cudaStream_t)stream>>>(
+      pts_t, static_t, cams_t, intr_t, zf, O, loss, scale, w_t, yp_t, cam_t);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sfm_fused_cost_sums_big(const float* pts_t,
+                                       const float* static_t,
+                                       const float* cams_t,
+                                       const float* intr_t, const float* zf,
+                                       int O, int loss, float scale,
+                                       float* partials, int num_partials,
+                                       float* out, void* stream) {
+  cost_partials_big_kernel<<<num_partials, kCostThreads, 0,
+                             (cudaStream_t)stream>>>(
+      pts_t, static_t, cams_t, intr_t, zf, O, loss, scale, partials);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   cost_finish_kernel<<<1, kCostThreads, 0, (cudaStream_t)stream>>>(

@@ -25,6 +25,29 @@
 // [6, O]. The deterministic sorted-segment reduction (segment_sum.cuh)
 // then sums y by camera. No atomics anywhere: reruns are bit-identical.
 
+//
+// whw_payloads_big replaces schur_spmv.py whw_payloads_big (Pallas: the
+// same W Hpp^-1 W^T tile written out per observation for camera counts whose
+// one-hot accumulator does not fit VMEM). Bound: bytes — 76 bytes in
+// (W and the point id; Hpp^-1 is read per point and stays in cache, as
+// observations are sorted by point) and 144 out per observation against
+// ~320 flops. One thread per observation in observation order, so W is read
+// in contiguous rows (whw_cam_reduce gathers it in camera order) and the
+// [36, O] payload is stored feature-major for the sorted-segment reduction.
+//
+// schur_coupling_payloads_big replaces schur_spmv.py
+// schur_coupling_payloads_big (Pallas: v gathered per observation outside
+// the kernel, the per-point sum through a tile-local same-point indicator
+// matmul that needs every point segment inside one tile). Bound: bytes —
+// W is read twice (144 bytes per observation), v 24, y 24. Observation-
+// parallel, for long tracks: one thread per observation forms
+// u_o = W_o^T v_o [3, O]; the deterministic sorted-segment reduction
+// (segment_sum.cuh) sums u over each point's contiguous segment into g_p, a
+// block per (point, row), so a segment of any length and at any offset is
+// one block's work and no segment straddles anything; then one thread per
+// observation forms y_o = W_o (Hpp^-1_p g_p) [6, O]. The caller reduces y by
+// camera. No atomics: reruns are bit-identical.
+
 #include <cuda_runtime.h>
 
 #include "segment_sum.cuh"
@@ -129,7 +152,109 @@ __global__ __launch_bounds__(kPointThreads) void coupling_point_kernel(
   }
 }
 
+constexpr int kObsThreads = 128;
+
+__global__ __launch_bounds__(kObsThreads) void whw_payloads_kernel(
+    const float* __restrict__ w_t, const float* __restrict__ hinv,
+    const int* __restrict__ obs_point, int O, float* __restrict__ out_t) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= O) return;
+  const float* h = hinv + 9 * (size_t)obs_point[o];
+  float W[18], H[9], u[18];
+#pragma unroll
+  for (int k = 0; k < 18; ++k) W[k] = w_t[(size_t)k * O + o];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) H[k] = h[k];
+  // u[i, l] = sum_k W[i, k] Hinv[k, l];  whw[i, j] = sum_l u[i, l] W[j, l].
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+      u[r * 3 + l] = W[r * 3] * H[l] + W[r * 3 + 1] * H[3 + l] +
+                     W[r * 3 + 2] * H[6 + l];
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+      out_t[(size_t)(r * 6 + j) * O + o] =
+          u[r * 3] * W[j * 3] + u[r * 3 + 1] * W[j * 3 + 1] +
+          u[r * 3 + 2] * W[j * 3 + 2];
+}
+
+// u_o = W_o^T v_o: w_t [18, O], v_obs_t [6, O] -> u_t [3, O].
+__global__ __launch_bounds__(kObsThreads) void coupling_u_kernel(
+    const float* __restrict__ w_t, const float* __restrict__ v_obs_t, int O,
+    float* __restrict__ u_t) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= O) return;
+  float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float vi = v_obs_t[(size_t)i * O + o];
+    u0 += w_t[(size_t)(i * 3) * O + o] * vi;
+    u1 += w_t[(size_t)(i * 3 + 1) * O + o] * vi;
+    u2 += w_t[(size_t)(i * 3 + 2) * O + o] * vi;
+  }
+  u_t[o] = u0;
+  u_t[(size_t)O + o] = u1;
+  u_t[(size_t)2 * O + o] = u2;
+}
+
+// y_o = W_o Hpp^-1_p g_p for the observations [0, N) that the point
+// segments cover, zero for the unweighted tail [N, O).
+__global__ __launch_bounds__(kObsThreads) void coupling_y_kernel(
+    const float* __restrict__ w_t, const float* __restrict__ hinv,
+    const int* __restrict__ obs_point, const float* __restrict__ g, int O,
+    int N, float* __restrict__ y_t) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= O) return;
+  float h0 = 0.0f, h1 = 0.0f, h2 = 0.0f;
+  if (o < N) {
+    const size_t p = (size_t)obs_point[o];
+    const float* h = hinv + 9 * p;
+    const float g0 = g[3 * p], g1 = g[3 * p + 1], g2 = g[3 * p + 2];
+    h0 = h[0] * g0 + h[1] * g1 + h[2] * g2;
+    h1 = h[3] * g0 + h[4] * g1 + h[5] * g2;
+    h2 = h[6] * g0 + h[7] * g1 + h[8] * g2;
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    y_t[(size_t)i * O + o] =
+        o < N ? w_t[(size_t)(i * 3) * O + o] * h0 +
+                    w_t[(size_t)(i * 3 + 1) * O + o] * h1 +
+                    w_t[(size_t)(i * 3 + 2) * O + o] * h2
+              : 0.0f;
+}
+
 }  // namespace
+
+extern "C" int sfm_whw_payloads_big(const float* w_t, const float* hinv,
+                                    const int* obs_point, int O, float* out_t,
+                                    void* stream) {
+  const int blocks = (O + kObsThreads - 1) / kObsThreads;
+  whw_payloads_kernel<<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(
+      w_t, hinv, obs_point, O, out_t);
+  return (int)cudaGetLastError();
+}
+
+// u_t [3, O] and g [P, 3] are caller-allocated scratch; point_bounds [P+1]
+// covers the observations [0, N) (sorted by point).
+extern "C" int sfm_schur_coupling_payloads_big(
+    const float* w_t, const float* hinv, const int* obs_point,
+    const int* point_bounds, const float* v_obs_t, int O, int P, int N,
+    int seg_threads, float* u_t, float* g, float* y_t, void* stream) {
+  const int blocks = (O + kObsThreads - 1) / kObsThreads;
+  coupling_u_kernel<<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(
+      w_t, v_obs_t, O, u_t);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = sfm::launch_segment_sum(u_t, nullptr, point_bounds, O, 3, P,
+                                seg_threads, g, (cudaStream_t)stream);
+  if (err != 0) return err;
+  coupling_y_kernel<<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(
+      w_t, hinv, obs_point, g, O, N, y_t);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int sfm_whw_cam_reduce(const float* w_t, const float* hinv,
                                   const int* obs_point, const int* cam_perm,

@@ -46,6 +46,10 @@ LAUNCHES: dict[str, int] = {
     "cam_segment_sum": 0,
     "whw_cam_reduce": 0,
     "schur_coupling_matvec": 0,
+    "fused_ne_payloads_big": 0,
+    "fused_cost_sums_big": 0,
+    "whw_payloads_big": 0,
+    "schur_coupling_payloads_big": 0,
 }
 
 _P = ctypes.c_void_p
@@ -60,6 +64,10 @@ _SIGNATURES = {
     "sfm_segment_sum": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "sfm_whw_cam_reduce": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "sfm_schur_coupling_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "sfm_fused_ne_payloads_big": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
+    "sfm_fused_cost_sums_big": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P, _P),
+    "sfm_whw_payloads_big": (_P, _P, _P, _I, _P, _P),
+    "sfm_schur_coupling_payloads_big": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

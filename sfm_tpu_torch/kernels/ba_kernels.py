@@ -1,9 +1,14 @@
-"""K3 fused_ne_payloads, K5 fused_cost_sums and K9 cam_segment_sum
-(csrc/ba_kernels.cu, csrc/ba_project.cuh), K7 whw_cam_reduce and K11
-schur_coupling_matvec (csrc/schur_kernels.cu).
+"""K3 fused_ne_payloads, K4 fused_ne_payloads_big, K5 fused_cost_sums, K6
+fused_cost_sums_big and K9 cam_segment_sum (csrc/ba_kernels.cu,
+csrc/ba_project.cuh), K7 whw_cam_reduce, K8 whw_payloads_big, K10
+schur_coupling_payloads_big and K11 schur_coupling_matvec
+(csrc/schur_kernels.cu).
 
-Replace sfm_tpu/kernels/schur_spmv.py fused_ne_payloads, fused_cost_sums,
-cam_segment_sum, whw_cam_reduce and schur_coupling_matvec. Layouts are
+Replace the functions of the same names in sfm_tpu/kernels/schur_spmv.py.
+The `_big` set serves problems of more than MAX_CAMS cameras, as in the JAX
+package: camera, intrinsic and v rows arrive gathered per observation
+([6, O], plain indexing by the caller) and every result stays per
+observation for the caller's K9 reduction. Layouts are
 feature-major ([rows, O]) wherever a kernel reads or writes per-observation
 rows, so a warp touches contiguous memory.
 
@@ -13,6 +18,8 @@ Per-observation inputs shared by K3 and K5:
   static_t [5, O] f32     u, v, weight, camera-free, point-free (per solve)
   cams     [C, 6] f32     rvec, tvec;  intr [C, 6] f32: fx fy cx cy k1 k2
   z_floor  0-d f32 tensor or None: near-plane gate at the current parameters
+K4 and K6 take cams_t / intr_t [6, O] (those rows gathered per observation)
+in place of obs_cam, cams and intr.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from sfm_tpu_torch.geometry.losses import robust_cost, robust_weight
 from sfm_tpu_torch.kernels import check, launch, on_cuda, ptr
 
+MAX_CAMS = 4096    # above this the BA core takes K4/K6/K8/K10 (sfm_tpu's _MAX_CAMS)
 LOSS_CODES = {"none": 0, "huber": 1, "cauchy": 2}
 NE_CAM_ROWS = 42   # vec(Jc^T Jc) (36) then -Jc^T r (6)
 NE_W_ROWS = 18     # vec(W = Jc^T Jp), row-major 6x3
@@ -155,6 +163,68 @@ def fused_cost_sums(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: str, sc
     return out
 
 
+def _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor):
+    O = pts_t.shape[1]
+    dev = pts_t.device
+    check(pts_t, "pts_t", torch.float32, (3, O), dev)
+    check(static_t, "static_t", torch.float32, (_STATIC_ROWS, O), dev)
+    check(cams_t, "cams_t", torch.float32, (6, O), dev)
+    check(intr_t, "intr_t", torch.float32, (6, O), dev)
+    if z_floor is not None:
+        check(z_floor, "z_floor", torch.float32, (), dev)
+    return O
+
+
+def _as_table(cams_t, intr_t):
+    """Pre-gathered rows as K3/K5's inputs: every observation its own camera."""
+    O = cams_t.shape[1]
+    obs_cam = torch.arange(O, dtype=torch.int32, device=cams_t.device)
+    return obs_cam, cams_t.T.contiguous(), intr_t.T.contiguous()
+
+
+def fused_ne_payloads_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
+    """Plain K4: (w_t [18, O], yp_t [9, O], cam_t [42, O])."""
+    obs_cam, cams, intr = _as_table(cams_t, intr_t)
+    return fused_ne_payloads_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
+
+
+def fused_ne_payloads_big(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
+    """fused_ne_payloads on camera rows cams_t [6, O] and intrinsic rows
+    intr_t [6, O] gathered per observation: the same three payloads."""
+    if not on_cuda(pts_t):
+        return fused_ne_payloads_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss, scale)
+    O = _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor)
+    dev = pts_t.device
+    w_t = torch.empty((NE_W_ROWS, O), dtype=torch.float32, device=dev)
+    yp_t = torch.empty((NE_PT_ROWS, O), dtype=torch.float32, device=dev)
+    cam_t = torch.empty((NE_CAM_ROWS, O), dtype=torch.float32, device=dev)
+    launch("sfm_fused_ne_payloads_big", "fused_ne_payloads_big",
+           ptr(pts_t), ptr(static_t), ptr(cams_t), ptr(intr_t), ptr(z_floor),
+           O, LOSS_CODES[loss], float(scale), ptr(w_t), ptr(yp_t), ptr(cam_t))
+    return w_t, yp_t, cam_t
+
+
+def fused_cost_sums_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
+    """Plain K6: tensor [2] = (sum robust_cost(|r|^2) * w, sum w)."""
+    obs_cam, cams, intr = _as_table(cams_t, intr_t)
+    return fused_cost_sums_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
+
+
+def fused_cost_sums_big(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
+    """fused_cost_sums on rows gathered per observation -> tensor [2]."""
+    if not on_cuda(pts_t):
+        return fused_cost_sums_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss, scale)
+    O = _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor)
+    dev = pts_t.device
+    nblocks = max(1, -(-O // _COST_THREADS))
+    partials = torch.empty((nblocks, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((2,), dtype=torch.float32, device=dev)
+    launch("sfm_fused_cost_sums_big", "fused_cost_sums_big",
+           ptr(pts_t), ptr(static_t), ptr(cams_t), ptr(intr_t), ptr(z_floor),
+           O, LOSS_CODES[loss], float(scale), ptr(partials), nblocks, ptr(out))
+    return out
+
+
 def segment_bounds(sorted_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """[S+1] int32 offsets of segments 0..S-1 in a sorted id array."""
     s = torch.arange(num_segments + 1, dtype=sorted_ids.dtype, device=sorted_ids.device)
@@ -242,6 +312,30 @@ def whw_cam_reduce(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
     return out
 
 
+def whw_payloads_big_plain(W_t, Hpp_inv, obs_point):
+    """Plain K8: vec(W_o Hpp_inv[p(o)] W_o^T) per observation -> [36, O]."""
+    return _whw_rows_t(W_t, Hpp_inv[obs_point.long()])
+
+
+def whw_payloads_big(W_t, Hpp_inv, obs_point):
+    """Per-observation Schur-Jacobi payloads vec(W_o Hpp^-1_{p(o)} W_o^T):
+    W_t [18, O], Hpp_inv [P, 3, 3], obs_point [O] int32 -> [36, O], for the
+    caller's camera reduction (cam_segment_sum)."""
+    if not on_cuda(W_t):
+        return whw_payloads_big_plain(W_t, Hpp_inv, obs_point)
+    O = W_t.shape[1]
+    dev = W_t.device
+    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(Hpp_inv, "Hpp_inv", torch.float32, (None, 3, 3), dev)
+    check(obs_point, "obs_point", torch.int32, (O,), dev)
+    out_t = torch.empty((36, O), dtype=torch.float32, device=dev)
+    if O == 0:
+        return out_t
+    launch("sfm_whw_payloads_big", "whw_payloads_big",
+           ptr(W_t), ptr(Hpp_inv), ptr(obs_point), O, ptr(out_t))
+    return out_t
+
+
 def schur_coupling_matvec_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm,
                                 cam_bounds, v):
     """Plain K11: (W Hpp^-1 W^T) v -> [C, 6], in W_t's dtype, by the
@@ -283,3 +377,46 @@ def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_pe
            ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(v), ptr(cam_perm),
            ptr(cam_bounds), O, P, C, _block_threads(O, C), ptr(y_t), ptr(out))
     return out
+
+
+def schur_coupling_payloads_big_plain(W_t, Hpp_inv, obs_point, point_bounds, num_obs, v_obs_t):
+    """Plain K10: y_o = W_o Hpp^-1_{p(o)} sum_{o' in p(o)} W_o'^T v_o' ->
+    [6, O], in W_t's dtype (zero past num_obs)."""
+    Wm = W_t.reshape(6, 3, -1)
+    u_t = torch.einsum("iko,io->ko", Wm, v_obs_t)                              # [3, O]
+    g = cam_segment_sum_plain(u_t, None, point_bounds)                         # [P, 3]
+    h = torch.einsum("pij,pj->pi", Hpp_inv, g)
+    y_t = torch.einsum("iko,ko->io", Wm, h[obs_point.long()].T)                # [6, O]
+    y_t[:, num_obs:] = 0.0
+    return y_t
+
+
+def schur_coupling_payloads_big(W_t, Hpp_inv, obs_point, point_bounds, num_obs: int, v_obs_t):
+    """Per-observation rows of the Schur coupling term: v_obs_t [6, O] is v
+    gathered per observation (v.T[:, obs_cam]); u_o = W_o^T v_o, g_p the sum
+    of u over point p's segment, y_o = W_o Hpp^-1_p g_p -> y_t [6, O], for
+    the caller's camera reduction. Observations are sorted by point and
+    point_bounds [P+1] covers [0, num_obs); rows past num_obs are zero.
+    Deterministic."""
+    if not on_cuda(W_t):
+        return schur_coupling_payloads_big_plain(W_t, Hpp_inv, obs_point, point_bounds,
+                                                 num_obs, v_obs_t)
+    O = W_t.shape[1]
+    P = Hpp_inv.shape[0]
+    dev = W_t.device
+    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
+    check(obs_point, "obs_point", torch.int32, (O,), dev)
+    check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
+    check(v_obs_t, "v_obs_t", torch.float32, (6, O), dev)
+    if not 0 <= num_obs <= O:
+        raise ValueError(f"num_obs: expected 0..{O}, got {num_obs}")
+    y_t = torch.empty((6, O), dtype=torch.float32, device=dev)
+    if O == 0 or P == 0:
+        return y_t.zero_()
+    u_t = torch.empty((3, O), dtype=torch.float32, device=dev)
+    g = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    launch("sfm_schur_coupling_payloads_big", "schur_coupling_payloads_big",
+           ptr(W_t), ptr(Hpp_inv), ptr(obs_point), ptr(point_bounds), ptr(v_obs_t),
+           O, P, int(num_obs), _block_threads(O, P), ptr(u_t), ptr(g), ptr(y_t))
+    return y_t

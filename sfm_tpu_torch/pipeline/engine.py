@@ -33,7 +33,7 @@ from sfm_tpu_torch.ops import solvers
 from sfm_tpu_torch.ops.pnp import pnp_ransac
 from sfm_tpu_torch.ops.triangulate import triangulate_tracks
 from sfm_tpu_torch.pipeline.stages import FeatureSet, MatchGraph
-from sfm_tpu_torch.scene.state import Reconstruction
+from sfm_tpu_torch.scene.state import Reconstruction, ReconstructionError
 from sfm_tpu_torch.scene.tracks import TrackSet, build_tracks
 from sfm_tpu_torch.utils.logging import StageTimer
 
@@ -439,7 +439,7 @@ def incremental_reconstruct(
         )
     tracks = build_tracks(graph, B, N)
     if tracks.num_tracks == 0:
-        raise RuntimeError("no tracks: match/verify produced no usable edges")
+        raise ReconstructionError("no tracks: match/verify produced no usable edges")
     if len(tracks.obs_image) > cfg.engine.max_observations:
         raise ValueError(
             f"{len(tracks.obs_image)} track observations exceed "
@@ -467,7 +467,7 @@ def incremental_reconstruct(
 
     cands = rank_init_pairs(graph, feats, intrinsics, cfg)
     if len(cands) == 0:
-        raise RuntimeError("no valid initial pair")
+        raise ReconstructionError("no valid initial pair")
     # Bootstrap retry: an edge can pass two-view verification yet
     # triangulate nothing. Try ranked candidates until one produces a usable
     # seed map; roll the 2-camera state back in between.
@@ -532,7 +532,7 @@ def incremental_reconstruct(
             _triangulate_new(st, cfg, device,
                              min_angle_override=cfg.engine.init_min_triangulation_angle_deg)
     if st.num_points == 0:
-        raise RuntimeError("bootstrap failed: no candidate pair triangulated any points")
+        raise ReconstructionError("bootstrap failed: no candidate pair triangulated any points")
     _run_ba(st, cfg, device)  # two-view BA
     if cfg.verbose:
         print(f"[sfm_tpu_torch] bootstrap edge {graph.pairs[edge]}: {st.num_points} points")

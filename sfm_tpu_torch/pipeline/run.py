@@ -2,8 +2,10 @@
 
 Ported: in-memory or path inputs loaded eagerly, exhaustive pairs, match +
 verification, the two-image branch (two-view bootstrap + BA) and, for any
-other image count, the incremental engine without partitioning. Every
-other branch raises NotImplementedError naming its ROADMAP.md item.
+other image count, the incremental engine, the global engine
+(engine_mode="global") and the divide-and-conquer pipeline
+(partition.enabled, either engine inside the clusters). Every other branch
+raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -42,13 +44,8 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
     with timer.stage("ingest"):
         batch = ingest.load_images(images, cfg.sift)
     num_images = len(batch.canvases)
-    if num_images != 2:
-        if cfg.engine_mode == "global":
-            _not_ported("engine_mode='global'", "item 5: partition, merge and the global engine")
-        if cfg.engine_mode != "incremental":
-            raise ValueError(f"unknown engine_mode: {cfg.engine_mode}")
-        if cfg.partition.enabled:
-            _not_ported("partition.enabled", "item 5: partition, merge and the global engine")
+    if num_images != 2 and cfg.engine_mode not in ("incremental", "global"):
+        raise ValueError(f"unknown engine_mode: {cfg.engine_mode}")
 
     with timer.stage("features"):
         feats = stages.extract_stage(batch, cfg, device)
@@ -66,11 +63,24 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
             from sfm_tpu_torch.pipeline.two_view import bootstrap_two_view
 
             rec = bootstrap_two_view(feats, graph, int(ok_edges[0]), batch.intrinsics, cfg, device)
-    else:
-        with timer.stage("incremental"):
-            from sfm_tpu_torch.pipeline.engine import incremental_reconstruct
+    elif cfg.engine_mode == "global" and not cfg.partition.enabled:
+        with timer.stage("global_sfm"):
+            from sfm_tpu_torch.pipeline.global_engine import global_reconstruct
 
-            rec = incremental_reconstruct(feats, graph, batch.intrinsics, cfg, device)
+            rec = global_reconstruct(feats, graph, batch.intrinsics, cfg, device)
+            engine_seconds = rec.stage_seconds
+    else:
+        # Partition mode hosts both engines: each cluster reconstructs with
+        # cfg.engine_mode, then the shared merge and polish phases run.
+        with timer.stage("incremental" if cfg.engine_mode == "incremental" else "global_sfm"):
+            if cfg.partition.enabled:
+                from sfm_tpu_torch.pipeline.partition import partitioned_reconstruct
+
+                rec = partitioned_reconstruct(feats, graph, batch.intrinsics, cfg, device)
+            else:
+                from sfm_tpu_torch.pipeline.engine import incremental_reconstruct
+
+                rec = incremental_reconstruct(feats, graph, batch.intrinsics, cfg, device)
             engine_seconds = rec.stage_seconds
 
     rec.image_names = batch.names

@@ -15,6 +15,12 @@ import torch
 from sfm_tpu_torch.geometry.projection import point_depth, project
 
 
+class ReconstructionError(RuntimeError):
+    """An engine could not reconstruct its input (no usable tracks, no valid
+    initial pair, a bootstrap that triangulates nothing, no cluster with a
+    map): the data's fault, as opposed to a device, build or launch error."""
+
+
 @dataclass
 class Reconstruction:
     """Cameras, poses, points, observations — the public API output."""
@@ -98,3 +104,31 @@ class Reconstruction:
             "mean_track_length": float(tl.mean()) if len(tl) else 0.0,
             "track_length_hist": {f">={e}": int(c) for e, c in zip(hist_edges, hist)},
         }
+
+
+def filter_observations(rec: Reconstruction, max_err_px: float) -> int:
+    """Drop gross-outlier observations and starved points in place.
+
+    Same policy as the engine's per-round filter, but operating on a
+    materialized Reconstruction — used between global-BA passes after a
+    divide-and-conquer merge, where wrongly-linked cross-cluster tracks
+    poison the robust solve. Removes observations with reprojection error
+    above max_err_px OR non-positive camera-frame depth (behind-camera
+    points reproject to finite pixels, so the px gate alone passes them;
+    their f/z^2 Jacobians then blow up the BA normal equations),
+    invalidates points left with <2 observations, and prunes their
+    remaining rows. Returns the number of rows removed.
+    """
+    if rec.num_observations == 0:
+        return 0
+    n0 = rec.num_observations
+    errs, depths = rec.reprojection_errors_depths()
+    keep = (errs <= max_err_px) & (depths > 0) & rec.point_valid[rec.obs_point]
+    for name in ("obs_point", "obs_image", "obs_kp", "obs_uv"):
+        setattr(rec, name, getattr(rec, name)[keep])
+    counts = np.bincount(rec.obs_point, minlength=len(rec.points))
+    rec.point_valid &= counts >= 2
+    keep2 = rec.point_valid[rec.obs_point]
+    for name in ("obs_point", "obs_image", "obs_kp", "obs_uv"):
+        setattr(rec, name, getattr(rec, name)[keep2])
+    return n0 - rec.num_observations

@@ -126,7 +126,7 @@ def test_unported_branches_raise(fixture, tmp_path):
     imgs = fixture[0]
     three = [imgs[0], imgs[1], imgs[0]]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sfm_tpu_torch.reconstruct(three, device="cpu", engine_mode="global", verbose=False)
+        sfm_tpu_torch.reconstruct(three, device="cpu", verbose=False, **{"shard.num_devices": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sfm_tpu_torch.reconstruct(three, device="cpu", artifact_dir=str(tmp_path), verbose=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -13,7 +13,24 @@
         iteration with the dense and with the PCG reduced solve;
     python3 tools/torch_perf.py crossover
         dense Cholesky vs PCG reduced solve on the same problems, seconds
-        per LM iteration across padded (C, O).
+        per LM iteration across padded (C, O);
+    python3 tools/torch_perf.py polish [--iterations 5]
+        chip_smoke.py's merged-model polish at full width (10,240 cameras,
+        about 1.5 M observations): the seconds of its steps (build_problem,
+        each solve, the filter), then the first solve's first LM iterations
+        once more under torch.profiler: device busy time, idle share, kernel
+        time by name;
+    python3 tools/torch_perf.py partition [--variants default no_straighten] [--dump DIR]
+        chip_smoke.py's divide-and-conquer slice with one feature and match
+        stage shared by the variants: each cluster's accuracy, then mean
+        reprojection error and camera-centre RMSE before and after every
+        phase of the polish (straightening, each merged polish, the track
+        splits and merges), and the phases' seconds; a variant switches one
+        PartitionConfig field off. --dump DIR writes the first straightening's
+        inputs and result into DIR for tools/straighten_parity.py;
+    python3 tools/torch_perf.py global N [...]
+        engine_mode="global" on the first N views of that ring: accuracy
+        and stage seconds.
 
 Every line names the card and its power limit. Needs a CUDA device.
 """
@@ -58,18 +75,20 @@ def scene_cmd(device, specs):
 
 
 def _device_time_ms(prof) -> tuple[float, list]:
-    """Sum of device (kernel + memcpy/memset) self time, and the top kernels."""
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    """Sum of the device's own rows (kernels, memcpy, memset), and the top
+    ones. The rows of the host ops that launched them carry the same time
+    once more and are left out."""
+    import torch
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in rows) / 1e3
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
     return total, [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]
 
 
 def slice_cmd(device, runs: int):
-    import torch
-
     from sfm_tpu_torch import reconstruct
-    from sfm_tpu_torch.ba import bundle_adjust
     from sfm_tpu_torch.ba.core import uses_dense_solver
 
     images = cs.INC_IMAGES
@@ -90,6 +109,19 @@ def slice_cmd(device, runs: int):
     # The final global BA of the last run, as the engine handed it over, traced.
     prob, cfg = ba_log[-1]["problem"], ba_log[-1]["cfg"]
     solver = "dense" if uses_dense_solver(prob, cfg) else "pcg"
+    _profile_solve(prob, cfg, f"global BA {solver}")
+    row = {s: per_iteration(prob, s) for s in ("dense", "pcg")}
+    print(f"[crossover] {card()} final global BA C={prob.num_cameras} O={prob.obs_w.shape[0]} "
+          f"gate={solver} " + json.dumps(row), flush=True)
+
+
+def _profile_solve(prob, cfg, what: str):
+    """One bundle_adjust(prob, cfg) under torch.profiler after a warm-up
+    run: wall, device busy time, idle share, the top kernels."""
+    import torch
+
+    from sfm_tpu_torch.ba import bundle_adjust
+
     bundle_adjust(prob, cfg)                                   # warm
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -99,14 +131,155 @@ def slice_cmd(device, runs: int):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top = _device_time_ms(prof)
-    print(f"[profile] {card()} global BA C={prob.num_cameras} O={prob.obs_w.shape[0]} {solver} "
+    print(f"[profile] {card()} {what} C={prob.num_cameras} O={prob.obs_w.shape[0]} "
           f"{stats.iterations} LM iterations: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
     for name, count, ms in top:
         print(f"[profile]   {ms:9.3f} ms  {count:6d}x  {name}", flush=True)
-    row = {s: per_iteration(prob, s) for s in ("dense", "pcg")}
-    print(f"[crossover] {card()} final global BA C={prob.num_cameras} O={prob.obs_w.shape[0]} "
-          f"gate={solver} " + json.dumps(row), flush=True)
+
+
+def polish_cmd(device, iterations: int):
+    """The merged-model polish of chip_smoke.py, step by step as
+    pipeline/partition._merged_polish runs it, then a profile of the first
+    solve's first `iterations` LM iterations."""
+    import dataclasses
+
+    import torch
+
+    from sfm_tpu_torch.ba import build_problem, bundle_adjust, writeback
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.scene.state import filter_observations
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cfg = PipelineConfig()
+    cfg = dataclasses.replace(cfg, ba=dataclasses.replace(
+        cfg.ba, max_iterations=cfg.partition.polish_ba_iterations))
+    rec, truth = cs.arc_ring_reconstruction(cs.POLISH_CAMERAS, cs.POLISH_POINTS, cs.POLISH_TRACKS, seed=3,
+                                            centre_noise=cs.POLISH_CENTRE_NOISE)
+    steps = {}
+    _, steps["sanitation_filter"] = timed(
+        lambda: filter_observations(rec, max(32.0, 4.0 * cfg.engine.max_reprojection_error_px)))
+    first = None
+    for round_ in range(2):
+        (prob, cams, pids), steps[f"build_problem_{round_}"] = timed(
+            lambda: build_problem(rec, tight=True, device=device))
+        first = first or prob
+        (out, stats), steps[f"solve_{round_}"] = timed(lambda: bundle_adjust(prob, cfg.ba))
+        steps[f"solve_{round_}_lm_iterations"] = stats.iterations
+        _, steps[f"writeback_{round_}"] = timed(lambda: writeback(rec, out, cams, pids))
+        dropped, steps[f"filter_{round_}"] = timed(
+            lambda: filter_observations(rec, cfg.engine.max_reprojection_error_px))
+        steps[f"filter_{round_}_dropped"] = dropped
+        if dropped == 0:
+            break
+    print(f"[polish] {card()} C={first.num_cameras} P={first.num_points} O={first.obs_w.shape[0]} "
+          f"steps (s) {json.dumps(steps)}; after: {rec.mean_reprojection_error():.4f} px, camera RMSE "
+          f"{cs.camera_rmse(rec, truth) / truth.radius:.6f} of the radius", flush=True)
+    _profile_solve(first, dataclasses.replace(cfg.ba, max_iterations=iterations, function_tolerance=0.0),
+                   "merged polish, first solve")
+
+
+PARTITION_VARIANTS = {
+    "default": {},
+    "no_straighten": {"partition.straighten_pose_graph": False},
+    "no_refine": {"partition.refine_rounds": 0},
+}
+_REC_FIELDS = ("intrinsics", "rvecs", "tvecs", "registered", "points", "point_errors", "point_valid",
+               "obs_point", "obs_image", "obs_kp", "obs_uv")
+_GRAPH_FIELDS = ("pairs", "idx_i", "idx_j", "inlier", "num_inliers", "num_h_inliers", "rvec", "tvec", "ok")
+
+
+def partition_cmd(device, variants, dump: str | None):
+    import numpy as np
+
+    from sfm_tpu_torch.config import PipelineConfig, apply_overrides
+    from sfm_tpu_torch.pipeline import global_pose, ingest, merge, partition, stages
+
+    ring, scene = cs.render_ring(cs.INC_IMAGES, cs.INC_BLOBS, cs.INC_ARC)
+    cfg = apply_overrides(PipelineConfig(verbose=False), {
+        "partition.enabled": True, "partition.target_cluster_size": cs.PART_CLUSTER,
+        "partition.overlap_cameras": cs.PART_OVERLAP})
+    batch = ingest.load_images(list(ring), cfg.sift)
+    feats = stages.extract_stage(batch, cfg, device)
+    graph = stages.match_and_verify_stage(feats, stages.exhaustive_pairs(len(ring)), batch.intrinsics,
+                                          cfg, device)
+
+    def state(rec) -> str:
+        return (f"rmse {100 * cs.camera_rmse(rec, scene) / cs.INC_RADIUS:.4f}% of the radius, "
+                f"{rec.mean_reprojection_error():.4f} px, {rec.num_registered} registered, "
+                f"{rec.num_points} points, {rec.num_observations} observations")
+
+    def traced(mod, name):
+        inner = getattr(mod, name)
+
+        def wrapper(rec, *a, **k):
+            before = state(rec)
+            t0 = time.perf_counter()
+            out = inner(rec, *a, **k)
+            print(f"[partition]   {name} {time.perf_counter() - t0:.2f}s: {before} -> {state(rec)}",
+                  flush=True)
+            return out
+        setattr(mod, name, wrapper)
+        return inner
+
+    def traced_merge(recs, c):
+        for i, r in enumerate(recs):
+            print(f"[partition]   cluster {i}: {state(r)}", flush=True)
+        return inner_merge(recs, c)
+
+    def dumping(rec, g, **k):
+        os.makedirs(dump, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(dump, "straighten_inputs.npz"), xy=feats.xy, gt_rvecs=scene.rvecs,
+            gt_tvecs=scene.tvecs, radius=cs.INC_RADIUS,
+            **{"rec_" + f: getattr(rec, f) for f in _REC_FIELDS},
+            **{"g_" + f: getattr(g, f) for f in _GRAPH_FIELDS},
+            g_pose_ok=g.pose_ok if g.pose_ok is not None else np.ones(len(g.ok), bool))
+        out = inner_straighten(rec, g, **k)
+        np.savez_compressed(os.path.join(dump, "straighten_out.npz"), rvecs=rec.rvecs,
+                            tvecs=rec.tvecs, points=rec.points, point_valid=rec.point_valid)
+        return out
+
+    inner_merge, merge.merge_reconstructions = merge.merge_reconstructions, traced_merge
+    inner_straighten = global_pose.straighten_reconstruction
+    if dump:
+        global_pose.straighten_reconstruction = dumping
+    saved = [(partition, "_merged_polish"), (global_pose, "straighten_reconstruction"),
+             (merge, "split_tracks_by_consensus"), (merge, "merge_tracks_by_track_id"),
+             (merge, "merge_tracks_by_correspondence"), (merge, "merge_tracks_by_proximity")]
+    saved = [(mod, name, traced(mod, name)) for mod, name in saved]
+    try:
+        for v in variants:
+            print(f"[partition] {card()} variant {v}: {PARTITION_VARIANTS[v]}", flush=True)
+            t0 = time.perf_counter()
+            rec = partition.partitioned_reconstruct(feats, graph, batch.intrinsics,
+                                                    apply_overrides(cfg, PARTITION_VARIANTS[v]), device)
+            print(f"[partition] {card()} variant {v} done in {time.perf_counter() - t0:.2f}s: {state(rec)}; "
+                  f"phases (s) {json.dumps({k: round(x, 3) for k, x in rec.stage_seconds.items()})}",
+                  flush=True)
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+        merge.merge_reconstructions = inner_merge
+        global_pose.straighten_reconstruction = inner_straighten
+
+
+def global_cmd(device, sizes):
+    """engine_mode="global" on the first N views of chip_smoke.py's ring."""
+    ring, scene = cs.render_ring(cs.INC_IMAGES, cs.INC_BLOBS, cs.INC_ARC)
+    for n in sizes:
+        rec, launches, ba_log, _, wall = cs.run_reconstruct(device, ring[:n], engine_mode="global")
+        s = rec.summary()
+        print(f"[global] {card()} {n} views: wall {wall:.2f}s, {s['num_registered']} registered, "
+              f"{s['num_points']} points, {s['mean_reproj_error_px']:.4f} px, camera RMSE "
+              f"{100 * cs.camera_rmse(rec, scene) / cs.INC_RADIUS:.4f}% of the radius; stages (s) "
+              + json.dumps({k: round(x, 3) for k, x in rec.stage_seconds.items()}), flush=True)
 
 
 def per_iteration(prob, solver: str) -> dict:
@@ -164,6 +337,14 @@ def main() -> int:
     p = sub.add_parser("slice")
     p.add_argument("--runs", type=int, default=2)
     sub.add_parser("crossover")
+    p = sub.add_parser("polish")
+    p.add_argument("--iterations", type=int, default=5)
+    p = sub.add_parser("partition")
+    p.add_argument("--variants", nargs="+", default=["default", "no_straighten"],
+                   choices=list(PARTITION_VARIANTS))
+    p.add_argument("--dump", metavar="DIR")
+    p = sub.add_parser("global")
+    p.add_argument("sizes", nargs="+", type=int)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_perf: no CUDA device available", file=sys.stderr)
@@ -173,6 +354,12 @@ def main() -> int:
         scene_cmd(device, args.specs)
     elif args.cmd == "slice":
         slice_cmd(device, args.runs)
+    elif args.cmd == "polish":
+        polish_cmd(device, args.iterations)
+    elif args.cmd == "partition":
+        partition_cmd(device, args.variants, args.dump)
+    elif args.cmd == "global":
+        global_cmd(device, args.sizes)
     else:
         crossover_cmd(device)
     return 0
