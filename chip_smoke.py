@@ -8,7 +8,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   2. build: compile the kernels in sfm_tpu_torch/csrc (one nvcc per source,
      all at once, sm_90a);
   3. features kernels: K1 and K2 against their plain PyTorch versions on
-     the card at the slices' shapes;
+     the card at the slices' shapes (K2 on one pair and on a block of 32
+     pairs of 4096 x 4096, on ragged shapes, on a batch whose pairs differ
+     in validity, one of them without a valid column, and on fewer columns
+     than one tile; once more, after the incremental slice, at the shapes
+     that run handed it);
   4. two-view slice: sfm_tpu_torch.reconstruct on two rendered 1024x1024
      images with the default config; 2 images registered, >= 100 points,
      mean reprojection error < 1 px, pose against the ground truth, and
@@ -41,10 +45,14 @@ Each kernel check holds the kernel against its plain version with the
 tolerance stated and takes the median time of the kernel, the plain version
 and (where one PyTorch call computes the same function) that call (CUDA
 events, 21 runs), and the least time the card could take (bytes over
-3.35 TB/s or operations over the peak rate, whichever is larger). The
+3.35 TB/s or operations over the peak rate, whichever is larger). K9 is
+held and timed on each BA problem's own segment tables on both sides: the
+camera side (a permutation) for K = 6, 36 and 42 rows, the point side
+(sorted) for K = 3 and 9, bit-identical on a rerun. The
 record reports K1-K3, K5, K7, K9 and K11 at the incremental slice's shapes,
-K4, K6, K8 and K10 at the merged polish's, and every kernel's launches on
-each path (`launches` is the largest of them).
+K4, K6, K8 and K10 at the merged polish's, every kernel's launches on
+each path (`launches` is the largest of them), and for K2 and K9 a row per
+timed shape under `shapes`.
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -115,6 +123,10 @@ POLISH_TRACKS = (40, 150)
 POLISH_CENTRE_NOISE = 2.0
 # The global-engine slice: the first views of the same ring spacing.
 GLOBAL_IMAGES = 24
+# kernels/ba_kernels.NE_CAM_ROWS: rows of the camera payload K3/K4 hand to K9.
+NE_CAM_ROWS = 42
+# Per-shape rows of a kernel that is timed at several shapes (K2, K9).
+SHAPE_FIELDS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -198,19 +210,22 @@ def check_dog(device, size: int):
                 note=f"exact, {n_ext} extrema")
 
 
-def _planted_descriptors(device, n1: int, n2: int, seed: int):
-    """da [1, n1, 128] noisy copies of rows of db [1, n2, 128]; the last
-    n2 // 16 rows of db are invalid and hold NaN (padding must not leak)."""
+def _planted_descriptors(device, n1: int, n2: int, seed: int, pairs: int = 1, invalid=None):
+    """da [pairs, n1, 128] noisy copies of rows of db [pairs, n2, 128]; the
+    last invalid[p] rows of pair p's db (n2 // 16 by default) are invalid and
+    hold NaN (padding must not leak)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    db = rng.normal(size=(1, n2, 128)).astype(np.float32)
+    db = rng.standard_normal((pairs, n2, 128), dtype=np.float32)
     db /= np.linalg.norm(db, axis=-1, keepdims=True)
-    src = rng.integers(0, n2, n1)
-    da = db[:, src] + 0.05 * rng.normal(size=(1, n1, 128)).astype(np.float32)
+    src = rng.integers(0, n2, (pairs, n1))
+    da = np.take_along_axis(db, src[:, :, None], 1)
+    da += 0.05 * rng.standard_normal((pairs, n1, 128), dtype=np.float32)
     da /= np.linalg.norm(da, axis=-1, keepdims=True)
-    vb = np.arange(n2)[None] < n2 - n2 // 16
+    invalid = np.full(pairs, n2 // 16) if invalid is None else np.asarray(invalid)
+    vb = np.arange(n2)[None] < (n2 - invalid)[:, None]
     db[~vb] = np.nan
     return tuple(torch.from_numpy(a).to(device) for a in (da, db, vb))
 
@@ -228,26 +243,96 @@ def _compare_topk2(out, ref, what: str):
     return int(clear.sum()), max(float((d1 - r1).abs().max()), float((d2 - r2).abs().max()))
 
 
-def check_match(device, n: int):
-    """K2 on n x n descriptors with planted correspondences (and once on
-    ragged 1000 x 999 shapes): idx equal except near-ties (second distance
-    within 1e-3 of the first), d1/d2 to rtol 1e-5 + atol 1e-5 (the kernel
-    and the plain version sum the bf16 products in different orders)."""
+def check_match_shape(device, shape):
+    """K2 at one (pairs, n1, n2): the kernel held against the plain version
+    on planted descriptors, then both timed. The bf16 Gram is tensor-core
+    work: 2 * pairs * n1 * n2 * 128 operations; bytes: the operands (as
+    bf16), the validity and the three outputs."""
     from sfm_tpu_torch.kernels import match_topk as k2
 
-    ragged = _planted_descriptors(device, 1000, 999, seed=1)
-    _compare_topk2(k2.match_topk2(*ragged), k2.match_topk2_plain(*ragged), "ragged")
-    da, db, vb = _planted_descriptors(device, n, n, seed=0)
-    n_clear, err = _compare_topk2(k2.match_topk2(da, db, vb), k2.match_topk2_plain(da, db, vb), f"{n}^2")
+    p, n1, n2 = shape
+    what = f"{p} x {n1} x {n2}"
+    da, db, vb = _planted_descriptors(device, n1, n2, seed=10 + p, pairs=p)
     out = k2.match_topk2(da, db, vb)
-    # The bf16 Gram is tensor-core work: 2 * n1 * n2 * 128 operations.
-    ops = 2 * da.shape[1] * db.shape[1] * da.shape[2]
-    return dict(max_abs_err=err,
+    n_clear, err = _compare_topk2(out, k2.match_topk2_plain(da, db, vb), what)
+    moved = nbytes(vb, *out) + 2 * (da.numel() + db.numel())
+    return dict(shape=what, max_abs_err=err, clear_rows=n_clear, rows=p * n1,
                 ms=time_ms(lambda: k2.match_topk2(da, db, vb), device),
                 plain_ms=time_ms(lambda: k2.match_topk2_plain(da, db, vb), device),
-                library_ms=None, **bound(nbytes(da, db, vb, *out), ops, BF16_TENSOR_OPS_PER_S),
-                note=f"{n_clear}/{n} rows clear of near-ties; ragged 1000x999 also checked; "
-                     "no single library call (the plain version is a cuBLAS matmul + topk)")
+                library_ms=None, **bound(moved, 2 * p * n1 * n2 * 128, BF16_TENSOR_OPS_PER_S))
+
+
+def check_match(device, n: int, batch: int = 32):
+    """K2 against its plain version: idx equal except near-ties (second
+    distance within 1e-3 of the first), d1/d2 to rtol 1e-5 + atol 1e-5 (the
+    tensor cores and the plain version sum the bf16 products in different
+    orders). Shapes: ragged 1000 x 999; three pairs of 700 x 600 whose
+    validity differs (the usual tail, every column invalid: d1 = d2 = 1e9 and
+    idx = 0, half the columns); N2 = 50, less than one tile; exact ties
+    (twin rows of db: d1 == d2 and the lower column); then, timed, one
+    pair and a block of `batch` pairs of n x n (the matcher's block_pairs).
+    Returns (the single pair's record, both timed shapes)."""
+    import torch
+
+    from sfm_tpu_torch.kernels import match_topk as k2
+
+    for what, inputs in (
+            ("ragged 1000x999", _planted_descriptors(device, 1000, 999, seed=1)),
+            ("3 pairs 700x600", _planted_descriptors(device, 700, 600, seed=2, pairs=3,
+                                                     invalid=[37, 600, 300])),
+            ("300x50", _planted_descriptors(device, 300, 50, seed=3))):
+        out = k2.match_topk2(*inputs)
+        _compare_topk2(out, k2.match_topk2_plain(*inputs), what)
+        if what.startswith("3 pairs"):
+            d1, d2, idx = (t[1] for t in out)
+            if not (bool((d1 == 1e9).all()) and bool((d2 == 1e9).all()) and bool((idx == 0).all())):
+                raise AssertionError("match_topk2: a pair without valid columns must give "
+                                     "d1 = d2 = 1e9 and idx = 0")
+    # Exact ties: columns 7 and 40 of db are one row, 300 and 411 another;
+    # rows of da planted on them are as near to the twin, so d1 == d2 and
+    # argmin names the lower column.
+    da, db, vb = _planted_descriptors(device, 2048, 2048, seed=5)
+    db[0, 40], db[0, 411] = db[0, 7], db[0, 300]
+    da[0, :64] = torch.nn.functional.normalize(db[0, 7] + 0.01 * da[0, :64], dim=-1)
+    da[0, 64:128] = torch.nn.functional.normalize(db[0, 411] + 0.01 * da[0, 64:128], dim=-1)
+    d1, d2, idx = k2.match_topk2(da, db, vb)
+    _compare_topk2((d1, d2, idx), k2.match_topk2_plain(da, db, vb), "exact ties")
+    if not (bool((idx[0, :64] == 7).all()) and bool((idx[0, 64:128] == 300).all())
+            and torch.equal(d1[0, :128], d2[0, :128])):
+        raise AssertionError("match_topk2: an exact tie must give d1 == d2 and the lower column")
+    timed = [check_match_shape(device, (p, n, n)) for p in (1, batch)]
+    first = dict(timed[0])
+    first["note"] = (f"{first['clear_rows']}/{first['rows']} rows clear of near-ties; ragged 1000x999, "
+                     "3 pairs of differing validity and N2=50 also checked; no single library call "
+                     "(the plain version is a cuBLAS matmul + min)")
+    return first, timed
+
+
+def log_shapes(what: str, rows) -> None:
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"[kernel] {what} {r['shape']}: max_abs_err {r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms | "
+            f"plain {r['plain_ms']:.4f} ms | library {lib} | bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']})")
+
+
+@contextlib.contextmanager
+def record_match_shapes():
+    """Record the (pairs, n1, n2) of every K2 call the pipeline makes, by
+    wrapping the matcher's kernel entry for the duration."""
+    from sfm_tpu_torch.ops import match
+
+    shapes, inner = [], match.match_topk2
+
+    def wrapped(da, db, vb):
+        shapes.append((da.shape[0], da.shape[1], db.shape[1]))
+        return inner(da, db, vb)
+
+    match.match_topk2 = wrapped
+    try:
+        yield shapes
+    finally:
+        match.match_topk2 = inner
 
 
 def first_iteration_inputs(prob, cfg):
@@ -285,14 +370,11 @@ def check_ba(prob, cfg, device):
     """K3, K5 and K9 on a BA problem the main path solved, at the inputs of
     its first LM iteration, against their plain versions. Tolerances: K3
     payloads 1e-4 of each block's max (closed-form vs matmul-composed
-    Jacobians, fp32); K5 rtol 1e-5 (sum order); K9 2e-6 of the output's max
-    against its plain version evaluated in float64 on the same values (the
-    fp32 plain version on a GPU adds with atomics in an order that changes
-    from run to run), which leaves the kernel's own fp32 tree sum over up to
-    a few thousand terms (bound log2(n) * eps of the summed magnitudes,
-    < 1e-6). K9 must also give identical bits on a rerun. K3 and K5 are
-    checked once more with the near-plane floor raised to the nearest tenth
-    of the depths, so that the gate removes observations."""
+    Jacobians, fp32); K5 rtol 1e-5 (sum order); K9 as check_segment_sum
+    says, on this problem's segment tables (the record's row is the camera
+    side at K = 42). K3 and K5 are checked once more with the near-plane
+    floor raised to the nearest tenth of the depths, so that the gate
+    removes observations."""
     import torch
 
     from sfm_tpu_torch.ba import core
@@ -337,37 +419,67 @@ def check_ba(prob, cfg, device):
         library_ms=None, **bound(obs_in + nbytes(sums), 60 * O, FP32_OPS_PER_S),
         note=f"O={O}, sums {sums.tolist()}; also with the gate raised")
 
-    cam_t = ne_ref[2]
-    out = kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds)
-    ref = kb.cam_segment_sum_plain(cam_t.double(), inv.cam_perm, inv.cam_bounds)
-    err, rel = max_rel(out, ref)
-    if rel > 2e-6:
-        raise AssertionError(f"cam_segment_sum: relative error {rel}")
-    again = kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds)
-    if not torch.equal(out, again):
-        raise AssertionError("cam_segment_sum: two runs differ (must be deterministic)")
-    # The library yardstick, torch.segment_reduce, takes sorted segments
-    # only: it is timed on the point side (perm None), beside the kernel.
-    yp_t = ne_ref[1]
-    pb = inv.point_bounds
-    lib = torch.segment_reduce(yp_t.T, "sum", offsets=pb, axis=0)
-    if max_rel(kb.cam_segment_sum(yp_t, None, pb), lib.double())[1] > 2e-6:
-        raise AssertionError("cam_segment_sum: point side disagrees with torch.segment_reduce")
-    point_ms = time_ms(lambda: kb.cam_segment_sum(yp_t, None, pb), device)
-    K = cam_t.shape[0]
-    # Bytes: the N weighted observations' rows (the segment tables end at
-    # the last one), the permutation and bounds, the output.
+    k9 = check_segment_sum(inv, O, C, prob.num_points, device)
+    log_shapes("cam_segment_sum", k9)
     results["cam_segment_sum"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds), device),
-        plain_ms=time_ms(lambda: kb.cam_segment_sum_plain(cam_t, inv.cam_perm, inv.cam_bounds), device),
-        library_ms=time_ms(lambda: torch.segment_reduce(yp_t.T, "sum", offsets=pb, axis=0), device),
-        **bound(4 * (K * N + N + C + 1 + C * K), K * N, FP32_OPS_PER_S),
-        note=f"[{K}, {O}] ({N} weighted) -> [{C}, {K}], rel err {rel:.2e} vs the plain version "
-             f"in float64, deterministic; library_ms: torch.segment_reduce on the point side "
-             f"[{yp_t.shape[0]}, {N}] -> [{prob.num_points}, {yp_t.shape[0]}], where the kernel "
-             f"takes {point_ms:.4f} ms")
+        next(r for r in k9 if r["side"] == "camera" and r["K"] == NE_CAM_ROWS), shapes=k9)
     return results
+
+
+def check_segment_sum(inv, O: int, C: int, P: int, device):
+    """K9 at the row counts the solver hands it, on a solve's own segment
+    tables: the camera side (a permutation) for K = 6 (K10's y), 36 (K8's
+    payload) and 42 (the camera payload), the point side (sorted) for K = 3
+    (K10's u) and 9 (the point payload), on standard-normal values. Each is
+    held to 2e-6 of the output's max against the plain version in float64 on
+    the same values (the fp32 plain version on a GPU adds with atomics in an
+    order that changes from run to run; the kernel's own fp32 sums of up to a
+    few thousand terms stay under 1e-6) and must give identical bits on a
+    rerun. library_ms: torch.segment_reduce on the point side; on the camera
+    side index_select into camera order, then torch.segment_reduce (two
+    calls; the port calls neither). Bytes: the N weighted observations' rows,
+    the tables, the output."""
+    import torch
+
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    N = inv.cam_perm.numel()
+    gen = torch.Generator(device=device).manual_seed(9)
+    perm_long = inv.cam_perm.long()
+    rows = []
+    for side, K in (("camera", 6), ("camera", 36), ("camera", NE_CAM_ROWS), ("point", 3), ("point", 9)):
+        values = torch.randn((K, O), generator=gen, device=device)
+        if side == "camera":
+            args, S = (values, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), C
+            library = lambda: torch.segment_reduce(torch.index_select(values.T, 0, perm_long), "sum",
+                                                   offsets=inv.cam_bounds, axis=0)
+        else:
+            args, S = (values, None, inv.point_bounds), P
+            library = lambda: torch.segment_reduce(values.T, "sum", offsets=inv.point_bounds, axis=0)
+        out = kb.cam_segment_sum(*args)
+        ref = kb.cam_segment_sum_plain(values.double(), *args[1:3])
+        err, rel = max_rel(out, ref)
+        if rel > 2e-6:
+            raise AssertionError(f"cam_segment_sum {side} side K={K} S={S}: relative error {rel}")
+        # The yardstick adds each segment's terms one after the other in fp32
+        # (hundreds on the camera side): it is held to 1e-5, the kernel to 2e-6.
+        if max_rel(library(), ref)[1] > 1e-5:
+            raise AssertionError(f"cam_segment_sum {side} side K={K}: torch.segment_reduce computes "
+                                 "something else")
+        if not torch.equal(out, kb.cam_segment_sum(*args)):
+            raise AssertionError(f"cam_segment_sum {side} side K={K}: two runs differ (must be deterministic)")
+        rows.append(dict(
+            shape=f"{side} side [{K}, {O}] ({N} weighted) -> [{S}, {K}]", side=side, K=K, S=S,
+            max_abs_err=err,
+            ms=time_ms(lambda: kb.cam_segment_sum(*args), device),
+            plain_ms=time_ms(lambda: kb.cam_segment_sum_plain(*args[:3]), device),
+            library_ms=time_ms(library, device),
+            **bound(4 * (K * N + (N if side == "camera" else 0) + S + 1 + S * K), K * N, FP32_OPS_PER_S),
+            note=f"[{K}, {O}] ({N} weighted) -> [{S}, {K}], rel err {rel:.2e} vs the plain version in "
+                 "float64, deterministic; library_ms: " +
+                 ("index_select + torch.segment_reduce (two calls)" if side == "camera"
+                  else "torch.segment_reduce")))
+    return rows
 
 
 def schur_problem(device, num_cameras: int = 100, num_points: int = 500):
@@ -423,7 +535,7 @@ def check_big(prob, cfg, device):
     observations, with cancellation in the signed sums), identical bits on a
     rerun; K8 and K10 reduced by K9 against K7 and K11 to 1e-5. K4 and K6 are
     checked once more with the near-plane floor raised. Returns (results of
-    the four, twin timings)."""
+    the four, twin timings, K9's rows on this problem's segment tables)."""
     import torch
 
     from sfm_tpu_torch.ba import core
@@ -498,7 +610,7 @@ def check_big(prob, cfg, device):
         raise AssertionError("whw_payloads_big: two runs differ (must be deterministic)")
     k7 = (W_t, Hinv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
     whw7 = kb.whw_cam_reduce(*k7)
-    rel7 = max_rel(kb.cam_segment_sum(out, inv.cam_perm, inv.cam_bounds), whw7.double())[1]
+    rel7 = max_rel(kb.cam_segment_sum(out, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), whw7.double())[1]
     if rel7 > 1e-5:
         raise AssertionError(f"whw_payloads_big + cam_segment_sum vs whw_cam_reduce: {rel7}")
     results["whw_payloads_big"] = dict(
@@ -510,22 +622,23 @@ def check_big(prob, cfg, device):
              f"reduced by K9 it is K7's output to {rel7:.2e}")
     twins["K8 (+K9) vs K7"] = dict(
         big_ms=results["whw_payloads_big"]["ms"],
-        reduce_ms=time_ms(lambda: kb.cam_segment_sum(out, inv.cam_perm, inv.cam_bounds), device),
+        reduce_ms=time_ms(lambda: kb.cam_segment_sum(out, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), device),
         small_ms=time_ms(lambda: kb.whw_cam_reduce(*k7), device))
 
     v = torch.randn((C, 6), generator=torch.Generator(device=device).manual_seed(7), device=device)
     v_obs_t = core._rows_t(v, prob.obs_cam)
-    k10 = (W_t, Hinv, prob.obs_point, inv.point_bounds, N, v_obs_t)
+    k10 = (W_t, Hinv, prob.obs_point, inv.point_bounds, inv.cam_inv_perm.numel(), v_obs_t)
     y_t = kb.schur_coupling_payloads_big(*k10)
     err, rel = max_rel(y_t, kb.schur_coupling_payloads_big_plain(
-        W_t.double(), Hinv.double(), prob.obs_point, inv.point_bounds, N, v_obs_t.double()))
+        W_t.double(), Hinv.double(), *k10[2:5], v_obs_t.double()))
     if rel > 1e-5:
         raise AssertionError(f"schur_coupling_payloads_big: relative error {rel} ({shape})")
     if not torch.equal(y_t, kb.schur_coupling_payloads_big(*k10)):
         raise AssertionError("schur_coupling_payloads_big: two runs differ (must be deterministic)")
-    k11 = (W_t, Hinv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm, inv.cam_bounds, v)
+    k11 = (W_t, Hinv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm, inv.cam_bounds, v,
+           inv.cam_inv_perm)
     out11 = kb.schur_coupling_matvec(*k11)
-    rel11 = max_rel(kb.cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds), out11.double())[1]
+    rel11 = max_rel(kb.cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), out11.double())[1]
     if rel11 > 1e-5:
         raise AssertionError(f"schur_coupling_payloads_big + cam_segment_sum vs schur_coupling_matvec: {rel11}")
     results["schur_coupling_payloads_big"] = dict(
@@ -539,9 +652,10 @@ def check_big(prob, cfg, device):
     twins["K10 (+K9) vs K11"] = dict(
         big_ms=results["schur_coupling_payloads_big"]["ms"],
         gather_ms=time_ms(lambda: core._rows_t(v, prob.obs_cam), device),
-        reduce_ms=time_ms(lambda: kb.cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds), device),
+        reduce_ms=time_ms(lambda: kb.cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), device),
         small_ms=time_ms(lambda: kb.schur_coupling_matvec(*k11), device))
-    return results, twins
+    del out, y_t, v_obs_t, out11, whw7
+    return results, twins, check_segment_sum(inv, O, C, P, device)
 
 
 def arc_ring_reconstruction(num_cameras: int, num_points: int, track_range: tuple[int, int],
@@ -659,7 +773,7 @@ def check_schur(prob, cfg, device):
     v = torch.randn((C, 6), generator=torch.Generator(device=device).manual_seed(7),
                     device=device)
     k11 = (W_t, Hinv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
-           inv.cam_bounds, v)
+           inv.cam_bounds, v, inv.cam_inv_perm)
     out = kb.schur_coupling_matvec(*k11)
     ref = kb.schur_coupling_matvec_plain(W_t.double(), Hinv.double(), *k11[2:7], v.double())
     err, rel = max_rel(out, ref)
@@ -675,7 +789,7 @@ def check_schur(prob, cfg, device):
     results["schur_coupling_matvec"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.schur_coupling_matvec(*k11), device),
-        plain_ms=time_ms(lambda: kb.schur_coupling_matvec_plain(*k11), device),
+        plain_ms=time_ms(lambda: kb.schur_coupling_matvec_plain(*k11[:8]), device),
         library_ms=None, **bound(moved, 81 * N + 18 * P, FP32_OPS_PER_S),
         note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic")
     return results
@@ -1047,9 +1161,10 @@ def main() -> int:
     kernels.library()
     log(f"[build] kernels built and loaded in {kernels.build_seconds:.2f}s")
 
-    results = {"dog_extrema_scores": check_dog(device, SLICE_IMAGE),
-               "match_topk2": check_match(device, 4096)}
+    k2_first, k2_shapes = check_match(device, 4096)
+    results = {"dog_extrema_scores": check_dog(device, SLICE_IMAGE), "match_topk2": k2_first}
     log_results("features", results)
+    log_shapes("match_topk2", k2_shapes)
 
     rec, launches, ba_log, wall, scene = run_slice(device, SLICE_IMAGE, SLICE_BLOBS)
     log(f"[slice] reconstruct wall {wall:.2f}s | stages " +
@@ -1066,7 +1181,8 @@ def main() -> int:
     ring, scene = render_ring(INC_IMAGES, INC_BLOBS, INC_ARC)
     log(f"[incremental] rendered {INC_IMAGES} x {SLICE_IMAGE}^2 images with {INC_BLOBS} blobs "
         f"(ring arc {INC_ARC}, focal {INC_FOCAL}, radius {INC_RADIUS}) in {time.perf_counter() - t0:.2f}s")
-    rec, launches, ba_log, _, wall = run_reconstruct(device, ring)
+    with record_match_shapes() as match_shapes:
+        rec, launches, ba_log, _, wall = run_reconstruct(device, ring)
     log(f"[incremental] reconstruct wall {wall:.2f}s | stages " +
         ", ".join(f"{k} {v:.3f}s" for k, v in rec.stage_seconds.items()))
     log_bundle_adjustments("incremental", ba_log)
@@ -1085,6 +1201,14 @@ def main() -> int:
     log_results("final global BA", incremental)
     results.update(incremental)
     log_results("orbit", check_schur(schur_problem(device), final["cfg"], device))
+    # K2 once more at the shapes this run handed it (full and ragged blocks
+    # of pairs at the run's keypoint bucket).
+    done = {r["shape"] for r in k2_shapes}
+    path_k2 = [check_match_shape(device, shape) for shape in sorted(set(match_shapes))
+               if "%d x %d x %d" % shape not in done]
+    log(f"[incremental] match_topk2 was handed {sorted(set(match_shapes))} (pairs, n1, n2)")
+    log_shapes("match_topk2", path_k2)
+    k2_shapes += path_k2
     paths = {"two_view": two_view_launches, "incremental": launches}
     del ba_log, final
 
@@ -1127,9 +1251,12 @@ def main() -> int:
         f"{100 * dropped_in:.3f}% of the other observations")
     paths["merged_polish"] = polish["launches"]
     first = polish["ba_log"][0]
-    big, twins = check_big(first["problem"], first["cfg"], device)
+    big, twins, k9_big = check_big(first["problem"], first["cfg"], device)
     log_results("merged polish", big)
+    log_shapes("cam_segment_sum", k9_big)
     results.update(big)
+    results["match_topk2"]["shapes"] = k2_shapes
+    results["cam_segment_sum"]["shapes"] = results["cam_segment_sum"]["shapes"] + k9_big
     log(f"[kernel] twins on the merged polish's problem (ms): {json.dumps(twins)}")
 
     record = {"kernels": [
@@ -1139,7 +1266,9 @@ def main() -> int:
          "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
          "library_ms": results[k]["library_ms"],
-         "launches_by_path": {name: p.get(k, 0) for name, p in paths.items()}}
+         "launches_by_path": {name: p.get(k, 0) for name, p in paths.items()},
+         **({"shapes": [{f: r[f] for f in SHAPE_FIELDS} for r in results[k]["shapes"]]}
+            if "shapes" in results[k] else {})}
         for k in KERNELS]}
     never = [k["name"] for k in record["kernels"] if k["launches"] == 0]
     if never:

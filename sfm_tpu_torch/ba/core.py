@@ -41,8 +41,8 @@ from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.geometry.rotations import so3_hat, so3_right_jacobian
 from sfm_tpu_torch.kernels.ba_kernels import (
     MAX_CAMS, cam_segment_sum, fused_cost_sums, fused_cost_sums_big, fused_ne_payloads,
-    fused_ne_payloads_big, projection, schur_coupling_matvec, schur_coupling_payloads_big,
-    segment_bounds, whw_cam_reduce, whw_payloads_big,
+    fused_ne_payloads_big, invert_permutation, projection, schur_coupling_matvec,
+    schur_coupling_payloads_big, segment_bounds, whw_cam_reduce, whw_payloads_big,
 )
 
 _DENSE_MAX_VOLUME = 4 << 20   # C * O gate of the dense reduced solve
@@ -80,12 +80,16 @@ class SolveInvariants(NamedTuple):
     observation with a nonzero weight. The zero-weight tail past it (the
     capacity padding) contributes exact zeros to every sum, and leaving it
     out keeps it from forming one long segment (padding rows carry the last
-    point slot and camera 0) that a single warp or block would walk."""
+    point slot and camera 0) that a single warp or block would walk. For the
+    same reason the camera tables list the weighted observations only: the
+    zero-weight rows inside [0, N) (the gaps that align point segments to
+    tiles, up to a fifth of the rows on long tracks) all carry camera 0."""
 
     static_t: torch.Tensor      # [5, O] u, v, weight, camera-free, point-free
     point_bounds: torch.Tensor  # [P+1] int32 segment offsets in [0, N) (obs sorted by point)
-    cam_perm: torch.Tensor      # [N] int32 permutation sorting obs [0, N) by camera (stable)
+    cam_perm: torch.Tensor      # [M] int32 weighted obs of [0, N) sorted by camera (stable)
     cam_bounds: torch.Tensor    # [C+1] int32 camera segment offsets into cam_perm
+    cam_inv_perm: torch.Tensor  # [N] int32 obs o's place in cam_perm, -1 for a zero-weight row
     z_floor: torch.Tensor | None = None   # near-plane depth floor (0-d)
     intr_t: torch.Tensor | None = None    # [6, O] intrinsics per observation (large-C set only)
 
@@ -109,12 +113,13 @@ def solve_invariants(prob: BAProblem, z_floor: torch.Tensor | None = None) -> So
     ]).contiguous()
     weighted = torch.nonzero(prob.obs_w).flatten()
     n = int(weighted[-1]) + 1 if weighted.numel() else 0
-    cam_perm = torch.argsort(prob.obs_cam[:n], stable=True)
+    cam_perm = weighted[torch.argsort(prob.obs_cam[weighted], stable=True)]
     return SolveInvariants(
         static_t=static_t,
         point_bounds=segment_bounds(prob.obs_point[:n], prob.num_points),
         cam_perm=cam_perm.to(torch.int32),
-        cam_bounds=segment_bounds(prob.obs_cam[:n][cam_perm], prob.num_cameras),
+        cam_bounds=segment_bounds(prob.obs_cam[cam_perm], prob.num_cameras),
+        cam_inv_perm=invert_permutation(cam_perm, n),
         z_floor=z_floor,
         intr_t=_rows_t(prob.intrinsics, prob.obs_cam) if uses_big_kernels(prob) else None,
     )
@@ -194,7 +199,7 @@ def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConf
         w_t, yp_t, cam_t = fused_ne_payloads(
             prob.obs_cam, _pts_t(prob, points), inv.static_t, cam_params.contiguous(),
             prob.intrinsics, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
-    camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds)       # [C, 42]
+    camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)  # [C, 42]
     Hcc = camred[:, :36].reshape(C, CAM_DIM, CAM_DIM)
     bc = camred[:, 36:42]
     red = cam_segment_sum(yp_t, None, inv.point_bounds)                 # [P, 9]
@@ -221,7 +226,7 @@ def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
     C = prob.num_cameras
     if uses_big_kernels(prob):
         whw = cam_segment_sum(whw_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point),
-                              inv.cam_perm, inv.cam_bounds)
+                              inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
     else:
         whw = whw_cam_reduce(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
     M = ne.Hcc - whw.reshape(C, CAM_DIM, CAM_DIM) + 1e-6 * torch.eye(CAM_DIM, device=ne.Hcc.device)
@@ -244,7 +249,8 @@ def _w_apply_T(W_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
 def _cam_reduce(y_t: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
     """[..., K, O] per-observation rows -> [..., C, K] per camera."""
     lead, (K, O) = y_t.shape[:-2], y_t.shape[-2:]
-    out = cam_segment_sum(y_t.reshape(-1, O).contiguous(), inv.cam_perm, inv.cam_bounds)
+    out = cam_segment_sum(y_t.reshape(-1, O).contiguous(), inv.cam_perm, inv.cam_bounds,
+                          inv.cam_inv_perm)
     return out.reshape(out.shape[0], *lead, K).movedim(0, -2)
 
 
@@ -270,12 +276,12 @@ def _schur_matvec_pcg(ne: NormalEq, prob: BAProblem, v: torch.Tensor, inv: Solve
     or K10 then K9)."""
     if uses_big_kernels(prob):
         y_t = schur_coupling_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.point_bounds,
-                                          inv.cam_perm.shape[0], _rows_t(v, prob.obs_cam))
-        coupling = cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds)
+                                          inv.cam_inv_perm.shape[0], _rows_t(v, prob.obs_cam))
+        coupling = cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
     else:
         coupling = schur_coupling_matvec(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point,
                                          inv.point_bounds, inv.cam_perm, inv.cam_bounds,
-                                         v.contiguous())
+                                         v.contiguous(), inv.cam_inv_perm)
     return torch.einsum("cij,cj->ci", ne.Hcc, v) - coupling
 
 

@@ -33,8 +33,10 @@
 //
 // segment_sum replaces schur_spmv.py cam_segment_sum (Pallas one-hot MXU
 // reduction into a VMEM accumulator). Bound: bytes (one read per value).
-// The kernel (segment_sum.cuh) is a deterministic sorted-segment tree
-// reduction: no float atomics, so every run gives the same bits.
+// The kernels (segment_sum.cuh) are a sub-warp shuffle reduction for
+// segments that lie in order and a coalesced transpose-scatter plus packed
+// reduction for segments of a permutation: no float atomics, so every run
+// gives the same bits.
 
 #include <cuda_runtime.h>
 
@@ -337,9 +339,14 @@ extern "C" int sfm_fused_cost_sums_big(const float* pts_t,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sfm_segment_sum(const float* values, const int* perm,
-                               const int* bounds, int O, int K, int S,
-                               int threads, float* out, void* stream) {
-  return sfm::launch_segment_sum(values, perm, bounds, O, K, S, threads, out,
-                                 (cudaStream_t)stream);
+// inv_perm null: sorted segments, `width` lanes per segment. Otherwise
+// inv_perm [N] places observation o at its segment-sorted position (-1: of
+// no segment), `width` is the warps per segment and packed is scratch of
+// one row of K floats per placed observation.
+extern "C" int sfm_segment_sum(const float* values, const int* inv_perm,
+                               const int* bounds, int O, int K, int S, int N,
+                               int width, float* packed, float* out,
+                               void* stream) {
+  return sfm::launch_segment_sum(values, inv_perm, bounds, O, K, S, N, width,
+                                 packed, out, (cudaStream_t)stream);
 }

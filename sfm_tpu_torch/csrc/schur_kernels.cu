@@ -21,9 +21,12 @@
 // point walks the point's contiguous segment (observations are sorted by
 // point, so the lanes' loads coalesce) twice: first u_o = W_o^T v[cam_o],
 // summed over the segment into g_p by a fixed shuffle tree, and
-// h_p = Hpp^-1_p g_p in registers; then y_o = W_o h_p written feature-major
-// [6, O]. The deterministic sorted-segment reduction (segment_sum.cuh)
-// then sums y by camera. No atomics anywhere: reruns are bit-identical.
+// h_p = Hpp^-1_p g_p in registers; then y_o = W_o h_p, whose six values go
+// straight to the observation's camera-sorted position of a packed [M, 6]
+// scratch (24 contiguous bytes), so the packed pass of the deterministic
+// sorted-segment reduction (segment_sum.cuh) sums y by camera with
+// coalesced loads and no gather. No atomics anywhere: reruns are
+// bit-identical.
 
 //
 // whw_payloads_big replaces schur_spmv.py whw_payloads_big (Pallas: the
@@ -43,8 +46,8 @@
 // parallel, for long tracks: one thread per observation forms
 // u_o = W_o^T v_o [3, O]; the deterministic sorted-segment reduction
 // (segment_sum.cuh) sums u over each point's contiguous segment into g_p, a
-// block per (point, row), so a segment of any length and at any offset is
-// one block's work and no segment straddles anything; then one thread per
+// sub-warp group per point, so a segment of any length and at any offset is
+// one group's work and no segment straddles anything; then one thread per
 // observation forms y_o = W_o (Hpp^-1_p g_p) [6, O]. The caller reduces y by
 // camera. No atomics: reruns are bit-identical.
 
@@ -109,7 +112,8 @@ __global__ __launch_bounds__(kWhwThreads) void whw_cam_kernel(
 __global__ __launch_bounds__(kPointThreads) void coupling_point_kernel(
     const float* __restrict__ w_t, const float* __restrict__ hinv,
     const int* __restrict__ obs_cam, const int* __restrict__ point_bounds,
-    const float* __restrict__ v, int O, int P, float* __restrict__ y_t) {
+    const float* __restrict__ v, const int* __restrict__ cam_inv_perm, int O,
+    int P, float* __restrict__ y_packed) {
   // One warp per point: p is uniform across the warp, so a warp leaves
   // together and the shuffles below always see all 32 lanes.
   const int p = blockIdx.x * (kPointThreads / 32) + (threadIdx.x >> 5);
@@ -144,11 +148,14 @@ __global__ __launch_bounds__(kPointThreads) void coupling_point_kernel(
   const float h1 = h[3] * g0 + h[4] * g1 + h[5] * g2;
   const float h2 = h[6] * g0 + h[7] * g1 + h[8] * g2;
   for (int o = lo + lane; o < hi; o += 32) {
+    const int place = cam_inv_perm[o];
+    if (place < 0) continue;  // a zero-weight row: of no camera segment
+    float* y = y_packed + 6 * (size_t)place;
 #pragma unroll
     for (int i = 0; i < 6; ++i)
-      y_t[(size_t)i * O + o] = w_t[(size_t)(i * 3) * O + o] * h0 +
-                               w_t[(size_t)(i * 3 + 1) * O + o] * h1 +
-                               w_t[(size_t)(i * 3 + 2) * O + o] * h2;
+      y[i] = w_t[(size_t)(i * 3) * O + o] * h0 +
+             w_t[(size_t)(i * 3 + 1) * O + o] * h1 +
+             w_t[(size_t)(i * 3 + 2) * O + o] * h2;
   }
 }
 
@@ -238,18 +245,19 @@ extern "C" int sfm_whw_payloads_big(const float* w_t, const float* hinv,
 }
 
 // u_t [3, O] and g [P, 3] are caller-allocated scratch; point_bounds [P+1]
-// covers the observations [0, N) (sorted by point).
+// covers the observations [0, N) (sorted by point); seg_lanes is the
+// sub-warp group width of the point-side reduction.
 extern "C" int sfm_schur_coupling_payloads_big(
     const float* w_t, const float* hinv, const int* obs_point,
     const int* point_bounds, const float* v_obs_t, int O, int P, int N,
-    int seg_threads, float* u_t, float* g, float* y_t, void* stream) {
+    int seg_lanes, float* u_t, float* g, float* y_t, void* stream) {
   const int blocks = (O + kObsThreads - 1) / kObsThreads;
   coupling_u_kernel<<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(
       w_t, v_obs_t, O, u_t);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = sfm::launch_segment_sum(u_t, nullptr, point_bounds, O, 3, P,
-                                seg_threads, g, (cudaStream_t)stream);
+  err = sfm::launch_segment_sum(u_t, nullptr, point_bounds, O, 3, P, N,
+                                seg_lanes, nullptr, g, (cudaStream_t)stream);
   if (err != 0) return err;
   coupling_y_kernel<<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(
       w_t, hinv, obs_point, g, O, N, y_t);
@@ -265,20 +273,23 @@ extern "C" int sfm_whw_cam_reduce(const float* w_t, const float* hinv,
   return (int)cudaGetLastError();
 }
 
-// y_t [6, O] is caller-allocated scratch; the point segments must cover
-// every observation that cam_perm lists (point_bounds[0] = 0 and
-// point_bounds[P] = N, the length of cam_perm): only those rows are written.
+// The point segments must cover exactly the observations [0, N)
+// (point_bounds[0] = 0, point_bounds[P] = N); cam_inv_perm [N] is each one's
+// place among the M weighted observations in their stable camera sort, which
+// cam_bounds [C+1] cuts into segments, or -1 for a zero-weight row;
+// y_packed [M, 6] is caller-allocated scratch and seg_warps the warps per
+// camera of the packed reduction.
 extern "C" int sfm_schur_coupling_matvec(
     const float* w_t, const float* hinv, const int* obs_cam,
-    const int* point_bounds, const float* v, const int* cam_perm,
-    const int* cam_bounds, int O, int P, int C, int seg_threads, float* y_t,
+    const int* point_bounds, const float* v, const int* cam_inv_perm,
+    const int* cam_bounds, int O, int P, int C, int seg_warps, float* y_packed,
     float* out, void* stream) {
   constexpr int kPointsPerBlock = kPointThreads / 32;
   const int blocks = (P + kPointsPerBlock - 1) / kPointsPerBlock;
   coupling_point_kernel<<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
-      w_t, hinv, obs_cam, point_bounds, v, O, P, y_t);
+      w_t, hinv, obs_cam, point_bounds, v, cam_inv_perm, O, P, y_packed);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return sfm::launch_segment_sum(y_t, cam_perm, cam_bounds, O, 6, C,
-                                 seg_threads, out, (cudaStream_t)stream);
+  return sfm::launch_segment_sum_packed(y_packed, cam_bounds, 6, C, seg_warps,
+                                        out, (cudaStream_t)stream);
 }

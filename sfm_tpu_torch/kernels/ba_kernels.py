@@ -245,18 +245,48 @@ def cam_segment_sum_plain(values_t, perm, bounds):
     return out.index_add_(0, ids, values_t[:, cols].T)
 
 
-def _block_threads(O: int, S: int) -> int:
-    t = 32
-    while t < 256 and t < O // max(S, 1):
-        t *= 2
-    return t
+def invert_permutation(perm: torch.Tensor, size: int) -> torch.Tensor:
+    """inv [size] int32 with inv[perm[i]] = i and -1 where perm names no
+    entry, for perm [M] distinct indices into [0, size)."""
+    inv = torch.full((size,), -1, dtype=torch.int32, device=perm.device)
+    inv[perm.long()] = torch.arange(perm.shape[0], dtype=torch.int32, device=perm.device)
+    return inv
 
 
-def cam_segment_sum(values_t, perm, bounds):
-    """Deterministic sorted-segment reduction: values_t [K, O] f32, perm [N]
-    int32 (N <= O: observation indices sorted by segment; None when the
+def segment_lanes(num_obs: int, num_segments: int) -> int:
+    """Lanes of the sub-warp group that owns one sorted segment: the least
+    power of two that holds the mean segment length, within 1..32."""
+    mean = -(-num_obs // max(num_segments, 1))
+    lanes = 1
+    while lanes < 32 and lanes < mean:
+        lanes *= 2
+    return lanes
+
+
+_MAX_SEGMENT_WARPS = 32     # csrc/segment_sum.cuh kMaxSegmentWarps
+_TARGET_SEGMENT_WARPS = 4096  # warps that keep the card's 132 SMs busy
+
+
+def segment_warps(num_obs: int, num_segments: int) -> int:
+    """Warps of the block that owns one segment of the packed (second) pass
+    of a permuted reduction: one where the segments alone fill the card, up
+    to 32 where they are few, each warp keeping at least 32 observations of
+    a mean segment."""
+    mean = num_obs // max(num_segments, 1)
+    warps = 1
+    while (warps < _MAX_SEGMENT_WARPS and num_segments * warps < _TARGET_SEGMENT_WARPS
+           and mean >= 64 * warps):
+        warps *= 2
+    return warps
+
+
+def cam_segment_sum(values_t, perm, bounds, inv_perm=None):
+    """Deterministic sorted-segment reduction: values_t [K, O] f32, perm [M]
+    int32 (distinct observation indices sorted by segment; None when the
     observations already are), bounds [S+1] int32 offsets into perm (or
-    into [0, O)) -> [S, K]."""
+    into [0, O)) -> [S, K]. inv_perm [N] int32 (N <= O) is the place in perm
+    of each observation of [0, N), -1 for one that perm leaves out
+    (invert_permutation; a solve builds it once), made here when missing."""
     if not on_cuda(values_t):
         return cam_segment_sum_plain(values_t, perm, bounds)
     K, O = values_t.shape
@@ -264,13 +294,25 @@ def cam_segment_sum(values_t, perm, bounds):
     dev = values_t.device
     check(values_t, "values_t", torch.float32, (K, O), dev)
     check(bounds, "bounds", torch.int32, (S + 1,), dev)
-    if perm is not None:
-        check(perm, "perm", torch.int32, (None,), dev)
     out = torch.empty((S, K), dtype=torch.float32, device=dev)
     if S == 0 or K == 0:
         return out
+    if perm is None:
+        launch("sfm_segment_sum", "cam_segment_sum",
+               ptr(values_t), None, ptr(bounds), O, K, S, O, segment_lanes(O, S), None, ptr(out))
+        return out
+    M = perm.shape[0]
+    check(perm, "perm", torch.int32, (M,), dev)
+    if inv_perm is None:
+        inv_perm = invert_permutation(perm, O)
+    N = inv_perm.shape[0]
+    check(inv_perm, "inv_perm", torch.int32, (N,), dev)
+    if not M <= N <= O:
+        raise ValueError(f"perm lists {M} of {N} observations, values_t holds {O}")
+    packed = torch.empty((M, K), dtype=torch.float32, device=dev)
     launch("sfm_segment_sum", "cam_segment_sum",
-           ptr(values_t), ptr(perm), ptr(bounds), O, K, S, _block_threads(O, S), ptr(out))
+           ptr(values_t), ptr(inv_perm), ptr(bounds), O, K, S, N, segment_warps(M, S),
+           ptr(packed), ptr(out))
     return out
 
 
@@ -291,8 +333,8 @@ def whw_cam_reduce_plain(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
 def whw_cam_reduce(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
     """Schur-Jacobi blocks sum_{o in c} W_o Hpp^-1_{p(o)} W_o^T: W_t [18, O]
     (row i*3+k = W[i, k]), Hpp_inv [P, 3, 3], obs_point [O] int32,
-    cam_perm [N] int32 and cam_bounds [C+1] int32 (a stable camera sort of
-    the observations [0, N), N <= O) -> [C, 36]. Deterministic."""
+    cam_perm [M] int32 and cam_bounds [C+1] int32 (a stable camera sort of
+    the weighted observations) -> [C, 36]. Deterministic."""
     if not on_cuda(W_t):
         return whw_cam_reduce_plain(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds)
     O = W_t.shape[1]
@@ -348,13 +390,16 @@ def schur_coupling_matvec_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, 
     return cam_segment_sum_plain(y_t, cam_perm, cam_bounds)
 
 
-def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_bounds, v):
+def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_bounds, v,
+                          cam_inv_perm=None):
     """The Schur coupling term (W Hpp^-1 W^T) v for v [C, 6] -> [C, 6]:
     per observation u_o = W_o^T v[cam_o], per point g_p = sum u_o and
     h_p = Hpp^-1_p g_p, per observation y_o = W_o h_p, per camera the sum of
     y_o. Observations must be sorted by point; point_bounds [P+1] covers
-    [0, N) and cam_perm/cam_bounds (as for whw_cam_reduce) the same N
-    observations (SolveInvariants' contract). Deterministic."""
+    [0, N) and cam_perm/cam_bounds (as for whw_cam_reduce) the weighted ones
+    among them (SolveInvariants' contract); cam_inv_perm [N] is each
+    observation's place in cam_perm (-1 outside it), made here when missing.
+    Deterministic."""
     if not on_cuda(W_t):
         return schur_coupling_matvec_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds,
                                            cam_perm, cam_bounds, v)
@@ -366,16 +411,23 @@ def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_pe
     check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
     check(obs_cam, "obs_cam", torch.int32, (O,), dev)
     check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
-    check(cam_perm, "cam_perm", torch.int32, (None,), dev)
+    M = cam_perm.shape[0]
+    check(cam_perm, "cam_perm", torch.int32, (M,), dev)
     check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
     check(v, "v", torch.float32, (C, 6), dev)
     out = torch.empty((C, 6), dtype=torch.float32, device=dev)
-    if C == 0 or O == 0 or P == 0:
+    if C == 0 or M == 0 or P == 0:
         return out.zero_()
-    y_t = torch.empty((6, O), dtype=torch.float32, device=dev)
+    if cam_inv_perm is None:
+        cam_inv_perm = invert_permutation(cam_perm, O)
+    N = cam_inv_perm.shape[0]
+    check(cam_inv_perm, "cam_inv_perm", torch.int32, (N,), dev)
+    if not M <= N <= O:
+        raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
+    y_packed = torch.empty((M, 6), dtype=torch.float32, device=dev)
     launch("sfm_schur_coupling_matvec", "schur_coupling_matvec",
-           ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(v), ptr(cam_perm),
-           ptr(cam_bounds), O, P, C, _block_threads(O, C), ptr(y_t), ptr(out))
+           ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(v), ptr(cam_inv_perm),
+           ptr(cam_bounds), O, P, C, segment_warps(M, C), ptr(y_packed), ptr(out))
     return out
 
 
@@ -418,5 +470,5 @@ def schur_coupling_payloads_big(W_t, Hpp_inv, obs_point, point_bounds, num_obs: 
     g = torch.empty((P, 3), dtype=torch.float32, device=dev)
     launch("sfm_schur_coupling_payloads_big", "schur_coupling_payloads_big",
            ptr(W_t), ptr(Hpp_inv), ptr(obs_point), ptr(point_bounds), ptr(v_obs_t),
-           O, P, int(num_obs), _block_threads(O, P), ptr(u_t), ptr(g), ptr(y_t))
+           O, P, int(num_obs), segment_lanes(O, P), ptr(u_t), ptr(g), ptr(y_t))
     return y_t

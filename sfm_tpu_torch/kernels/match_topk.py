@@ -11,6 +11,19 @@ import torch
 from sfm_tpu_torch.kernels import check, launch, on_cuda, ptr
 
 BIG = 1e9
+TILE_COLS = 128   # csrc/match_topk.cu kBN: rows of db per shared-memory tile
+
+
+def padded_cols(n2: int) -> int:
+    """N2 rounded up to whole tiles: the length of the kernel's per-column
+    scratch (the squared norm, 1e9 for an invalid column, +inf past N2), so
+    a tile's columns are read without a bounds test."""
+    return -(-n2 // TILE_COLS) * TILE_COLS
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """The kernel copies 16-byte chunks: a view at an odd offset is cloned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def match_topk2_plain(da: torch.Tensor, db: torch.Tensor, vb: torch.Tensor):
@@ -39,8 +52,10 @@ def match_topk2(da: torch.Tensor, db: torch.Tensor, vb: torch.Tensor):
     N2 = db.shape[1]
     if D != 128:
         raise ValueError(f"descriptor width must be 128, got {D}")
-    a16 = da.to(torch.bfloat16).contiguous()
-    b16 = db.to(torch.bfloat16).contiguous()
+    if N2 == 0:
+        raise ValueError("db has no rows")
+    a16 = _aligned16(da.to(torch.bfloat16).contiguous())
+    b16 = _aligned16(db.to(torch.bfloat16).contiguous())
     v8 = vb.to(torch.uint8).contiguous()
     dev = da.device
     check(a16, "da", torch.bfloat16, (P, N1, D), dev)
@@ -49,6 +64,12 @@ def match_topk2(da: torch.Tensor, db: torch.Tensor, vb: torch.Tensor):
     d1 = torch.empty((P, N1), dtype=torch.float32, device=dev)
     d2 = torch.empty((P, N1), dtype=torch.float32, device=dev)
     idx = torch.empty((P, N1), dtype=torch.int32, device=dev)
+    if P == 0 or N1 == 0:
+        return d1, d2, idx
+    n2pad = padded_cols(N2)
+    na = torch.empty((P, N1), dtype=torch.float32, device=dev)
+    nb = torch.empty((P, n2pad), dtype=torch.float32, device=dev)
     launch("sfm_match_topk2", "match_topk2",
-           ptr(a16), ptr(b16), ptr(v8), P, N1, N2, ptr(d1), ptr(d2), ptr(idx))
+           ptr(a16), ptr(b16), ptr(v8), P, N1, N2, n2pad, ptr(na), ptr(nb),
+           ptr(d1), ptr(d2), ptr(idx))
     return d1, d2, idx

@@ -283,14 +283,20 @@ def test_intrinsics_refinement_is_refused(ne_problem):
 
 def test_segment_tables_leave_out_the_padding_tail(ne_problem):
     """The zero-weight capacity tail (one long segment of the last point slot
-    and camera 0) is left out of the segment tables; the sums are the same
-    as over every row."""
+    and camera 0) is left out of the segment tables, and the camera tables
+    list the weighted observations only (the zero-weight rows in between all
+    carry camera 0); the sums are the same as over every row."""
     _, prob = ne_problem
     O = prob.obs_w.shape[0]
     n = int(torch.nonzero(prob.obs_w).max()) + 1
     assert n < O
     inv = core.solve_invariants(prob)
-    assert inv.cam_perm.numel() == n == int(inv.cam_bounds[-1]) == int(inv.point_bounds[-1])
+    weighted = torch.nonzero(prob.obs_w).flatten()
+    assert inv.cam_inv_perm.numel() == n == int(inv.point_bounds[-1])
+    assert inv.cam_perm.numel() == weighted.numel() == int(inv.cam_bounds[-1])
+    assert torch.equal(inv.cam_perm.long().sort().values, weighted)
+    assert torch.equal(inv.cam_inv_perm[inv.cam_perm.long()].long(), torch.arange(weighted.numel()))
+    assert int((inv.cam_inv_perm < 0).sum()) == n - weighted.numel()
     full_perm = torch.argsort(prob.obs_cam, stable=True)
     full = inv._replace(point_bounds=segment_bounds(prob.obs_point, prob.num_points),
                         cam_perm=full_perm.to(torch.int32),

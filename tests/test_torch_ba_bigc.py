@@ -126,7 +126,7 @@ def test_schur_coupling_payloads_big_plain_matches_pallas_kernel():
     ref = np.asarray(schur_spmv.schur_coupling_payloads_big(
         lids, w_t, hinv_t, v8[:, jprob.obs_cam], tile=tile, interpret=True))[:6]
     inv = core.solve_invariants(prob)
-    n = inv.cam_perm.shape[0]
+    n = inv.cam_inv_perm.shape[0]
     got = ba_kernels.schur_coupling_payloads_big(
         torch.from_numpy(np.array(w_t)), torch.from_numpy(np.array(ne.Hpp_inv)), prob.obs_point,
         inv.point_bounds, n, core._rows_t(torch.from_numpy(v), prob.obs_cam)).numpy()

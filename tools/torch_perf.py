@@ -30,7 +30,14 @@
         inputs and result into DIR for tools/straighten_parity.py;
     python3 tools/torch_perf.py global N [...]
         engine_mode="global" on the first N views of that ring: accuracy
-        and stage seconds.
+        and stage seconds;
+    python3 tools/torch_perf.py kernels [--pairs 32] [--keypoints 4096]
+        K2 match_topk2 and K9 cam_segment_sum alone, held against their plain
+        versions and timed beside them and their library yardsticks
+        (chip_smoke.py's checks, without the reconstructions): K2 on one pair
+        and on a block of pairs; K9 on the segment tables of an orbit problem
+        (C = 128) and of the merged model (C = 10,240), camera side K = 6, 36
+        and 42, point side K = 3 and 9.
 
 Every line names the card and its power limit. Needs a CUDA device.
 """
@@ -282,6 +289,64 @@ def global_cmd(device, sizes):
               + json.dumps({k: round(x, 3) for k, x in rec.stage_seconds.items()}), flush=True)
 
 
+def _profile_calls(what: str, fn, calls: int = 10):
+    """Device time by kernel name of `calls` calls of fn() after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = _device_time_ms(prof)
+    print(f"[profile] {card()} {what}, {calls} calls: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms", flush=True)
+    for name, count, ms in top[:6]:
+        print(f"[profile]   {ms:9.3f} ms  {count:6d}x  {name}", flush=True)
+
+
+def kernels_cmd(device, pairs: int, keypoints: int):
+    import torch
+
+    from sfm_tpu_torch.ba import build_problem
+    from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.kernels.ba_kernels import cam_segment_sum
+    from sfm_tpu_torch.kernels.match_topk import match_topk2
+
+    def rows(what, rs):
+        for r in rs:
+            print(f"[kernels] {card()} {what} " + json.dumps({f: r[f] for f in cs.SHAPE_FIELDS}),
+                  flush=True)
+
+    rows("match_topk2", cs.check_match(device, keypoints, pairs)[1])
+    # The wrapper on fp32 descriptors, as the matcher hands them over: the
+    # kernel's own share beside the bf16 conversions.
+    da, db, vb = cs._planted_descriptors(device, keypoints, keypoints, seed=4, pairs=pairs)
+    _profile_calls(f"match_topk2 {pairs} x {keypoints} x {keypoints}", lambda: match_topk2(da, db, vb))
+    del da, db, vb
+    rec, _ = cs.arc_ring_reconstruction(cs.POLISH_CAMERAS, cs.POLISH_POINTS, cs.POLISH_TRACKS, seed=3,
+                                        centre_noise=cs.POLISH_CENTRE_NOISE)
+    for prob in (cs.schur_problem(device), build_problem(rec, tight=True, device=device)[0]):
+        inv = core.solve_invariants(prob)
+        O, C = prob.obs_w.shape[0], prob.num_cameras
+        lengths = (inv.cam_bounds[1:] - inv.cam_bounds[:-1]).float()
+        print(f"[kernels] {card()} segment tables O={O} N={inv.cam_inv_perm.numel()} "
+              f"weighted={inv.cam_perm.numel()} C={C}: camera segments mean {float(lengths.mean()):.1f} "
+              f"max {int(lengths.max())}", flush=True)
+        rows("cam_segment_sum", cs.check_segment_sum(inv, O, C, prob.num_points, device))
+        for K in (6, cs.NE_CAM_ROWS):
+            values = torch.randn((K, O), device=device)
+            _profile_calls(f"cam_segment_sum camera side [{K}, {O}] -> [{C}, {K}]",
+                           lambda: cam_segment_sum(values, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm))
+        values = torch.randn((9, O), device=device)
+        _profile_calls(f"cam_segment_sum point side [9, {O}] -> [{prob.num_points}, 9]",
+                       lambda: cam_segment_sum(values, None, inv.point_bounds))
+
+
 def per_iteration(prob, solver: str) -> dict:
     """Seconds per LM iteration of bundle_adjust on prob with the given
     reduced solve forced (max_iterations=10, function tolerance 0 so every
@@ -345,6 +410,9 @@ def main() -> int:
     p.add_argument("--dump", metavar="DIR")
     p = sub.add_parser("global")
     p.add_argument("sizes", nargs="+", type=int)
+    p = sub.add_parser("kernels")
+    p.add_argument("--pairs", type=int, default=32)
+    p.add_argument("--keypoints", type=int, default=4096)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_perf: no CUDA device available", file=sys.stderr)
@@ -354,6 +422,8 @@ def main() -> int:
         scene_cmd(device, args.specs)
     elif args.cmd == "slice":
         slice_cmd(device, args.runs)
+    elif args.cmd == "kernels":
+        kernels_cmd(device, args.pairs, args.keypoints)
     elif args.cmd == "polish":
         polish_cmd(device, args.iterations)
     elif args.cmd == "partition":
