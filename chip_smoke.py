@@ -22,14 +22,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      1024x1024 views with the default config; >= 95% of the images
      registered, mean reprojection error < 1 px, camera-centre RMSE after
      Sim(3) alignment < 1% of the orbit radius, the final global BA on the
-     PCG branch, and the seven kernels of that path launched by that run;
-     then K3, K5, K9, K7 and K11 on that final BA's problem, and K7 and K11
-     once more on an orbit problem with long tracks;
+     PCG branch, and the seven kernels of that path launched by that run
+     (pcg_solve, the whole PCG solve in one launch, in place of the
+     coupling-only K11, which must not launch: its device code runs inside
+     pcg_solve); then K3, K5, K9, K7 and K11 on that final BA's problem, and
+     K7 and K11 once more on an orbit problem with long tracks; pcg_solve on
+     both problems, on the orbit problem once more in its streaming mode,
+     and on a wide orbit of 1024 cameras (more cameras than blocks: resident,
+     streaming, and on a grid of 8 blocks);
   6. divide-and-conquer slice: the same views through reconstruct with
      partition.enabled (clusters of 40 + 10 of overlap, the incremental
      engine inside, every other field default): >= 95% registered, < 1 px,
      camera RMSE < 3% of the radius, two or more clusters merged, the merged
-     polish on the PCG branch, the same seven kernels launched;
+     polish on the PCG branch, the same seven kernels launched (and the
+     coupling-only K11 not); then pcg_solve on the first merged polish;
   7. global-engine slice: the first 24 views through reconstruct with
      engine_mode="global": every image registered, < 1 px, camera RMSE < 3%
      of the radius;
@@ -37,7 +43,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      cameras and about 1.5 M observations (tracks of 40-150 views, 0.5 px
      noise, 1% gross outliers, perturbed poses and points) through the
      pipeline's own _merged_polish with the default config: K4, K6, K8, K10
-     and K9 launched and K3, K5, K7, K11 not; every solve's cost falls; < 1 px
+     and K9 launched and K3, K5, K7, K11, pcg_solve not; every solve's cost falls; < 1 px
      afterwards; the camera RMSE falls and ends under 1% of the radius; the
      gross outliers dropped; then K4, K6, K8 and K10 on the first solve's
      problem, each timed beside its small-camera-count twin.
@@ -48,11 +54,14 @@ events, 21 runs), and the least time the card could take (bytes over
 3.35 TB/s or operations over the peak rate, whichever is larger). K9 is
 held and timed on each BA problem's own segment tables on both sides: the
 camera side (a permutation) for K = 6, 36 and 42 rows, the point side
-(sorted) for K = 3 and 9, bit-identical on a rerun. The
-record reports K1-K3, K5, K7, K9 and K11 at the incremental slice's shapes,
-K4, K6, K8 and K10 at the merged polish's, every kernel's launches on
-each path (`launches` is the largest of them), and for K2 and K9 a row per
-timed shape under `shapes`.
+(sorted) for K = 3 and 9, bit-identical on a rerun. pcg_solve is held
+against its plain version in float64 and timed beside `loop_ms`, the same
+solve as Python steps over the coupling-only K11. The record (twelve rows)
+reports K1-K3, K5, K7, K9, K11 and pcg_solve at the incremental slice's
+shapes, K4, K6, K8 and K10 at the merged polish's, every kernel's launches
+on each path (`launches` is the largest of them; K11's row counts as
+launched where pcg_solve is), and for K2, K9 and pcg_solve a row per timed
+shape under `shapes`.
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -81,12 +90,18 @@ KERNELS = {
     "whw_payloads_big": ("sfm_tpu_torch/csrc/schur_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:682"),
     "schur_coupling_payloads_big": ("sfm_tpu_torch/csrc/schur_kernels.cu",
                                     "sfm_tpu/kernels/schur_spmv.py:935"),
+    # The whole PCG solve over K11's device code: the fori_loop of _pcg.
+    "pcg_solve": ("sfm_tpu_torch/csrc/schur_kernels.cu",
+                  "sfm_tpu/kernels/schur_spmv.py:975 + sfm_tpu/ba/core.py:858"),
 }
 # The large-camera-count BA set (more than 4096 cameras) and the set that
 # serves the engines' problems; K9 cam_segment_sum reduces for both.
 BIG_KERNELS = ("fused_ne_payloads_big", "fused_cost_sums_big", "whw_payloads_big",
                "schur_coupling_payloads_big")
 SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS)
+# The engines' PCG solves launch pcg_solve, which runs K11's coupling code
+# inside; the coupling-only K11 entry launches on no path.
+ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k != "schur_coupling_matvec")
 TWO_VIEW_KERNELS = ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums",
                     "cam_segment_sum")
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
@@ -123,10 +138,17 @@ POLISH_TRACKS = (40, 150)
 POLISH_CENTRE_NOISE = 2.0
 # The global-engine slice: the first views of the same ring spacing.
 GLOBAL_IMAGES = 24
+# pcg_solve's wide orbit: 1024 cameras, each seeing all 120 points, so that
+# the card's grid gives every block 7-8 cameras and a grid of 8 blocks 128
+# (two passes of its 64 lane groups).
+WIDE_CAMERAS = 1024
+WIDE_POINTS = 120
+WIDE_BLOCKS = 8
 # kernels/ba_kernels.NE_CAM_ROWS: rows of the camera payload K3/K4 hand to K9.
 NE_CAM_ROWS = 42
 # Per-shape rows of a kernel that is timed at several shapes (K2, K9).
 SHAPE_FIELDS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+PCG_FIELDS = ("loop_ms",)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -795,11 +817,100 @@ def check_schur(prob, cfg, device):
     return results
 
 
+def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
+              blocks: int | None = None):
+    """pcg_solve (the whole PCG solve in one launch) on a PCG-sized BA
+    problem at the inputs of its first LM iteration (normal equations,
+    Schur-Jacobi preconditioner, rhs), against pcg_solve_plain in float64 on
+    the same inputs: x within 1e-3 of max|x| after cfg.cg_iterations steps
+    (fp32 CG drifts from the float64 iterates), |S x - rhs| at most twice
+    the float64 solution's + 1e-6 |rhs| (S applied in float64), within 1e-5
+    after one step; identical bits on a rerun. streaming=True forces the mode
+    that reads W from device memory every step; blocks replaces the card's
+    grid by a grid of that many blocks (each then owns more cameras). Timed
+    beside loop_ms: the same solve as Python steps over the coupling-only
+    K11 (pcg_loop), and the plain version in fp32. Bound: what the solve must
+    move, its inputs (W, the tables, the camera blocks) read once and x
+    written once, against the operations of cfg.cg_iterations steps; the
+    per-step scratch (packed y rows, camera vectors: a few MB at these
+    shapes) stays in the 50 MB L2 and is not charged."""
+    import torch
+
+    from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    inv, ne = first_iteration_inputs(prob, cfg)
+    O, C, P, M = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, inv.cam_perm.numel()
+    N = inv.cam_inv_perm.numel()
+    if core.uses_dense_solver(prob, cfg) or core.uses_big_kernels(prob):
+        raise AssertionError(f"pcg check: C={C}, O={O} does not take the fused PCG solve")
+    M_inv, d = core.pcg_preconditioner(ne, prob, inv)
+    rhs = core._schur_rhs(ne, prob, inv).contiguous()
+    if device.type == "cuda" and blocks is None:
+        plan = kb.pcg_launch_plan(inv.point_bounds, streaming)
+    else:  # on the CPU pcg_solve takes its plain version: the plan only labels the row
+        plan = kb.pcg_plan(inv.point_bounds, blocks or 4, streaming=streaming)
+        plan = plan._replace(block_points=plan.block_points.to(device))
+    its, tol = cfg.cg_iterations, cfg.cg_tolerance
+    tables = (prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm, inv.cam_bounds)
+    args = (ne.W_t, ne.Hpp_inv, *tables, inv.cam_inv_perm, ne.Hcc, M_inv, d, rhs)
+    W64, H64, Hcc64, M64, d64, rhs64 = (t.double() for t in (ne.W_t, ne.Hpp_inv, ne.Hcc, M_inv, d, rhs))
+
+    def fused(n):
+        return kb.pcg_solve(*args, n, tol, plan=plan)
+
+    def plain64(n):
+        return kb.pcg_solve_plain(W64, H64, *tables, Hcc64, M64, d64, rhs64, n, tol)
+
+    def plain32():
+        return kb.pcg_solve_plain(ne.W_t, ne.Hpp_inv, *tables, ne.Hcc, M_inv, d, rhs, its, tol)
+
+    def residual(x):
+        Sx = torch.einsum("cij,cj->ci", Hcc64, x) - kb.schur_coupling_matvec_plain(W64, H64, *tables, x)
+        return float((Sx - rhs64).norm())
+
+    def loop():
+        return kb.pcg_loop(lambda v: torch.einsum("cij,cj->ci", ne.Hcc, v) - kb.schur_coupling_matvec(
+            ne.W_t, ne.Hpp_inv, *tables, v, inv.cam_inv_perm), M_inv, d, rhs, its, tol)
+
+    shape = (f"{what}: O={O} ({M} weighted) C={C} P={P}, {'streaming' if plan.streaming else 'resident'}"
+             + (f", {blocks} blocks" if blocks else ""))
+    x, ref = fused(its), plain64(its)
+    scale = max(float(ref.abs().max()), 1e-30)
+    err = float((x.double() - ref).abs().max())
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"pcg_solve ({shape}): max err {err} against max|x| {scale}")
+    res, res_ref, rhs_norm = residual(x.double()), residual(ref), float(rhs64.norm())
+    if not res <= 2.0 * res_ref + 1e-6 * rhs_norm:
+        raise AssertionError(f"pcg_solve ({shape}): |S x - rhs| {res} against {res_ref} in float64")
+    ref1 = plain64(1)
+    err1 = float((fused(1).double() - ref1).abs().max())
+    if not err1 <= 1e-5 * max(float(ref1.abs().max()), 1e-30):
+        raise AssertionError(f"pcg_solve ({shape}): one step off by {err1}")
+    if not torch.equal(x, fused(its)):
+        raise AssertionError(f"pcg_solve ({shape}): two runs differ (must be deterministic)")
+    # How far fp32 alone drifts from float64 here (not a bar): the plain version in fp32.
+    err32 = float((plain32().double() - ref).abs().max())
+    moved = 4 * (20 * N + P + 1 + 9 * P + C + 1 + 36 * C + 36 * C + 6 * C + 6 * C + 6 * C)
+    return dict(
+        shape=shape, max_abs_err=err,
+        ms=time_ms(lambda: fused(its), device),
+        loop_ms=time_ms(loop, device),
+        plain_ms=time_ms(plain32, device),
+        library_ms=None,
+        **bound(moved, its * (81 * N + 18 * P + 160 * C), FP32_OPS_PER_S),
+        note=f"{shape}, grid {plan.grid}, {plan.smem_bytes} B staged per block; err {err / scale:.2e} "
+             f"of max|x| vs float64 (plain fp32 {err32 / scale:.2e}), |Sx - rhs| {res:.3e} (float64 "
+             f"solution {res_ref:.3e}, |rhs| {rhs_norm:.3e}), one step "
+             f"{err1:.2e}, deterministic")
+
+
 def log_results(what: str, results: dict) -> None:
     for k, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        loop = f"loop {r['loop_ms']:.4f} ms | " if "loop_ms" in r else ""
         log(f"[kernel] {what + ': ' if what else ''}{k}: max_abs_err {r['max_abs_err']:.3e} | kernel {r['ms']:.4f} ms | "
-            f"plain {r['plain_ms']:.4f} ms | library {lib} | bound {r['bound_ms'] * 1e3:.2f} us "
+            f"{loop}plain {r['plain_ms']:.4f} ms | library {lib} | bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}) | {r['note']}")
 
 
@@ -967,9 +1078,10 @@ def check_incremental(rec, launches, ba_log, scene):
         raise AssertionError(f"incremental: camera RMSE {rmse} >= 1% of the orbit radius")
     if not ba_log or ba_log[-1]["solver"] != "pcg":
         raise AssertionError(f"incremental: the final global BA did not take PCG: {ba_log[-1:]}")
-    missing = [k for k in SMALL_KERNELS if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"incremental: kernels never launched by the main path: {missing}")
+    missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
+    if missing or launches.get("schur_coupling_matvec", 0):
+        raise AssertionError(f"incremental: kernels never launched by the main path: {missing}; "
+                             f"coupling-only K11 launches {launches.get('schur_coupling_matvec', 0)}")
     return rmse
 
 
@@ -1038,9 +1150,10 @@ def check_partition(rec, launches, ba_log, merges, scene):
         raise AssertionError(f"partition: no merge of two or more clusters: {merges}")
     if not ba_log or ba_log[-1]["solver"] != "pcg" or ba_log[-1]["C"] < 0.95 * n:
         raise AssertionError(f"partition: the merged polish did not take PCG: {ba_log[-1:]}")
-    missing = [k for k in SMALL_KERNELS if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"partition: kernels never launched by the main path: {missing}")
+    missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
+    if missing or launches.get("schur_coupling_matvec", 0):
+        raise AssertionError(f"partition: kernels never launched by the main path: {missing}; "
+                             f"coupling-only K11 launches {launches.get('schur_coupling_matvec', 0)}")
     return rmse
 
 
@@ -1200,7 +1313,24 @@ def main() -> int:
                    **check_schur(final["problem"], final["cfg"], device)}
     log_results("final global BA", incremental)
     results.update(incremental)
-    log_results("orbit", check_schur(schur_problem(device), final["cfg"], device))
+    orbit = schur_problem(device)
+    log_results("orbit", check_schur(orbit, final["cfg"], device))
+    # The fused PCG solve on the same two problems, once more on the orbit
+    # problem with W read from device memory every step; then on a wide orbit
+    # whose cameras outnumber the grid (several cameras per block, and on a
+    # grid of 8 blocks several lane-group passes per camera phase).
+    pcg_rows = [check_pcg(final["problem"], final["cfg"], device, "final global BA"),
+                check_pcg(orbit, final["cfg"], device, "orbit"),
+                check_pcg(orbit, final["cfg"], device, "orbit", streaming=True)]
+    del orbit
+    wide = schur_problem(device, WIDE_CAMERAS, WIDE_POINTS)
+    pcg_rows += [check_pcg(wide, final["cfg"], device, "wide orbit"),
+                 check_pcg(wide, final["cfg"], device, "wide orbit", streaming=True),
+                 check_pcg(wide, final["cfg"], device, "wide orbit", blocks=WIDE_BLOCKS)]
+    for row in pcg_rows:
+        log_results("", {"pcg_solve": row})
+    results["pcg_solve"] = dict(pcg_rows[0])
+    del wide
     # K2 once more at the shapes this run handed it (full and ragged blocks
     # of pairs at the run's keypoint bucket).
     done = {r["shape"] for r in k2_shapes}
@@ -1228,7 +1358,11 @@ def main() -> int:
     log(f"[partition] camera-centre RMSE after Sim(3) alignment {rmse:.5f} "
         f"({100 * rmse / INC_RADIUS:.3f}% of the orbit radius)")
     paths["partition"] = launches
-    del ba_log
+    first_polish = next(b for b in ba_log if b["solver"] == "pcg" and b["C"] >= 0.95 * len(rec.registered))
+    pcg_rows.append(check_pcg(first_polish["problem"], first_polish["cfg"], device, "first merged polish"))
+    log_results("", {"pcg_solve": pcg_rows[-1]})
+    results["pcg_solve"]["shapes"] = pcg_rows
+    del ba_log, first_polish
 
     # The global engine on the first views of the ring.
     rec, launches, ba_log, _, wall = run_reconstruct(device, ring[:GLOBAL_IMAGES], engine_mode="global")
@@ -1266,11 +1400,16 @@ def main() -> int:
          "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
          "library_ms": results[k]["library_ms"],
+         **({"loop_ms": results[k]["loop_ms"]} if "loop_ms" in results[k] else {}),
          "launches_by_path": {name: p.get(k, 0) for name, p in paths.items()},
-         **({"shapes": [{f: r[f] for f in SHAPE_FIELDS} for r in results[k]["shapes"]]}
+         **({"shapes": [{f: r[f] for f in SHAPE_FIELDS + PCG_FIELDS if f in r}
+                        for r in results[k]["shapes"]]}
             if "shapes" in results[k] else {})}
         for k in KERNELS]}
-    never = [k["name"] for k in record["kernels"] if k["launches"] == 0]
+    # K11's coupling code runs inside pcg_solve: its row counts as launched where pcg_solve is.
+    fused = next(k["launches"] for k in record["kernels"] if k["name"] == "pcg_solve")
+    never = [k["name"] for k in record["kernels"]
+             if k["launches"] == 0 and not (k["name"] == "schur_coupling_matvec" and fused > 0)]
     if never:
         raise AssertionError(f"kernels launched by no path: {never}")
     log(f"[done] chip_smoke wall {time.perf_counter() - t_start:.1f}s")

@@ -13,8 +13,9 @@
     the volume gate, the JAX package's gate unchanged): S assembled
     column-block-wise through the implicit matvec, Cholesky; or
   - by preconditioned CG in the Jacobi-equilibrated space: the Schur-Jacobi
-    preconditioner's blocks sum_c W Hpp^-1 W^T come from kernel K7, every
-    CG step's implicit S p from kernel K11 (coupling) and Hcc p;
+    preconditioner's blocks sum_c W Hpp^-1 W^T come from kernel K7, then
+    all CG steps run in one pcg_solve launch (K11's coupling code and Hcc p
+    per step, the dot products and updates between grid barriers);
   back-substitution dp = Hpp^-1 (bp - W^T dc); LM accept/reject on the true
   robust cost (kernel K5), multiplicative damping.
 
@@ -22,7 +23,8 @@ Past MAX_CAMS = 4096 cameras (the JAX package's _MAX_CAMS, where its one-hot
 kernels stop) the same solve goes through the large-camera-count kernel set:
 camera, intrinsic and v rows are gathered per observation by plain indexing
 and K4 (normal equations), K6 (cost), K8 (preconditioner payloads, then K9)
-and K10 (coupling payloads, then K9) take the place of K3, K5, K7 and K11.
+and K10 (coupling payloads, then K9) take the place of K3, K5, K7 and K11;
+there the CG steps run as a Python loop (pcg_loop) over K10 and K9.
 The JAX package switches its coupling matvec later (past 16384 cameras or on
 unaligned tiles, where its two-level in-kernel matvec cannot run); this
 package has no two-level kernel, so the whole set switches at one threshold.
@@ -39,10 +41,12 @@ import torch
 from sfm_tpu_torch.ba.problem import BAProblem, CAM_DIM, PT_DIM
 from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.geometry.rotations import so3_hat, so3_right_jacobian
+from sfm_tpu_torch.kernels import on_cuda
 from sfm_tpu_torch.kernels.ba_kernels import (
-    MAX_CAMS, cam_segment_sum, fused_cost_sums, fused_cost_sums_big, fused_ne_payloads,
-    fused_ne_payloads_big, invert_permutation, projection, schur_coupling_matvec,
-    schur_coupling_payloads_big, segment_bounds, whw_cam_reduce, whw_payloads_big,
+    MAX_CAMS, PcgPlan, cam_segment_sum, fused_cost_sums, fused_cost_sums_big, fused_ne_payloads,
+    fused_ne_payloads_big, invert_permutation, pcg_launch_plan, pcg_loop, pcg_solve, projection,
+    schur_coupling_matvec, schur_coupling_payloads_big, segment_bounds, whw_cam_reduce,
+    whw_payloads_big,
 )
 
 _DENSE_MAX_VOLUME = 4 << 20   # C * O gate of the dense reduced solve
@@ -92,6 +96,7 @@ class SolveInvariants(NamedTuple):
     cam_inv_perm: torch.Tensor  # [N] int32 obs o's place in cam_perm, -1 for a zero-weight row
     z_floor: torch.Tensor | None = None   # near-plane depth floor (0-d)
     intr_t: torch.Tensor | None = None    # [6, O] intrinsics per observation (large-C set only)
+    pcg_plan: PcgPlan | None = None       # pcg_solve's launch plan (CUDA, up to MAX_CAMS cameras)
 
 
 def uses_big_kernels(prob: BAProblem) -> bool:
@@ -114,14 +119,18 @@ def solve_invariants(prob: BAProblem, z_floor: torch.Tensor | None = None) -> So
     weighted = torch.nonzero(prob.obs_w).flatten()
     n = int(weighted[-1]) + 1 if weighted.numel() else 0
     cam_perm = weighted[torch.argsort(prob.obs_cam[weighted], stable=True)]
+    point_bounds = segment_bounds(prob.obs_point[:n], prob.num_points)
+    big = uses_big_kernels(prob)
     return SolveInvariants(
         static_t=static_t,
-        point_bounds=segment_bounds(prob.obs_point[:n], prob.num_points),
+        point_bounds=point_bounds,
         cam_perm=cam_perm.to(torch.int32),
         cam_bounds=segment_bounds(prob.obs_cam[cam_perm], prob.num_cameras),
         cam_inv_perm=invert_permutation(cam_perm, n),
         z_floor=z_floor,
-        intr_t=_rows_t(prob.intrinsics, prob.obs_cam) if uses_big_kernels(prob) else None,
+        intr_t=_rows_t(prob.intrinsics, prob.obs_cam) if big else None,
+        # Once per bundle_adjust, not per LM iteration: the plan reads point_bounds back.
+        pcg_plan=pcg_launch_plan(point_bounds) if not big and on_cuda(point_bounds) else None,
     )
 
 
@@ -233,7 +242,8 @@ def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
     dg = torch.sqrt(M.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
     Dinv = 1.0 / dg
     M_eq = M * Dinv[:, :, None] * Dinv[:, None, :]
-    return torch.linalg.inv_ex(M_eq).inverse * Dinv[:, :, None] * Dinv[:, None, :], dg
+    M_inv = (torch.linalg.inv_ex(M_eq).inverse * Dinv[:, :, None] * Dinv[:, None, :]).contiguous()
+    return M_inv, dg   # (inv_ex hands back column-major blocks on the GPU)
 
 
 def _w_apply(W_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
@@ -287,47 +297,19 @@ def _schur_matvec_pcg(ne: NormalEq, prob: BAProblem, v: torch.Tensor, inv: Solve
 
 def _pcg(ne: NormalEq, prob: BAProblem, rhs: torch.Tensor, cfg: BAConfig,
          inv: SolveInvariants) -> torch.Tensor:
-    """Preconditioned CG on the reduced camera system, in the
-    Jacobi-equilibrated space: solve (D^-1 S D^-1) y = D^-1 rhs with
-    D = sqrt|diag M| of the Schur-Jacobi preconditioner M
-    (pcg_preconditioner), return x = D^-1 y (every iterate O(1)-scaled, so
-    fp32 CG cannot overflow in p.(S p) when diag S spans many decades).
-
-    cfg.cg_iterations steps, always: a converged or dead solve freezes its
-    updates through torch.where instead of leaving the loop, so the loop
-    never reads a value back to the host. A non-finite or non-positive
-    curvature p.(S p) freezes the solve for good (CG keeps its best x).
-    """
+    """Preconditioned CG on the reduced camera system (kernels.ba_kernels
+    pcg_loop's algorithm: Jacobi-equilibrated by D = sqrt|diag M| of the
+    Schur-Jacobi preconditioner M, cfg.cg_iterations steps, converged or dead
+    solves frozen through torch.where, nothing read back to the host). Up to
+    MAX_CAMS cameras the whole solve is one pcg_solve launch; past it the
+    steps run as a loop over K10 then K9."""
     M_inv, d = pcg_preconditioner(ne, prob, inv)
-    dinv = 1.0 / d
-
-    def precond(r):
-        return d * torch.einsum("cij,cj->ci", M_inv, d * r)
-
-    zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
-    one = torch.ones((), dtype=rhs.dtype, device=rhs.device)
-    b = dinv * rhs
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = (r * z).sum()
-    rhs_norm = torch.sqrt((b * b).sum()) + 1e-20
-    dead = torch.zeros((), dtype=torch.bool, device=rhs.device)
-    for _ in range(cfg.cg_iterations):
-        Ap = dinv * _schur_matvec_pcg(ne, prob, dinv * p, inv)
-        pAp = (p * Ap).sum()
-        dead = dead | ~torch.isfinite(pAp) | (pAp <= 0.0)
-        done = dead | (torch.sqrt((r * r).sum()) / rhs_norm < cfg.cg_tolerance)
-        alpha = torch.where(done, zero, rz / torch.where(done, one, pAp))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_new = torch.where(done, rz, (r * z).sum())
-        beta = rz_new / rz.clamp_min(1e-20)
-        p = torch.where(done, p, z + beta * p)
-        rz = rz_new
-    return dinv * x
+    if uses_big_kernels(prob):
+        return pcg_loop(lambda v: _schur_matvec_pcg(ne, prob, v, inv), M_inv, d, rhs,
+                        cfg.cg_iterations, cfg.cg_tolerance)
+    return pcg_solve(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds,
+                     inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm, ne.Hcc, M_inv, d,
+                     rhs.contiguous(), cfg.cg_iterations, cfg.cg_tolerance, plan=inv.pcg_plan)
 
 
 def _schur_rhs(ne: NormalEq, prob: BAProblem, inv: SolveInvariants) -> torch.Tensor:

@@ -1,5 +1,6 @@
 // Reduced-camera-system kernels of the PCG solver: the Schur-Jacobi
-// preconditioner blocks and the implicit Schur coupling matvec.
+// preconditioner blocks, the implicit Schur coupling matvec and the fused
+// PCG solve built on it.
 //
 // whw_cam_reduce replaces sfm_tpu/kernels/schur_spmv.py whw_cam_reduce
 // (Pallas: per-observation W Hpp^-1 W^T formed in VMEM, reduced into a
@@ -51,7 +52,36 @@
 // observation forms y_o = W_o (Hpp^-1_p g_p) [6, O]. The caller reduces y by
 // camera. No atomics: reruns are bit-identical.
 
+//
+// pcg_solve replaces sfm_tpu/ba/core.py _pcg (a jax.lax.fori_loop of
+// cfg.cg_iterations CG steps over schur_spmv.py schur_coupling_matvec, one
+// device program): the whole preconditioned CG solve of the reduced camera
+// system in one cooperative launch. Bound: bytes — W (72 bytes per
+// observation) is read every step by the coupling matvec; the camera
+// vectors are a few KB. What the design does about it: each block copies
+// its slice of the observations (W's 18 rows, the camera and the
+// camera-sorted place, 80 bytes per observation; slices balanced by
+// observation count and cut at point boundaries) into shared memory once,
+// with 16-byte cp.async chunks, and every step reads W from there; only the
+// packed y rows and the camera vectors go through L2. A step is four phases
+// between grid barriers: (A) K11's point code per point of the block's
+// slice, a group of 1-32 lanes per point (the plan's width for the mean
+// track length: a warp per point would leave most lanes idle on tracks of
+// 3-5 views); (B) the packed camera sums of segment_sum.cuh per camera of the
+// block (cameras c = b, b + G, ...), then Ap = (Hcc v - coupling) / d and
+// the block's partials of p.Ap and r.r; (C) every block adds all partials in
+// index order (identical bits everywhere, so every block takes the same
+// done, dead and alpha), updates x and r and forms z = d M^-1 (d r); (D) the
+// same for r.z, then p and v = p / d. A lane group of 8 owns a camera's six
+// rows in (C) and (D), so x, r, z and p are read and written by one thread
+// only. When the largest slice does not fit the shared-memory budget, the
+// same kernel (template flag) reads W from device memory every step. No
+// float atomics: a rerun gives identical bits.
+
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include <cstdint>
 
 #include "segment_sum.cuh"
 
@@ -109,54 +139,84 @@ __global__ __launch_bounds__(kWhwThreads) void whw_cam_kernel(
   }
 }
 
+// Per-observation rows of the coupling matvec as they lie in device memory:
+// W feature-major [18, O], the camera and the camera-sorted place per
+// observation.
+struct GlobalObs {
+  const float* __restrict__ w_t;
+  const int* __restrict__ cam;
+  const int* __restrict__ place;
+  int O;
+  __device__ __forceinline__ float w(int k, int o) const {
+    return w_t[(size_t)k * O + o];
+  }
+  __device__ __forceinline__ int camera(int o) const { return cam[o]; }
+  __device__ __forceinline__ int sorted_place(int o) const { return place[o]; }
+};
+
+// One point's share of (W Hpp^-1 W^T) v, by a group of `width` lanes (a
+// power of two <= 32; lane is the lane's place in its group; all 32 lanes of
+// the warp call it together, each group with its own point, so the
+// shuffles see the whole warp; p < 0 with lo = hi for a group without a
+// point): u_o = W_o^T v[cam_o] summed over the point's observations [lo, hi)
+// into g_p, h_p = Hpp^-1_p g_p, y_o = W_o h_p written to the observation's
+// camera-sorted place of y_packed [M, 6]. v and y_packed take plain loads and
+// stores: the fused PCG solve rewrites v and reads y_packed in the same
+// launch.
+template <class Obs>
+__device__ __forceinline__ void coupling_point(
+    const Obs& obs, const float* __restrict__ hinv, const float* v, int p,
+    int lo, int hi, int lane, int width, float* y_packed) {
+  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+  for (int o = lo + lane; o < hi; o += width) {
+    const float* vc = v + 6 * (size_t)obs.camera(o);
+    float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const float vi = vc[i];
+      u0 += obs.w(i * 3, o) * vi;
+      u1 += obs.w(i * 3 + 1, o) * vi;
+      u2 += obs.w(i * 3 + 2, o) * vi;
+    }
+    g0 += u0;
+    g1 += u1;
+    g2 += u2;
+  }
+  // Butterfly sum over the group: every lane ends with the same bits (each
+  // level adds the same two partial sums, in either order).
+  for (int off = width >> 1; off > 0; off >>= 1) {
+    g0 += __shfl_xor_sync(0xffffffffu, g0, off);
+    g1 += __shfl_xor_sync(0xffffffffu, g1, off);
+    g2 += __shfl_xor_sync(0xffffffffu, g2, off);
+  }
+  if (p < 0) return;
+  const float* h = hinv + 9 * (size_t)p;
+  const float h0 = h[0] * g0 + h[1] * g1 + h[2] * g2;
+  const float h1 = h[3] * g0 + h[4] * g1 + h[5] * g2;
+  const float h2 = h[6] * g0 + h[7] * g1 + h[8] * g2;
+  for (int o = lo + lane; o < hi; o += width) {
+    const int place = obs.sorted_place(o);
+    if (place < 0) continue;  // a zero-weight row: of no camera segment
+    float* y = y_packed + 6 * (size_t)place;
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      y[i] = obs.w(i * 3, o) * h0 + obs.w(i * 3 + 1, o) * h1 +
+             obs.w(i * 3 + 2, o) * h2;
+  }
+}
+
 __global__ __launch_bounds__(kPointThreads) void coupling_point_kernel(
     const float* __restrict__ w_t, const float* __restrict__ hinv,
     const int* __restrict__ obs_cam, const int* __restrict__ point_bounds,
     const float* __restrict__ v, const int* __restrict__ cam_inv_perm, int O,
     int P, float* __restrict__ y_packed) {
   // One warp per point: p is uniform across the warp, so a warp leaves
-  // together and the shuffles below always see all 32 lanes.
+  // together.
   const int p = blockIdx.x * (kPointThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
   if (p >= P) return;
-  const int lo = point_bounds[p], hi = point_bounds[p + 1];
-  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
-  for (int o = lo + lane; o < hi; o += 32) {
-    const float* vc = v + 6 * (size_t)obs_cam[o];
-    float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      const float vi = vc[i];
-      u0 += w_t[(size_t)(i * 3) * O + o] * vi;
-      u1 += w_t[(size_t)(i * 3 + 1) * O + o] * vi;
-      u2 += w_t[(size_t)(i * 3 + 2) * O + o] * vi;
-    }
-    g0 += u0;
-    g1 += u1;
-    g2 += u2;
-  }
-  // Butterfly sum: every lane ends with the same bits (each level adds the
-  // same two partial sums, in either order).
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    g0 += __shfl_xor_sync(0xffffffffu, g0, off);
-    g1 += __shfl_xor_sync(0xffffffffu, g1, off);
-    g2 += __shfl_xor_sync(0xffffffffu, g2, off);
-  }
-  const float* h = hinv + 9 * (size_t)p;
-  const float h0 = h[0] * g0 + h[1] * g1 + h[2] * g2;
-  const float h1 = h[3] * g0 + h[4] * g1 + h[5] * g2;
-  const float h2 = h[6] * g0 + h[7] * g1 + h[8] * g2;
-  for (int o = lo + lane; o < hi; o += 32) {
-    const int place = cam_inv_perm[o];
-    if (place < 0) continue;  // a zero-weight row: of no camera segment
-    float* y = y_packed + 6 * (size_t)place;
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-      y[i] = w_t[(size_t)(i * 3) * O + o] * h0 +
-             w_t[(size_t)(i * 3 + 1) * O + o] * h1 +
-             w_t[(size_t)(i * 3 + 2) * O + o] * h2;
-  }
+  coupling_point(GlobalObs{w_t, obs_cam, cam_inv_perm, O}, hinv, v, p,
+                 point_bounds[p], point_bounds[p + 1], threadIdx.x & 31, 32,
+                 y_packed);
 }
 
 constexpr int kObsThreads = 128;
@@ -233,6 +293,317 @@ __global__ __launch_bounds__(kObsThreads) void coupling_y_kernel(
               : 0.0f;
 }
 
+// ---- pcg_solve --------------------------------------------------------------
+
+constexpr int kPcgThreads = 512;
+constexpr int kPcgWarps = kPcgThreads / 32;
+constexpr int kCamsPerPass = kPcgThreads / 8;  // a lane group of 8 per camera
+constexpr unsigned kAll = 0xffffffffu;
+
+// (address / 4) mod 4: where a 4-byte word sits inside its 16-byte chunk.
+__device__ __forceinline__ int word_shift(const void* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// The block's observation slice [lo, lo + n) staged in shared memory: row k
+// (W's 18 rows, then the camera, then the camera-sorted place) starts at
+// word k * stride + the source's word_shift, so that every 16-byte chunk of
+// the source lands 16-byte aligned.
+struct SharedObs {
+  const float* w_s;
+  const int* cam_s;    // already offset by its shift and by -lo
+  const int* place_s;  // the same
+  int stride, lo, shift0, shift_step;  // W row k's shift: (shift0 + k * shift_step) & 3
+  __device__ __forceinline__ float w(int k, int o) const {
+    return w_s[k * stride + ((shift0 + k * shift_step) & 3) + o - lo];
+  }
+  __device__ __forceinline__ int camera(int o) const { return cam_s[o]; }
+  __device__ __forceinline__ int sorted_place(int o) const { return place_s[o]; }
+};
+
+// Copy n words from src (device memory) to dst_row + word_shift(src)
+// (shared, 16-byte aligned), by all threads of the block: 16-byte cp.async
+// chunks, single words at the ragged ends. The caller waits and syncs.
+__device__ __forceinline__ void stage_row(uint32_t* dst_row, const uint32_t* src, int n) {
+  uint32_t* dst = dst_row + word_shift(src);
+  const int head = min((4 - word_shift(src)) & 3, n);
+  const int chunks = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  for (int i = head + 4 * chunks + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst + head + 4 * c);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr),
+                 "l"(src + head + 4 * c)
+                 : "memory");
+  }
+}
+
+struct PcgArgs {
+  const float* w_t;           // [18, O]
+  const float* hinv;          // [P, 9]
+  const int* obs_cam;         // [O]
+  const int* point_bounds;    // [P+1] over [0, N)
+  const int* cam_inv_perm;    // [N]
+  const int* cam_bounds;      // [C+1] over [0, M)
+  const float* hcc;           // [C, 36]
+  const float* minv;          // [C, 36]
+  const float* d;             // [C, 6]
+  const float* rhs;           // [C, 6]
+  const int* block_points;    // [G+1]
+  int O, C, iterations;
+  float tolerance;
+  int lanes;                  // lanes per point in (A): a power of two <= 32
+  int stride;                 // words per staged row (resident mode)
+  float* y_packed;            // [M, 6] scratch
+  float *v, *p, *x, *r, *z, *ap;  // [C, 6] scratch each
+  float* part;                // [3, G] scratch: the blocks' partial sums
+  float* out;                 // [C, 6]
+};
+
+// Deterministic block sum of (a, b): butterflies inside the warps, then the
+// warps in order. The result is valid in thread 0.
+__device__ __forceinline__ void block_sum2(float& a, float& b, float (*red)[2]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(kAll, a, off);
+    b += __shfl_xor_sync(kAll, b, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5][0] = a;
+    red[threadIdx.x >> 5][1] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    a = 0.0f;
+    b = 0.0f;
+    for (int w = 0; w < kPcgWarps; ++w) {
+      a += red[w][0];
+      b += red[w][1];
+    }
+  }
+  __syncthreads();
+}
+
+// The sums of the G blocks' partials pa[0, G) and pb[0, G), written before
+// the last grid barrier, in an order fixed by G alone: every thread of every
+// block gets the same bits.
+__device__ __forceinline__ void grid_total2(const float* pa, const float* pb, int G,
+                                            float* bcast, float& a, float& b) {
+  if (threadIdx.x < 32) {
+    float s = 0.0f, t = 0.0f;
+    for (int i = threadIdx.x; i < G; i += 32) {
+      s += pa[i];
+      t += pb[i];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(kAll, s, off);
+      t += __shfl_xor_sync(kAll, t, off);
+    }
+    if (threadIdx.x == 0) {
+      bcast[0] = s;
+      bcast[1] = t;
+    }
+  }
+  __syncthreads();
+  a = bcast[0];
+  b = bcast[1];
+  __syncthreads();
+}
+
+template <bool kResident>
+__global__ __launch_bounds__(kPcgThreads, 1) void pcg_solve_kernel(const PcgArgs a) {
+  __shared__ float part_s[kPcgWarps][sfm::kTileRows];
+  __shared__ float red[kPcgWarps][2];
+  __shared__ float bcast[2];
+  extern __shared__ __align__(16) uint32_t slice[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int G = gridDim.x, b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int p_lo = a.block_points[b];
+  const int o_lo = a.point_bounds[p_lo], o_hi = a.point_bounds[a.block_points[b + 1]];
+  // The block's points end at the first one that starts at o_hi: those
+  // after it are empty (the capacity padding's point slots all lie there).
+  int p_hi = p_lo;
+  for (int q = a.block_points[b + 1]; p_hi < q;) {
+    const int mid = (p_hi + q) >> 1;
+    if (a.point_bounds[mid] >= o_hi) q = mid; else p_hi = mid + 1;
+  }
+  const int groups = kPcgThreads / a.lanes;  // point groups of the block
+  // The block's cameras c = b, b + G, ...: in (C) and (D) the lane group
+  // grp owns one camera per pass and its lane `row` < 6 one row of it.
+  const int ncam = b < a.C ? (a.C - 1 - b) / G + 1 : 0;
+  const int grp = threadIdx.x >> 3, row = threadIdx.x & 7, gbase = lane & ~7;
+
+  SharedObs sobs{};
+  if constexpr (kResident) {
+    const int n = o_hi - o_lo, s = a.stride;
+    for (int k = 0; k < 18; ++k)
+      stage_row(slice + k * s, reinterpret_cast<const uint32_t*>(a.w_t + (size_t)k * a.O + o_lo), n);
+    stage_row(slice + 18 * s, reinterpret_cast<const uint32_t*>(a.obs_cam + o_lo), n);
+    stage_row(slice + 19 * s, reinterpret_cast<const uint32_t*>(a.cam_inv_perm + o_lo), n);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    sobs = SharedObs{reinterpret_cast<const float*>(slice),
+                     reinterpret_cast<const int*>(slice + 18 * s) + word_shift(a.obs_cam + o_lo) - o_lo,
+                     reinterpret_cast<const int*>(slice + 19 * s) + word_shift(a.cam_inv_perm + o_lo) - o_lo,
+                     s, o_lo, word_shift(a.w_t + o_lo), a.O & 3};
+  }
+  const GlobalObs gobs{a.w_t, a.obs_cam, a.cam_inv_perm, a.O};
+
+  // fn(live, c, e) for every (camera, row) of the block; every thread calls
+  // fn the same number of times (a block-uniform count), so fn may shuffle
+  // inside its lane group.
+  auto each_camera_row = [&](auto&& fn) {
+    for (int j0 = 0; j0 < ncam; j0 += kCamsPerPass) {
+      const int j = j0 + grp;
+      const bool live = j < ncam && row < 6;
+      const int c = live ? b + j * G : 0;
+      fn(live, c, (size_t)c * 6 + row);
+    }
+  };
+  // d_e (M^-1 (d r))_e for the row of this lane, dr = d r of this lane's row.
+  auto precond = [&](bool live, int c, float dd, float dr) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const float drj = __shfl_sync(kAll, dr, gbase + j);
+      if (live) acc += a.minv[(size_t)c * 36 + row * 6 + j] * drj;
+    }
+    return dd * acc;
+  };
+
+  // b = rhs / d, x = 0, r = b, z = M^-1 r, p = z; rz = r.z, |b|^2.
+  float acc_a = 0.0f, acc_b = 0.0f;
+  each_camera_row([&](bool live, int c, size_t e) {
+    const float dd = live ? a.d[e] : 1.0f;
+    const float dinv = 1.0f / dd;
+    const float bv = live ? dinv * a.rhs[e] : 0.0f;
+    const float z = precond(live, c, dd, dd * bv);
+    if (live) {
+      a.x[e] = 0.0f;
+      a.r[e] = bv;
+      a.p[e] = z;
+      a.v[e] = dinv * z;
+      acc_a += bv * z;
+      acc_b += bv * bv;
+    }
+  });
+  block_sum2(acc_a, acc_b, red);
+  if (threadIdx.x == 0) {
+    a.part[b] = acc_a;
+    a.part[G + b] = acc_b;
+  }
+  grid.sync();
+  float rz, bb;
+  grid_total2(a.part, a.part + G, G, bcast, rz, bb);
+  const float rhs_norm = sqrtf(bb) + 1e-20f;
+  bool dead = false;
+
+  for (int it = 0; it < a.iterations; ++it) {
+    // (A) y rows of the block's points from v = p / d: a group of a.lanes
+    // lanes per point, consecutive groups on consecutive points; a
+    // block-uniform number of passes, so whole warps shuffle.
+    for (int base = p_lo; base < p_hi; base += groups) {
+      const int pt = base + (int)threadIdx.x / a.lanes;
+      const bool has = pt < p_hi;
+      const int lo = has ? a.point_bounds[pt] : 0, hi = has ? a.point_bounds[pt + 1] : 0;
+      const int sub = threadIdx.x & (a.lanes - 1);
+      if constexpr (kResident)
+        coupling_point(sobs, a.hinv, a.v, has ? pt : -1, lo, hi, sub, a.lanes, a.y_packed);
+      else
+        coupling_point(gobs, a.hinv, a.v, has ? pt : -1, lo, hi, sub, a.lanes, a.y_packed);
+    }
+    grid.sync();
+
+    // (B) coupling per camera into ap, then Ap = (Hcc v - coupling) / d.
+    for (int j = 0; j < ncam; ++j) {
+      const int c = b + j * G;
+      sfm::segment_sum_packed_rows(a.y_packed, a.cam_bounds[c], a.cam_bounds[c + 1], 6, 0, 6,
+                                   part_s, a.ap + (size_t)c * 6);
+      __syncthreads();
+    }
+    acc_a = 0.0f;
+    acc_b = 0.0f;
+    each_camera_row([&](bool live, int c, size_t e) {
+      if (!live) return;
+      float hv = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) hv += a.hcc[(size_t)c * 36 + row * 6 + j] * a.v[(size_t)c * 6 + j];
+      const float ap = (1.0f / a.d[e]) * (hv - a.ap[e]);
+      a.ap[e] = ap;
+      const float re = a.r[e];
+      acc_a += a.p[e] * ap;
+      acc_b += re * re;
+    });
+    block_sum2(acc_a, acc_b, red);
+    if (threadIdx.x == 0) {
+      a.part[b] = acc_a;
+      a.part[G + b] = acc_b;
+    }
+    grid.sync();
+
+    // (C) done, dead, alpha; x += alpha p, r -= alpha Ap, z = M^-1 r; r.z.
+    float pap, rr;
+    grid_total2(a.part, a.part + G, G, bcast, pap, rr);
+    dead = dead || !isfinite(pap) || pap <= 0.0f;
+    const bool done = dead || (sqrtf(rr) / rhs_norm < a.tolerance);
+    const float alpha = done ? 0.0f : rz / pap;
+    acc_a = 0.0f;
+    each_camera_row([&](bool live, int c, size_t e) {
+      float dd = 1.0f, re = 0.0f;
+      if (live) {
+        dd = a.d[e];
+        a.x[e] = a.x[e] + alpha * a.p[e];
+        re = a.r[e] - alpha * a.ap[e];
+        a.r[e] = re;
+      }
+      const float z = precond(live, c, dd, dd * re);
+      if (live) {
+        a.z[e] = z;
+        acc_a += re * z;
+      }
+    });
+    acc_b = 0.0f;
+    block_sum2(acc_a, acc_b, red);
+    if (threadIdx.x == 0) a.part[2 * G + b] = acc_a;
+    grid.sync();
+
+    // (D) beta; p = z + beta p unless done, v = p / d.
+    float rz_sum, unused;
+    grid_total2(a.part + 2 * G, a.part + 2 * G, G, bcast, rz_sum, unused);
+    const float rz_new = done ? rz : rz_sum;
+    const float beta = rz_new / fmaxf(rz, 1e-20f);
+    each_camera_row([&](bool live, int c, size_t e) {
+      if (!live) return;
+      const float pe = done ? a.p[e] : a.z[e] + beta * a.p[e];
+      a.p[e] = pe;
+      a.v[e] = (1.0f / a.d[e]) * pe;
+    });
+    rz = rz_new;
+    grid.sync();
+  }
+  each_camera_row([&](bool live, int c, size_t e) {
+    if (live) a.out[e] = (1.0f / a.d[e]) * a.x[e];
+  });
+}
+
+using PcgKernel = void (*)(const PcgArgs);
+
+PcgKernel pcg_kernel(int streaming) {
+  return streaming ? pcg_solve_kernel<false> : pcg_solve_kernel<true>;
+}
+
+// Blocks of `kernel` with smem_bytes of dynamic shared memory that one SM
+// holds at once, after raising the kernel's dynamic shared-memory limit.
+int pcg_blocks_per_sm(PcgKernel kernel, int smem_bytes, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kPcgThreads,
+                                                            (size_t)smem_bytes);
+}
+
 }  // namespace
 
 extern "C" int sfm_whw_payloads_big(const float* w_t, const float* hinv,
@@ -292,4 +663,51 @@ extern "C" int sfm_schur_coupling_matvec(
   if (err != 0) return err;
   return sfm::launch_segment_sum_packed(y_packed, cam_bounds, 6, C, seg_warps,
                                         out, (cudaStream_t)stream);
+}
+
+// Blocks of pcg_solve (streaming mode or resident mode with smem_bytes of
+// staged slice) that one SM holds at once: the plan's grid is this times the
+// SM count.
+extern "C" int sfm_pcg_blocks_per_sm(int streaming, int smem_bytes, int* out) {
+  return pcg_blocks_per_sm(pcg_kernel(streaming), smem_bytes, out);
+}
+
+// The whole PCG solve of (Hcc - W Hpp^-1 W^T) x = rhs in the
+// Jacobi-equilibrated space (d = sqrt|diag M|, M_inv the Schur-Jacobi
+// preconditioner), `iterations` steps, one cooperative launch of `grid`
+// blocks. block_points [grid+1] cuts the points into the blocks' slices,
+// `lanes` lanes walk one point's observations;
+// resident mode stages each slice in `smem_bytes` of shared memory
+// (20 rows of `stride` words), streaming mode reads W from device memory.
+// y_packed [M, 6] and work [6 * 6C + 3 * grid] are caller-allocated
+// scratch. A grid that cannot be co-resident (the cooperative launch's
+// cudaErrorCooperativeLaunchTooLarge), or any other refused launch, returns
+// the CUDA error.
+extern "C" int sfm_pcg_solve(
+    const float* w_t, const float* hinv, const int* obs_cam,
+    const int* point_bounds, const int* cam_inv_perm, const int* cam_bounds,
+    const float* hcc, const float* minv, const float* d, const float* rhs,
+    const int* block_points, int O, int C, int iterations, float tolerance,
+    int streaming, int grid, int lanes, int stride, int smem_bytes, float* y_packed,
+    float* work, float* out, void* stream) {
+  if (grid < 1 || C < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const PcgKernel kernel = pcg_kernel(streaming);
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      smem_bytes);
+  if (err != 0) return err;
+  const size_t n = 6 * (size_t)C;
+  PcgArgs a{w_t, hinv, obs_cam, point_bounds, cam_inv_perm, cam_bounds, hcc,
+            minv, d, rhs, block_points, O, C, iterations, tolerance, lanes, stride,
+            y_packed, work, work + n, work + 2 * n, work + 3 * n, work + 4 * n,
+            work + 5 * n, work + 6 * n, out};
+  void* args[] = {&a};
+  err = (int)cudaLaunchCooperativeKernel((const void*)kernel, grid, kPcgThreads,
+                                         args, (size_t)smem_bytes,
+                                         (cudaStream_t)stream);
+  if (err != 0) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return err;
+  }
+  return (int)cudaGetLastError();
 }

@@ -124,19 +124,17 @@ __device__ __forceinline__ void kahan_add(float& acc, float& c, float v) {
   acc = t;
 }
 
-// Second pass: packed [M, K] observation-major, segments contiguous in m.
-// grid = (S, chunks of kTileRows rows), blockDim = 32 * warps. With a chunk
+// Second pass, one segment: out[r] = sum of packed[m, k0 + r] over m in
+// [lo, hi) for r < kw <= kTileRows, packed [M, K] observation-major, summed
+// by the block's blockDim.x / 32 <= kMaxSegmentWarps warps (every thread of
+// the block calls it; part is shared scratch of as many rows). With a chunk
 // of kw <= 32 rows a warp covers 32 / kw observations per step (lane ->
 // (observation, row)); with 32 < kw <= 64 a lane covers rows lane and
-// lane + 32 of one observation.
-__global__ __launch_bounds__(32 * kMaxSegmentWarps) void segment_sum_packed_kernel(
-    const float* __restrict__ packed, const int* __restrict__ bounds, int K,
-    float* __restrict__ out) {
-  __shared__ float part[kMaxSegmentWarps][kTileRows];
-  const int seg = blockIdx.x;
-  const int k0 = blockIdx.y * kTileRows;
-  const int kw = min(kTileRows, K - k0);
-  const int lo = bounds[seg], hi = bounds[seg + 1];
+// lane + 32 of one observation. packed is read with plain loads: the fused
+// PCG solve (schur_kernels.cu) writes it in the same launch.
+__device__ __forceinline__ void segment_sum_packed_rows(
+    const float* packed, int lo, int hi, int K, int k0, int kw,
+    float (*part)[kTileRows], float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const bool wide = kw > 32;
@@ -185,8 +183,20 @@ __global__ __launch_bounds__(32 * kMaxSegmentWarps) void segment_sum_packed_kern
   for (int r = threadIdx.x; r < kw; r += blockDim.x) {
     float s = 0.0f;
     for (int w = 0; w < warps; ++w) s += part[w][r];
-    out[(size_t)seg * K + k0 + r] = s;
+    out[r] = s;
   }
+}
+
+// grid = (S, chunks of kTileRows rows), blockDim = 32 * warps.
+__global__ __launch_bounds__(32 * kMaxSegmentWarps) void segment_sum_packed_kernel(
+    const float* __restrict__ packed, const int* __restrict__ bounds, int K,
+    float* __restrict__ out) {
+  __shared__ float part[kMaxSegmentWarps][kTileRows];
+  const int seg = blockIdx.x;
+  const int k0 = blockIdx.y * kTileRows;
+  segment_sum_packed_rows(packed, bounds[seg], bounds[seg + 1], K, k0,
+                          min(kTileRows, K - k0), part,
+                          out + (size_t)seg * K + k0);
 }
 
 // out[s, k] = sum of packed[m, k] over m in [bounds[s], bounds[s+1]):

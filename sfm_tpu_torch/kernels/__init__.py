@@ -50,6 +50,7 @@ LAUNCHES: dict[str, int] = {
     "fused_cost_sums_big": 0,
     "whw_payloads_big": 0,
     "schur_coupling_payloads_big": 0,
+    "pcg_solve": 0,
 }
 
 _P = ctypes.c_void_p
@@ -68,6 +69,8 @@ _SIGNATURES = {
     "sfm_fused_cost_sums_big": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P, _P),
     "sfm_whw_payloads_big": (_P, _P, _P, _I, _P, _P),
     "sfm_schur_coupling_payloads_big": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "sfm_pcg_blocks_per_sm": (_I, _I, ctypes.POINTER(_I)),
+    "sfm_pcg_solve": (_P,) * 11 + (_I, _I, _I, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,10 +1,12 @@
 """K3 fused_ne_payloads, K4 fused_ne_payloads_big, K5 fused_cost_sums, K6
 fused_cost_sums_big and K9 cam_segment_sum (csrc/ba_kernels.cu,
 csrc/ba_project.cuh), K7 whw_cam_reduce, K8 whw_payloads_big, K10
-schur_coupling_payloads_big and K11 schur_coupling_matvec
+schur_coupling_payloads_big, K11 schur_coupling_matvec and pcg_solve, the
+whole PCG solve over K11's device code in one launch
 (csrc/schur_kernels.cu).
 
-Replace the functions of the same names in sfm_tpu/kernels/schur_spmv.py.
+Replace the functions of the same names in sfm_tpu/kernels/schur_spmv.py;
+pcg_solve replaces sfm_tpu/ba/core.py _pcg (a fori_loop over K11).
 The `_big` set serves problems of more than MAX_CAMS cameras, as in the JAX
 package: camera, intrinsic and v rows arrive gathered per observation
 ([6, O], plain indexing by the caller) and every result stays per
@@ -24,10 +26,13 @@ in place of obs_cam, cams and intr.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from sfm_tpu_torch.geometry.losses import robust_cost, robust_weight
-from sfm_tpu_torch.kernels import check, launch, on_cuda, ptr
+from sfm_tpu_torch.kernels import check, launch, library, on_cuda, ptr
 
 MAX_CAMS = 4096    # above this the BA core takes K4/K6/K8/K10 (sfm_tpu's _MAX_CAMS)
 LOSS_CODES = {"none": 0, "huber": 1, "cauchy": 2}
@@ -428,6 +433,175 @@ def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_pe
     launch("sfm_schur_coupling_matvec", "schur_coupling_matvec",
            ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(v), ptr(cam_inv_perm),
            ptr(cam_bounds), O, P, C, segment_warps(M, C), ptr(y_packed), ptr(out))
+    return out
+
+
+def pcg_loop(matvec, M_inv, d, rhs, iterations: int, tolerance: float):
+    """Preconditioned CG on S x = rhs (matvec(v) = S v for v [C, 6]) in the
+    Jacobi-equilibrated space: solve (D^-1 S D^-1) y = D^-1 rhs with D = d
+    [C, 6] (sqrt|diag M| of the Schur-Jacobi preconditioner M, whose inverse
+    blocks are M_inv [C, 6, 6]), return x = D^-1 y (every iterate O(1)-scaled,
+    so fp32 CG cannot overflow in p.(S p) when diag S spans many decades).
+
+    `iterations` steps, always: a converged or dead solve freezes its updates
+    through torch.where instead of leaving the loop, so the loop never reads
+    a value back to the host. A non-finite or non-positive curvature p.(S p)
+    freezes the solve for good (CG keeps its best x)."""
+    dinv = 1.0 / d
+
+    def precond(r):
+        return d * torch.einsum("cij,cj->ci", M_inv, d * r)
+
+    zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
+    one = torch.ones((), dtype=rhs.dtype, device=rhs.device)
+    b = dinv * rhs
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = (r * z).sum()
+    rhs_norm = torch.sqrt((b * b).sum()) + 1e-20
+    dead = torch.zeros((), dtype=torch.bool, device=rhs.device)
+    for _ in range(iterations):
+        Ap = dinv * matvec(dinv * p)
+        pAp = (p * Ap).sum()
+        dead = dead | ~torch.isfinite(pAp) | (pAp <= 0.0)
+        done = dead | (torch.sqrt((r * r).sum()) / rhs_norm < tolerance)
+        alpha = torch.where(done, zero, rz / torch.where(done, one, pAp))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.where(done, rz, (r * z).sum())
+        beta = rz_new / rz.clamp_min(1e-20)
+        p = torch.where(done, p, z + beta * p)
+        rz = rz_new
+    return dinv * x
+
+
+def pcg_solve_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_bounds,
+                    Hcc, M_inv, d, rhs, iterations: int, tolerance: float):
+    """Plain pcg_solve: pcg_loop over S v = Hcc v - schur_coupling_matvec_plain(v),
+    in W_t's dtype."""
+    def matvec(v):
+        return torch.einsum("cij,cj->ci", Hcc, v) - schur_coupling_matvec_plain(
+            W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_bounds, v)
+
+    return pcg_loop(matvec, M_inv, d, rhs, iterations, tolerance)
+
+
+PCG_SMEM_BUDGET = 200 * 1024   # dynamic shared memory a block of pcg_solve may stage
+PCG_STAGED_ROWS = 20           # W's 18 rows, the camera and the camera-sorted place
+
+
+class PcgPlan(NamedTuple):
+    """How pcg_solve cuts its work: block b owns the points
+    [block_points[b], block_points[b+1]) and their observations, a group of
+    `lanes` lanes walks one point's observations; resident mode stages each
+    block's slice in smem_bytes of shared memory (20 rows of `stride` 4-byte
+    words), streaming mode reads W from device memory every step
+    (stride = smem_bytes = 0)."""
+
+    streaming: bool
+    grid: int
+    block_points: torch.Tensor   # [grid+1] int32
+    lanes: int                   # segment_lanes of the points that have observations
+    max_slice: int               # observations of the largest slice
+    stride: int
+    smem_bytes: int
+
+
+def pcg_plan(point_bounds: torch.Tensor, num_sms: int, blocks_per_sm: int = 1,
+             streaming: bool | None = None) -> PcgPlan:
+    """The plan of pcg_solve on a grid of num_sms * blocks_per_sm blocks:
+    slices of about N / grid observations (N = point_bounds[-1]) cut at point
+    boundaries (a block starts at the first point that starts at or after
+    its share), so a slice is off its share by less than one point's
+    segment. Resident mode when the largest slice's 20 staged rows fit
+    PCG_SMEM_BUDGET bytes, unless `streaming` says otherwise. The kernel skips the
+    empty points at the end of a block's range (the capacity padding's
+    slots, all after the last observation), so they cost no block time."""
+    pb = point_bounds.detach().to("cpu", torch.int64)
+    P, N = pb.numel() - 1, int(pb[-1])
+    lanes = segment_lanes(N, int((pb[1:] > pb[:-1]).sum()))
+    grid = num_sms * blocks_per_sm
+    targets = torch.arange(grid + 1, dtype=torch.int64) * N // grid
+    block_points = torch.searchsorted(pb, targets)
+    block_points[0], block_points[-1] = 0, P
+    max_slice = int((pb[block_points[1:]] - pb[block_points[:-1]]).max())
+    stride = -(-(max_slice + 3) // 4) * 4     # + up to 3 words of alignment shift
+    smem = PCG_STAGED_ROWS * 4 * stride
+    if streaming is None:
+        streaming = smem > PCG_SMEM_BUDGET
+    return PcgPlan(streaming=streaming, grid=grid, block_points=block_points.to(torch.int32),
+                   lanes=lanes, max_slice=max_slice, stride=0 if streaming else stride,
+                   smem_bytes=0 if streaming else smem)
+
+
+def pcg_launch_plan(point_bounds: torch.Tensor, streaming: bool | None = None) -> PcgPlan:
+    """pcg_plan for the card point_bounds lies on: first one block per SM;
+    where the kernel's occupancy at that plan's shared memory allows more
+    co-resident blocks, the plan is cut again for that many in the same mode
+    (smaller slices need no more shared memory). block_points goes to the
+    card."""
+    dev = point_bounds.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = pcg_plan(point_bounds, sms, 1, streaming)
+    per_sm = ctypes.c_int(0)
+    err = library().sfm_pcg_blocks_per_sm(int(plan.streaming), plan.smem_bytes, ctypes.byref(per_sm))
+    if err != 0 or per_sm.value < 1:
+        raise RuntimeError(f"sfm_pcg_blocks_per_sm: CUDA error {err}, {per_sm.value} blocks per SM "
+                           f"with {plan.smem_bytes} bytes of shared memory")
+    if per_sm.value > 1:
+        plan = pcg_plan(point_bounds, sms, per_sm.value, plan.streaming)
+    return plan._replace(block_points=plan.block_points.to(dev))
+
+
+def pcg_solve(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_bounds, cam_inv_perm,
+              Hcc, M_inv, d, rhs, iterations: int, tolerance: float, plan: PcgPlan | None = None):
+    """The reduced camera system's PCG solve, all `iterations` steps in one
+    launch: pcg_loop's algorithm over S v = Hcc v - (W Hpp^-1 W^T) v (the
+    coupling as schur_coupling_matvec computes it; the same inputs and
+    contract). Hcc, M_inv [C, 6, 6], d, rhs [C, 6] -> x [C, 6]. The dot
+    products are summed in a fixed per-block order: deterministic. plan
+    (pcg_launch_plan) is made here when missing."""
+    if not on_cuda(W_t):
+        return pcg_solve_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm,
+                               cam_bounds, Hcc, M_inv, d, rhs, iterations, tolerance)
+    O = W_t.shape[1]
+    P = Hpp_inv.shape[0]
+    C = rhs.shape[0]
+    dev = W_t.device
+    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
+    check(obs_cam, "obs_cam", torch.int32, (O,), dev)
+    check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
+    M = cam_perm.shape[0]
+    check(cam_perm, "cam_perm", torch.int32, (M,), dev)
+    check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
+    N = cam_inv_perm.shape[0]
+    check(cam_inv_perm, "cam_inv_perm", torch.int32, (N,), dev)
+    if not M <= N <= O:
+        raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
+    for t, name in ((Hcc, "Hcc"), (M_inv, "M_inv")):
+        check(t, name, torch.float32, (C, 6, 6), dev)
+    for t, name in ((d, "d"), (rhs, "rhs")):
+        check(t, name, torch.float32, (C, 6), dev)
+    if iterations < 0:
+        raise ValueError(f"iterations: expected >= 0, got {iterations}")
+    out = torch.empty((C, 6), dtype=torch.float32, device=dev)
+    if C == 0:
+        return out
+    if plan is None:
+        plan = pcg_launch_plan(point_bounds)
+    check(plan.block_points, "plan.block_points", torch.int32, (plan.grid + 1,), dev)
+    y_packed = torch.empty((M, 6), dtype=torch.float32, device=dev)
+    work = torch.empty((36 * C + 3 * plan.grid,), dtype=torch.float32, device=dev)
+    launch("sfm_pcg_solve", "pcg_solve",
+           ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(cam_inv_perm),
+           ptr(cam_bounds), ptr(Hcc), ptr(M_inv), ptr(d), ptr(rhs), ptr(plan.block_points),
+           O, C, int(iterations), float(tolerance), int(plan.streaming), plan.grid, plan.lanes,
+           plan.stride,
+           plan.smem_bytes, ptr(y_packed), ptr(work), ptr(out))
     return out
 
 

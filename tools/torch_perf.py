@@ -9,8 +9,9 @@
         chip_smoke.py's incremental slice several times in one process
         (cold, then warm): stage and engine-phase seconds; then the last
         run's final global BA once more under torch.profiler: device busy
-        time, idle share, kernel time by name; and that BA's seconds per LM
-        iteration with the dense and with the PCG reduced solve;
+        time, idle share, device launches per LM iteration, kernel time by
+        name, seconds per PCG solve; and that BA's seconds per LM iteration
+        with the dense and with the PCG reduced solve;
     python3 tools/torch_perf.py crossover
         dense Cholesky vs PCG reduced solve on the same problems, seconds
         per LM iteration across padded (C, O);
@@ -18,8 +19,8 @@
         chip_smoke.py's merged-model polish at full width (10,240 cameras,
         about 1.5 M observations): the seconds of its steps (build_problem,
         each solve, the filter), then the first solve's first LM iterations
-        once more under torch.profiler: device busy time, idle share, kernel
-        time by name;
+        once more under torch.profiler: device busy time, idle share, device
+        launches per LM iteration, kernel time by name, seconds per PCG solve;
     python3 tools/torch_perf.py partition [--variants default no_straighten] [--dump DIR]
         chip_smoke.py's divide-and-conquer slice with one feature and match
         stage shared by the variants: each cluster's accuracy, then mean
@@ -47,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -124,10 +126,12 @@ def slice_cmd(device, runs: int):
 
 def _profile_solve(prob, cfg, what: str):
     """One bundle_adjust(prob, cfg) under torch.profiler after a warm-up
-    run: wall, device busy time, idle share, the top kernels."""
+    run: wall, device busy time, idle share, device launches per LM
+    iteration, the top kernels; then one more run with every PCG solve
+    (core._pcg) synchronised on both sides: seconds per PCG solve."""
     import torch
 
-    from sfm_tpu_torch.ba import bundle_adjust
+    from sfm_tpu_torch.ba import bundle_adjust, core
 
     bundle_adjust(prob, cfg)                                   # warm
     torch.cuda.synchronize()
@@ -140,9 +144,66 @@ def _profile_solve(prob, cfg, what: str):
     busy_ms, top = _device_time_ms(prof)
     print(f"[profile] {card()} {what} C={prob.num_cameras} O={prob.obs_w.shape[0]} "
           f"{stats.iterations} LM iterations: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
+          f"idle share {1 - busy_ms / wall_ms:.4f}, device launches per LM iteration "
+          f"{_device_launches(prof) / max(stats.iterations, 1):.1f}", flush=True)
     for name, count, ms in top:
         print(f"[profile]   {ms:9.3f} ms  {count:6d}x  {name}", flush=True)
+    inner, solves = core._pcg, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        solves.append(time.perf_counter() - t0)
+        return out
+
+    core._pcg = timed
+    try:
+        bundle_adjust(prob, cfg)
+    finally:
+        core._pcg = inner
+    if solves:
+        print(f"[profile] {card()} {what}: {len(solves)} PCG solves, seconds per solve median "
+              f"{statistics.median(solves):.6f} min {min(solves):.6f} max {max(solves):.6f}", flush=True)
+
+
+def _device_launches(prof) -> int:
+    """Kernels, copies and fills the device ran in the profiled window."""
+    import torch
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+
+
+def pcg_cmd(device, cameras: int, points: int, blocks: int | None):
+    """The fused PCG solve alone on chip_smoke.py's orbit problem (resident
+    and streaming, and on a grid of `blocks` blocks when given), held
+    against its plain version in float64 and timed beside the loop of
+    Python steps over the coupling-only K11 and its bound
+    (chip_smoke.check_pcg); then 10 fused solves and 10 loops under
+    torch.profiler: device time per solve."""
+    from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.config import BAConfig
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    prob = cs.schur_problem(device, cameras, points)
+    cfg = BAConfig()
+    for kw in [{}, {"streaming": True}] + ([{"blocks": blocks}] if blocks else []):
+        row = cs.check_pcg(prob, cfg, device, "orbit", **kw)
+        print(f"[pcg] {card()} " + json.dumps(row), flush=True)
+    inv, ne = cs.first_iteration_inputs(prob, cfg)
+    M_inv, d = core.pcg_preconditioner(ne, prob, inv)
+    rhs = core._schur_rhs(ne, prob, inv).contiguous()
+    plan = inv.pcg_plan
+    args = (ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
+            inv.cam_bounds, inv.cam_inv_perm, ne.Hcc, M_inv, d, rhs, cfg.cg_iterations, cfg.cg_tolerance)
+    print(f"[pcg] {card()} plan: grid {plan.grid}, largest slice {plan.max_slice} observations, "
+          f"{plan.smem_bytes} B staged per block", flush=True)
+    _profile_calls("pcg_solve (fused)", lambda: kb.pcg_solve(*args, plan=plan))
+    _profile_calls("PCG loop over K11", lambda: kb.pcg_loop(
+        lambda v: core._schur_matvec_pcg(ne, prob, v, inv), M_inv, d, rhs, cfg.cg_iterations,
+        cfg.cg_tolerance))
 
 
 def polish_cmd(device, iterations: int):
@@ -410,6 +471,10 @@ def main() -> int:
     p.add_argument("--dump", metavar="DIR")
     p = sub.add_parser("global")
     p.add_argument("sizes", nargs="+", type=int)
+    p = sub.add_parser("pcg")
+    p.add_argument("--cameras", type=int, default=100)
+    p.add_argument("--points", type=int, default=500)
+    p.add_argument("--blocks", type=int, help="also check on a grid of this many blocks")
     p = sub.add_parser("kernels")
     p.add_argument("--pairs", type=int, default=32)
     p.add_argument("--keypoints", type=int, default=4096)
@@ -424,6 +489,8 @@ def main() -> int:
         slice_cmd(device, args.runs)
     elif args.cmd == "kernels":
         kernels_cmd(device, args.pairs, args.keypoints)
+    elif args.cmd == "pcg":
+        pcg_cmd(device, args.cameras, args.points, args.blocks)
     elif args.cmd == "polish":
         polish_cmd(device, args.iterations)
     elif args.cmd == "partition":
