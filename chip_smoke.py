@@ -25,9 +25,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      PCG branch, and the seven kernels of that path launched by that run
      (pcg_solve, the whole PCG solve in one launch, in place of the
      coupling-only K11, which must not launch: its device code runs inside
-     pcg_solve); then K3, K5, K9, K7 and K11 on that final BA's problem, and
-     K7 and K11 once more on an orbit problem with long tracks; pcg_solve on
-     both problems, on the orbit problem once more in its streaming mode,
+     pcg_solve); then K3, K5, K9, K7 and K11 on that final BA's problem, K3
+     and K5 on the run's last dense local BA, and K7 and K11 once more on an
+     orbit problem with long tracks; K3 and K5 on the final BA beside the
+     chains of launches they replace (device launches, device and event
+     time per call, launches per LM iteration: the "[lm]" line); pcg_solve
+     on both problems, on the orbit problem once more in its streaming mode,
      and on a wide orbit of 1024 cameras (more cameras than blocks: resident,
      streaming, and on a grid of 8 blocks);
   6. divide-and-conquer slice: the same views through reconstruct with
@@ -35,7 +38,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      engine inside, every other field default): >= 95% registered, < 1 px,
      camera RMSE < 3% of the radius, two or more clusters merged, the merged
      polish on the PCG branch, the same seven kernels launched (and the
-     coupling-only K11 not); then pcg_solve on the first merged polish;
+     coupling-only K11 not); then pcg_solve on the first merged polish
+     (x against the float64 iterate after PCG_X_STEPS steps);
   7. global-engine slice: the first 24 views through reconstruct with
      engine_mode="global": every image registered, < 1 px, camera RMSE < 3%
      of the radius;
@@ -60,8 +64,9 @@ solve as Python steps over the coupling-only K11. The record (twelve rows)
 reports K1-K3, K5, K7, K9, K11 and pcg_solve at the incremental slice's
 shapes, K4, K6, K8 and K10 at the merged polish's, every kernel's launches
 on each path (`launches` is the largest of them; K11's row counts as
-launched where pcg_solve is), and for K2, K9 and pcg_solve a row per timed
-shape under `shapes`.
+launched where pcg_solve is), for K3 and K5 their profiled device time
+(`device_ms`), and for K2, K9 and pcg_solve a row per timed shape under
+`shapes`.
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -144,6 +149,9 @@ GLOBAL_IMAGES = 24
 WIDE_CAMERAS = 1024
 WIDE_POINTS = 120
 WIDE_BLOCKS = 8
+# check_pcg compares x with the float64 iterate after this many steps on the
+# first merged polish (every other problem: after all cfg.cg_iterations).
+PCG_X_STEPS = 8
 # kernels/ba_kernels.NE_CAM_ROWS: rows of the camera payload K3/K4 hand to K9.
 NE_CAM_ROWS = 42
 # Per-shape rows of a kernel that is timed at several shapes (K2, K9).
@@ -388,64 +396,328 @@ def raised_floor(prob):
     return ((zs[k] + zs[k + 1]) / 2).reshape(())
 
 
-def check_ba(prob, cfg, device):
-    """K3, K5 and K9 on a BA problem the main path solved, at the inputs of
-    its first LM iteration, against their plain versions. Tolerances: K3
-    payloads 1e-4 of each block's max (closed-form vs matmul-composed
-    Jacobians, fp32); K5 rtol 1e-5 (sum order); K9 as check_segment_sum
-    says, on this problem's segment tables (the record's row is the camera
-    side at K = 42). K3 and K5 are checked once more with the near-plane
-    floor raised to the nearest tenth of the depths, so that the gate
-    removes observations."""
+# K3's outputs, in the order fused_ne_payloads returns them, and those of
+# them that are per-observation payloads.
+NE_FIELDS = ("Hcc", "Hpp_inv", "W_t", "bc", "bp", "packed")
+NE_PAYLOADS = ("W_t", "packed")
+# check_ba's bars (PERF.md section 6 gives the readings they were set from).
+NE_BAR = 1e-5          # Hcc per camera block; bc, bp and K5's dp per block of their term scale
+NE_PAYLOAD_BAR = 1e-4  # W and the packed camera rows, of their max |value|
+HINV_BAR = 1e-3        # Hpp^-1, every point block of its max |value|
+HINV_MEDIAN_BAR = 1e-4  # Hpp^-1, the median point block
+# check_ba's third input: the points moved by this share of the median depth
+# (seed 0), so that the gradient stands far above fp32 rounding.
+PERTURB = 1e-2
+
+
+def block_errors(a, b, scale):
+    """Per leading index (a camera or point block): max |a - b| over the
+    block's max scale, in float64."""
+    d = (a.double() - b.double()).abs().flatten(1).max(1).values
+    return d / scale.double().flatten(1).max(1).values.clamp_min(1e-300)
+
+
+def rhs_scales(prob, inv, points, z_floor, loss):
+    """The float64 sums per camera [C, 6] and per point [P, 3] of the
+    absolute terms of bc = -sum Jc^T r and bp = -sum Jp^T r, with each
+    residual r = f x s + c - uv taken as its three terms: the scale that
+    fp32 rounding of those sums is relative to. Near convergence bc and bp
+    cancel to far below it, so neither their own size nor the sum of
+    |Jc^T r| (whose r has lost the digits of |uv|) can be that scale."""
+    import torch
+
+    from sfm_tpu_torch.ba.core import residual_jac_analytic
+    from sfm_tpu_torch.geometry.losses import robust_weight
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    N = inv.cam_inv_perm.numel()
+    oc = prob.obs_cam[:N].long()
+    cams, intr = prob.cam_params.double()[oc], prob.intrinsics.double()[oc]
+    pts, st = points.double()[prob.obs_point[:N].long()], inv.static_t[:, :N].double()
+    r, Jc, Jp, depth = residual_jac_analytic(cams, pts, intr, st[:2].T)
+    w = kb._gate(st[2], depth, None if z_floor is None else z_floor.double())
+    sw = torch.sqrt((robust_weight((r * r).sum(-1), *loss) * w).clamp_min(0.0))
+    pr = kb.projection(cams, intr, pts, st[:2].T)
+    mag = torch.stack([(intr[:, 0] * pr["x"] * pr["s"]).abs() + intr[:, 2].abs() + st[0].abs(),
+                       (intr[:, 1] * pr["y"] * pr["s"]).abs() + intr[:, 3].abs() + st[1].abs()], -1)
+    mag = mag * sw[:, None]
+    cam_t = torch.einsum("oai,oa->io", Jc.abs() * (sw * st[3])[:, None, None], mag)
+    pt_t = torch.einsum("oai,oa->io", Jp.abs() * (sw * st[4])[:, None, None], mag)
+    return (kb.cam_segment_sum_plain(cam_t, inv.cam_perm, inv.cam_bounds),
+            kb.cam_segment_sum_plain(pt_t, None, inv.point_bounds))
+
+
+def dp_scale(step64, prob, inv):
+    """The float64 scale per point [P, 3] of K5's back-substitution
+    dp = Hpp^-1 (bp - sum W^T dc): |Hpp^-1| (|bp| + sum |W|^T |dc|), dc
+    masked by cam_fixed (g cancels near convergence, as bc does)."""
+    import torch
+
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    N = inv.cam_inv_perm.numel()
+    dc = torch.where(step64.cam_fixed[:, None], 0.0, step64.dc).abs()
+    u_t = torch.einsum("iko,io->ko", step64.W_t[:, :N].abs().reshape(6, 3, N),
+                       dc[prob.obs_cam[:N].long()].T)
+    g = step64.bp.abs() + kb.cam_segment_sum_plain(u_t, None, inv.point_bounds)
+    return torch.einsum("pij,pj->pi", step64.Hpp_inv.abs(), g)
+
+
+def ne_errors(out, ref, cam_scale, pt_scale) -> dict:
+    """K3's outputs against a reference: Hcc per camera block of the block's
+    max |value|; bc and bp per camera and per point block of their term
+    scale (rhs_scales); Hpp^-1 per point block of its max |value| (the
+    padding points' 1e6 I blocks would set any array-wide scale), as the
+    worst block ("Hpp_inv") and the median one ("Hpp_inv_median"); W and
+    the packed rows of their max |value|."""
+    import torch
+
+    scales = {"Hcc": ref[0].abs(), "Hpp_inv": ref[1].abs(), "bc": cam_scale, "bp": pt_scale}
+    errs = {}
+    for name, a, b in zip(NE_FIELDS, out, ref):
+        if name in scales:
+            e = block_errors(a, b, scales[name])
+            errs[name] = float(e.max())
+            if name == "Hpp_inv":
+                errs["Hpp_inv_median"] = float(torch.median(e))
+        else:
+            errs[name] = float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    return errs
+
+
+def ne_bad(errs) -> list:
+    """The K3 errors (ne_errors) past check_ba's bars."""
+    bars = {"Hcc": NE_BAR, "bc": NE_BAR, "bp": NE_BAR, "Hpp_inv": HINV_BAR,
+            "Hpp_inv_median": HINV_MEDIAN_BAR, "W_t": NE_PAYLOAD_BAR, "packed": NE_PAYLOAD_BAR}
+    return [k for k, bar in bars.items() if not errs[k] <= bar]
+
+
+def perturbed_points(prob):
+    """The problem's points moved by PERTURB of the median depth of its
+    weighted observations, from seed 0."""
+    import torch
+
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    oc = prob.obs_cam.long()
+    z = kb.projection(prob.cam_params[oc], prob.intrinsics[oc], prob.points[prob.obs_point.long()],
+                      prob.obs_uv)["xc2"]
+    sigma = PERTURB * float(z[prob.obs_w > 0].median())
+    noise = torch.randn(prob.points.shape, generator=torch.Generator().manual_seed(0))
+    return prob.points + sigma * noise.to(prob.points.device)
+
+
+def resolved(value64, scale) -> float:
+    """The median over blocks of max |value| over max scale: how far a value
+    stands above the rounding its scale allows (a zeroed or garbled output
+    fails NE_BAR in most blocks once this is well above it)."""
+    import torch
+
+    s = scale.double().flatten(1).max(1).values
+    keep = s > 0
+    return float(torch.median(value64.abs().flatten(1).max(1).values[keep] / s[keep]))
+
+
+def lm_dc(prob, cfg, inv, ne):
+    """The camera step of the first LM iteration as bundle_adjust takes it
+    (dense or PCG reduced solve)."""
+    from sfm_tpu_torch.ba import core
+
+    rhs = core._schur_rhs(ne, prob, inv)
+    return (core._dense_schur_solve(ne, prob, rhs, inv) if core.uses_dense_solver(prob, cfg)
+            else core._pcg(ne, prob, rhs, cfg, inv))
+
+
+def lm_step(prob, cfg, inv, ne):
+    """That step as K5's candidate mode takes it."""
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    return kb.LMStep(lm_dc(prob, cfg, inv, ne).contiguous(), ne.W_t, ne.Hpp_inv, ne.bp,
+                     prob.cam_fixed, prob.point_fixed)
+
+
+def ne_bytes_ops(prob, inv) -> tuple[int, int]:
+    """What K3 must move and compute on this problem: the N observations'
+    camera and point ids, statics (5 rows) and places, the points, cameras,
+    intrinsics, segment tables and lam read once; W [18, O] (its zero tail
+    too), the M packed camera rows, Hpp^-1, bp, Hcc and bc written once.
+    Operations: ~300 per observation (projection, Jacobian, payloads), ~80
+    per point (sums, damping, inversion), 42 per packed row (camera sums)."""
+    O, C, P = prob.obs_w.shape[0], prob.num_cameras, prob.num_points
+    N, M = inv.cam_inv_perm.numel(), inv.cam_perm.numel()
+    moved = 4 * (2 * N + 5 * N + N + 3 * P + 12 * C + P + 1 + C + 1 + 1
+                 + 18 * O + 42 * M + 9 * P + 3 * P + 36 * C + 6 * C)
+    return moved, 300 * N + 80 * P + 42 * M
+
+
+def cost_bytes_ops(prob, inv, step: bool) -> tuple[int, int]:
+    """What K5 must move and compute: the N observations' camera and point
+    ids and u, v, weight, the points, cameras, intrinsics and point segments read
+    once, three sums written; with a step also W (18 rows of the N
+    observations), dc, Hpp^-1, bp and the freeze masks read and the
+    candidate points and cameras written. Operations: ~70 per observation
+    for the projection and robust cost, with a step 36 more for W^T dc and
+    ~20 per point for dp."""
+    O, C, P = prob.obs_w.shape[0], prob.num_cameras, prob.num_points
+    N = inv.cam_inv_perm.numel()
+    moved = 4 * (2 * N + 3 * N + 3 * P + 12 * C + P + 1 + 3)
+    ops = 70 * N
+    if step:
+        moved += 4 * (18 * N + 6 * C + 9 * P + 3 * P + 3 * P + 6 * C) + C + P
+        ops += 36 * N + 20 * P
+    return moved, ops
+
+
+def check_ba(prob, cfg, device, what: str):
+    """K3 and K5 on a BA problem the main path solved, against their plain
+    versions evaluated in float64 on the same fp32 inputs (so the bars
+    measure the kernel's own rounding), at three inputs: the first LM
+    iteration's (the main path's), the same with the near-plane floor raised
+    to the nearest tenth of the depths (the gate removes observations), and
+    the points moved by PERTURB of the median depth (seed 0), where the
+    gradient stands far above fp32 rounding. Bars, fixed (PERF.md section 6
+    gives the readings they were set from):
+    - K3's Hcc within NE_BAR (1e-5) of each camera block's max |value|;
+    - bc and bp within NE_BAR of each camera's and each point's term scale
+      (rhs_scales: the float64 sum of the absolute terms of the sums, the
+      residual's prediction and observation taken apart); at the moved
+      points the median block's value must stand 10 NE_BAR above that
+      scale, so that a zeroed or garbled bc or bp fails;
+    - Hpp^-1 within HINV_BAR (1e-3) of its max |value| in every point block
+      and within HINV_MEDIAN_BAR (1e-4) in the median block (inverting the
+      3x3 blocks of weakly triangulated points loses digits in any fp32
+      evaluation);
+    - the per-observation payloads, W and the packed camera rows, within
+      NE_PAYLOAD_BAR (1e-4) of their max |value| (K3's payload bar since its
+      port: closed-form Jacobians of rotations near pi cancel);
+    - K5 at the given parameters: the two sums and the mean cost rel 1e-5;
+    - K5 with the iteration's own step (the dense or PCG solve of
+      bundle_adjust at those inputs): candidate cameras and points within
+      1e-5 of their max |value|; the point step dp within NE_BAR of each
+      point's scale (dp_scale) beyond the fp32 rounding of the candidate
+      point itself (one ulp), its value 10 NE_BAR above that scale at the
+      moved points; the cost rel 1e-5;
+    - identical bits on a rerun, for both kernels.
+    Every error is logged beside the plain fp32 version's. Times (at the
+    main path's inputs): K3 and K5 with the step beside their plain
+    versions in fp32 and their bounds."""
+    import dataclasses
+
     import torch
 
     from sfm_tpu_torch.ba import core
     from sfm_tpu_torch.kernels import ba_kernels as kb
 
-    inv, _ = first_iteration_inputs(prob, cfg)
-    O, C, N = prob.obs_w.shape[0], prob.num_cameras, inv.cam_perm.numel()
+    inv = core.solve_invariants(prob, core.near_plane_floor(prob))
+    O, C, P, N = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, inv.cam_inv_perm.numel()
+    shape = f"{what}: O={O} ({N} in point segments) C={C} P={P}"
+    lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
+    loss = (cfg.robust_loss, cfg.robust_scale_px)
+    tables = (inv.point_bounds, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
+    f64 = lambda t: None if t is None else t.double()
+    ulp = 2.0 ** -23
     results = {}
 
-    def ne_args(z_floor):
-        return (prob.obs_cam, core._pts_t(prob, prob.points), inv.static_t,
-                prob.cam_params.contiguous(), prob.intrinsics, z_floor, cfg.robust_loss,
-                cfg.robust_scale_px)
+    def ne_args(pts, z, dt=lambda t: t):
+        return (prob.obs_cam, prob.obs_point, dt(pts), dt(inv.static_t), dt(prob.cam_params.contiguous()),
+                dt(prob.intrinsics), *tables, lam, dt(z), *loss)
 
-    gated = ne_args(raised_floor(prob))
-    args = ne_args(inv.z_floor)
-    for a in (gated, args):
-        out = kb.fused_ne_payloads(*a)
-        ne_ref = kb.fused_ne_payloads_plain(*a)
-        errs = [max_rel(x, y) for x, y in zip(out, ne_ref)]
-        if max(e[1] for e in errs) > 1e-4:
-            raise AssertionError(f"fused_ne_payloads{' (gate raised)' if a is gated else ''}: "
-                                 f"relative errors {errs}")
-        sums = kb.fused_cost_sums(*a)
-        sums_ref = kb.fused_cost_sums_plain(*a)
-        if not torch.allclose(sums, sums_ref, rtol=1e-5, atol=0.0):
-            raise AssertionError(f"fused_cost_sums{' (gate raised)' if a is gated else ''}: "
-                                 f"{sums.tolist()} vs {sums_ref.tolist()}")
-        if a is gated and not float(sums[1]) < float(prob.obs_w.sum()):
+    def cost_args(pts, z, dt=lambda t: t):
+        return (prob.obs_cam, prob.obs_point, dt(pts), dt(inv.static_t), dt(prob.cam_params.contiguous()),
+                dt(prob.intrinsics), inv.point_bounds, dt(z), *loss)
+
+    fmt = lambda d: ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+    notes = {"ne": [], "cost": []}
+    cases = (("gate raised", prob.points, raised_floor(prob)),
+             (f"points moved {PERTURB:g} of the median depth", perturbed_points(prob), inv.z_floor),
+             ("first iteration", prob.points, inv.z_floor))
+    for label, pts, z in cases:
+        tag, moved = f"{shape} ({label})", pts is not prob.points
+        cam_scale, pt_scale = rhs_scales(prob, inv, pts, z, loss)
+        out = kb.fused_ne_payloads(*ne_args(pts, z), plan=inv.pcg_plan)
+        ref = kb.fused_ne_payloads_plain(*ne_args(pts, z, f64))
+        errs = ne_errors(out, ref, cam_scale, pt_scale)
+        errs32 = ne_errors(kb.fused_ne_payloads_plain(*ne_args(pts, z)), ref, cam_scale, pt_scale)
+        seen = {"bc": resolved(ref[3], cam_scale), "bp": resolved(ref[4], pt_scale)}
+        if ne_bad(errs):
+            raise AssertionError(f"fused_ne_payloads ({tag}): {ne_bad(errs)} off; errors {errs}, "
+                                 f"plain fp32 {errs32}")
+        if moved and not min(seen.values()) >= 10 * NE_BAR:
+            raise AssertionError(f"fused_ne_payloads ({tag}): bc, bp stand {seen} over their scale")
+        if not all(torch.equal(x, y) for x, y in zip(out, kb.fused_ne_payloads(*ne_args(pts, z), plan=inv.pcg_plan))):
+            raise AssertionError(f"fused_ne_payloads ({tag}): two runs differ (must be deterministic)")
+        notes["ne"].append(f"{label}: {fmt(errs)} (plain fp32: {fmt(errs32)}; median value over "
+                           f"scale bc {seen['bc']:.2e}, bp {seen['bp']:.2e})")
+        _, _, sums = kb.fused_cost_sums(*cost_args(pts, z), plan=inv.pcg_plan)
+        _, _, sums64 = kb.fused_cost_sums_plain(*cost_args(pts, z, f64))
+        rel = ((sums.double() - sums64).abs() / sums64.abs().clamp_min(1e-30)).max()
+        if not float(rel) <= 1e-5:
+            raise AssertionError(f"fused_cost_sums ({tag}): {sums.tolist()} vs {sums64.tolist()}")
+        if not torch.equal(sums, kb.fused_cost_sums(*cost_args(pts, z), plan=inv.pcg_plan)[2]):
+            raise AssertionError(f"fused_cost_sums ({tag}): two runs differ (must be deterministic)")
+        if label == "gate raised" and not float(sums[1]) < float(prob.obs_w.sum()):
             raise AssertionError("fused_cost_sums: the near-plane gate removed nothing")
-    obs_in = nbytes(*args[:6])
-    results["fused_ne_payloads"] = dict(
-        max_abs_err=max(e[0] for e in errs),
-        ms=time_ms(lambda: kb.fused_ne_payloads(*args), device),
-        plain_ms=time_ms(lambda: kb.fused_ne_payloads_plain(*args), device),
-        library_ms=None, **bound(obs_in + nbytes(*out), 300 * O, FP32_OPS_PER_S),
-        note=f"O={O} C={C}, rel err {max(e[1] for e in errs):.2e}; also with the gate raised")
-    results["fused_cost_sums"] = dict(
-        max_abs_err=float((sums - sums_ref).abs().max()),
-        ms=time_ms(lambda: kb.fused_cost_sums(*args), device),
-        plain_ms=time_ms(lambda: kb.fused_cost_sums_plain(*args), device),
-        library_ms=None, **bound(obs_in + nbytes(sums), 60 * O, FP32_OPS_PER_S),
-        note=f"O={O}, sums {sums.tolist()}; also with the gate raised")
+        ne = core.NormalEq(*out[:5])
+        step = lm_step(dataclasses.replace(prob, points=pts), cfg, inv, ne)
+        step64 = kb.LMStep(*(f64(t) for t in step[:4]), step.cam_fixed, step.point_fixed)
+        cand = kb.fused_cost_sums(*cost_args(pts, z), step=step, plan=inv.pcg_plan)
+        cand64 = kb.fused_cost_sums_plain(*cost_args(pts, z, f64), step=step64)
+        cand32 = kb.fused_cost_sums_plain(*cost_args(pts, z), step=step)
+        dps, dp64 = dp_scale(step64, prob, inv), cand64[1] - pts.double()
 
-    k9 = check_segment_sum(inv, O, C, prob.num_points, device)
-    log_shapes("cam_segment_sum", k9)
-    results["cam_segment_sum"] = dict(
-        next(r for r in k9 if r["side"] == "camera" and r["K"] == NE_CAM_ROWS), shapes=k9)
+        def cand_errors(c):
+            e = {k: float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                 for k, a, b in zip(("cams", "points"), c[:2], cand64[:2])}
+            beyond = ((c[1].double() - cand64[1]).abs() - ulp * cand64[1].abs()).clamp_min(0.0)
+            e["dp"] = float(block_errors(beyond, torch.zeros_like(beyond), dps).max())
+            e["dp_of_max"] = float((c[1].double() - pts.double() - dp64).abs().max()) / max(
+                float(dp64.abs().max()), 1e-30)
+            e["cost"] = abs(float(c[2][2]) / float(cand64[2][2]) - 1.0)
+            return e
+
+        cerr, cerr32 = cand_errors(cand), cand_errors(cand32)
+        seen_dp = resolved(dp64, dps)
+        if not (cerr["cams"] <= 1e-5 and cerr["points"] <= 1e-5 and cerr["dp"] <= NE_BAR
+                and cerr["cost"] <= 1e-5):
+            raise AssertionError(f"fused_cost_sums with a step ({tag}): errors {cerr}, plain fp32 {cerr32}")
+        if moved and not seen_dp >= 10 * NE_BAR:
+            raise AssertionError(f"fused_cost_sums with a step ({tag}): dp stands {seen_dp:.2e} over its scale")
+        again = kb.fused_cost_sums(*cost_args(pts, z), step=step, plan=inv.pcg_plan)
+        if not all(torch.equal(x, y) for x, y in zip(cand, again)):
+            raise AssertionError(f"fused_cost_sums with a step ({tag}): two runs differ")
+        notes["cost"].append(f"{label}: {fmt(cerr)} (plain fp32: {fmt(cerr32)}; median dp over "
+                             f"scale {seen_dp:.2e})")
+    args, cargs = ne_args(prob.points, inv.z_floor), cost_args(prob.points, inv.z_floor)
+    ne_moved, ne_ops = ne_bytes_ops(prob, inv)
+    results["fused_ne_payloads"] = dict(
+        max_abs_err=float(max((a.double() - b).abs().max() for a, b in zip(out, ref))),
+        ms=time_ms(lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), device),
+        plain_ms=time_ms(lambda: kb.fused_ne_payloads_plain(*args), device),
+        library_ms=None, **bound(ne_moved, ne_ops, FP32_OPS_PER_S),
+        note=f"{shape}: errors vs float64 (ne_errors) " + "; ".join(notes["ne"]) + "; deterministic")
+    c_moved, c_ops = cost_bytes_ops(prob, inv, step=True)
+    results["fused_cost_sums"] = dict(
+        max_abs_err=max(float((a.double() - b).abs().max()) for a, b in zip(cand, cand64)),
+        ms=time_ms(lambda: kb.fused_cost_sums(*cargs, step=step, plan=inv.pcg_plan), device),
+        plain_ms=time_ms(lambda: kb.fused_cost_sums_plain(*cargs, step=step), device),
+        library_ms=None, **bound(c_moved, c_ops, FP32_OPS_PER_S),
+        note=f"{shape}, with each input's own step: errors vs float64 " + "; ".join(notes["cost"])
+             + f"; at the given parameters {time_ms(lambda: kb.fused_cost_sums(*cargs, plan=inv.pcg_plan), device):.4f} ms, "
+             f"sums {sums.tolist()}, bound {bound(*cost_bytes_ops(prob, inv, step=False), FP32_OPS_PER_S)['bound_ms'] * 1e3:.2f} us; "
+             "deterministic")
     return results
+
+
+def check_k9(prob, cfg, device):
+    """K9 on a BA problem's own segment tables (check_segment_sum); the
+    record's row is the camera side at K = 42."""
+    from sfm_tpu_torch.ba import core
+
+    inv = core.solve_invariants(prob, core.near_plane_floor(prob))
+    k9 = check_segment_sum(inv, prob.obs_w.shape[0], prob.num_cameras, prob.num_points, device)
+    log_shapes("cam_segment_sum", k9)
+    return {"cam_segment_sum": dict(next(r for r in k9 if r["side"] == "camera" and r["K"] == NE_CAM_ROWS),
+                                    shapes=k9)}
 
 
 def check_segment_sum(inv, O: int, C: int, P: int, device):
@@ -542,15 +814,18 @@ def check_big(prob, cfg, device):
     """K4, K6, K8 and K10 on a BA problem of more than 4096 cameras, at the
     inputs of its first LM iteration, against their plain versions; then
     K3, K5, K7 and K11 (which serve any camera count) on the same inputs, so
-    that each twin pair is timed side by side. Tolerances: K4 payloads 1e-6
-    of each block's max against K3 on the same inputs (the same device code
-    on rows gathered elsewhere; K3 is held to 1e-4 of its plain version on
-    the other slices' problems) and 1e-3 against its plain version in
+    that each twin pair is timed side by side. Tolerances: K4's W and
+    camera payload 1e-6 of each block's max against K3's W and packed
+    camera rows on the same inputs (the same device code on rows gathered
+    elsewhere; K3 is held to its plain version on the other slices'
+    problems) and 1e-3 against its plain version in
     float64: on a merged model the world origin lies many depths from a
     camera's points, R p + t cancels, and any fp32 evaluation of the
     residual (the kernel's or the plain version's, which sit 3e-4 apart)
     moves the IRLS weight of an observation by ~1e-4; K6 rtol 1e-5 against
-    the plain version in float64 (sum order) and identical bits on a rerun; K8 1e-5 of max against the plain version in float64
+    the plain version in float64 (sum order) and identical bits on a rerun,
+    K5's sums at the same parameters rtol 1e-5 against the same; K8 1e-5 of
+    max against the plain version in float64
     (K7's bar; no sums over observations, but the three-term products cancel:
     the fp32 plain version itself sits at 9e-7); K10 1e-5 of max against the
     plain version in float64 (K11's bar: fp32 tree sums over a point's ~100
@@ -580,47 +855,65 @@ def check_big(prob, cfg, device):
     def big_args64(z_floor):
         return (*(t.double() for t in big_args(z_floor)[:4]), z_floor.double(), *loss)
 
+    # K3 and K5 serve any camera count; at C > MAX_CAMS the solve has no plan for them.
+    plan = kb.pcg_launch_plan(inv.point_bounds)
+    lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
+
     def small_args(z_floor):
-        return (prob.obs_cam, pts_t, inv.static_t, cams, prob.intrinsics, z_floor, *loss)
+        return (prob.obs_cam, prob.obs_point, prob.points, inv.static_t, cams, prob.intrinsics, inv.point_bounds,
+                inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm, lam, z_floor, *loss)
+
+    def cost_args(z_floor):
+        return (prob.obs_cam, prob.obs_point, prob.points, inv.static_t, cams, prob.intrinsics, inv.point_bounds,
+                z_floor, *loss)
 
     for raised, zf in ((True, raised_floor(prob)), (False, inv.z_floor)):
         tag = " (gate raised)" if raised else ""
         out = kb.fused_ne_payloads_big(*big_args(zf))
         ref = kb.fused_ne_payloads_big_plain(*big_args64(zf))
         errs = [max_rel(x, y) for x, y in zip(out, ref)]
-        twin = [max_rel(x, y) for x, y in zip(out, kb.fused_ne_payloads(*small_args(zf)))]
+        # The same device code as K3's: W, and the camera rows in K3's packed order.
+        k3 = kb.fused_ne_payloads(*small_args(zf), plan=plan)
+        twin = [max_rel(out[0], k3[2]), max_rel(out[2][:, inv.cam_perm.long()].T, k3[5])]
         if max(e[1] for e in errs) > 1e-3 or max(e[1] for e in twin) > 1e-6:
-            raise AssertionError(f"fused_ne_payloads_big{tag}: relative errors {errs}, vs K3 {twin}")
+            raise AssertionError(f"fused_ne_payloads_big{tag}: relative errors {errs}, vs K3 (W, camera "
+                                 f"rows) {twin}")
         sums = kb.fused_cost_sums_big(*big_args(zf))
         sums_ref = kb.fused_cost_sums_big_plain(*big_args64(zf))
         if not torch.allclose(sums.double(), sums_ref, rtol=1e-5, atol=0.0):
             raise AssertionError(f"fused_cost_sums_big{tag}: {sums.tolist()} vs {sums_ref.tolist()}")
+        sums5 = kb.fused_cost_sums(*cost_args(zf), plan=plan)[2]
+        if not torch.allclose(sums5[:2].double(), sums_ref, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"fused_cost_sums_big{tag}: K5 gives {sums5.tolist()}")
         if not torch.equal(sums, kb.fused_cost_sums_big(*big_args(zf))):
             raise AssertionError(f"fused_cost_sums_big{tag}: two runs differ (must be deterministic)")
         if raised and not float(sums[1]) < float(prob.obs_w.sum()):
             raise AssertionError("fused_cost_sums_big: the near-plane gate removed nothing")
-    a4, a3 = big_args(inv.z_floor), small_args(inv.z_floor)
+    a4, a3, a5 = big_args(inv.z_floor), small_args(inv.z_floor), cost_args(inv.z_floor)
     obs_in = nbytes(*a4[:4])
     results["fused_ne_payloads_big"] = dict(
         max_abs_err=max(e[0] for e in errs),
         ms=time_ms(lambda: kb.fused_ne_payloads_big(*a4), device),
         plain_ms=time_ms(lambda: kb.fused_ne_payloads_big_plain(*a4), device),
         library_ms=None, **bound(obs_in + nbytes(*out), 300 * O, FP32_OPS_PER_S),
-        note=f"{shape}, rel err {max(e[1] for e in errs):.2e} (vs K3 {max(e[1] for e in twin):.2e}); "
-             "also with the gate raised")
+        note=f"{shape}, rel err {max(e[1] for e in errs):.2e} (vs K3's W and camera rows "
+             f"{max(e[1] for e in twin):.2e}); also with the gate raised")
     results["fused_cost_sums_big"] = dict(
         max_abs_err=float((sums - sums_ref).abs().max()),
         ms=time_ms(lambda: kb.fused_cost_sums_big(*a4), device),
         plain_ms=time_ms(lambda: kb.fused_cost_sums_big_plain(*a4), device),
         library_ms=None, **bound(obs_in + nbytes(sums), 60 * O, FP32_OPS_PER_S),
-        note=f"{shape}, sums {sums.tolist()}, deterministic; also with the gate raised")
+        note=f"{shape}, sums {sums.tolist()}, deterministic, K5's within rtol 1e-5; also with the "
+             "gate raised")
     gather_ms = time_ms(lambda: core._rows_t(cams, prob.obs_cam), device)
+    # K3 builds the whole damped normal equations (point sums, inversions,
+    # camera sums); K4 its per-observation payloads only.
     twins["K4 vs K3"] = dict(
         big_ms=results["fused_ne_payloads_big"]["ms"], gather_ms=gather_ms,
-        small_ms=time_ms(lambda: kb.fused_ne_payloads(*a3), device))
+        small_ms=time_ms(lambda: kb.fused_ne_payloads(*a3, plan=plan), device))
     twins["K6 vs K5"] = dict(
         big_ms=results["fused_cost_sums_big"]["ms"], gather_ms=gather_ms,
-        small_ms=time_ms(lambda: kb.fused_cost_sums(*a3), device))
+        small_ms=time_ms(lambda: kb.fused_cost_sums(*a5, plan=plan), device))
 
     W_t, Hinv = ne.W_t, ne.Hpp_inv
     k8 = (W_t, Hinv, prob.obs_point)
@@ -818,14 +1111,17 @@ def check_schur(prob, cfg, device):
 
 
 def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
-              blocks: int | None = None):
+              blocks: int | None = None, x_steps: int | None = None):
     """pcg_solve (the whole PCG solve in one launch) on a PCG-sized BA
     problem at the inputs of its first LM iteration (normal equations,
     Schur-Jacobi preconditioner, rhs), against pcg_solve_plain in float64 on
     the same inputs: x within 1e-3 of max|x| after cfg.cg_iterations steps
-    (fp32 CG drifts from the float64 iterates), |S x - rhs| at most twice
-    the float64 solution's + 1e-6 |rhs| (S applied in float64), within 1e-5
-    after one step; identical bits on a rerun. streaming=True forces the mode
+    (fp32 CG drifts from the float64 iterates), or after x_steps steps where
+    given (PCG_X_STEPS on the first merged polish: its float64 solve is far
+    from converged after 64 steps, and the fp32 drift of any order of sums
+    grows step by step), |S x - rhs| at most twice the float64 solution's
+    + 1e-6 |rhs| after cfg.cg_iterations steps (S applied in float64),
+    within 1e-5 after one step; identical bits on a rerun. streaming=True forces the mode
     that reads W from device memory every step; blocks replaces the card's
     grid by a grid of that many blocks (each then owns more cameras). Timed
     beside loop_ms: the same solve as Python steps over the coupling-only
@@ -876,10 +1172,13 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     shape = (f"{what}: O={O} ({M} weighted) C={C} P={P}, {'streaming' if plan.streaming else 'resident'}"
              + (f", {blocks} blocks" if blocks else ""))
     x, ref = fused(its), plain64(its)
-    scale = max(float(ref.abs().max()), 1e-30)
-    err = float((x.double() - ref).abs().max())
+    x_its = x_steps or its
+    xs, refs = (x, ref) if x_steps is None else (fused(x_steps), plain64(x_steps))
+    scale = max(float(refs.abs().max()), 1e-30)
+    err = float((xs.double() - refs).abs().max())
     if not err <= 1e-3 * scale:
-        raise AssertionError(f"pcg_solve ({shape}): max err {err} against max|x| {scale}")
+        raise AssertionError(f"pcg_solve ({shape}): max err {err} against max|x| {scale} after "
+                             f"{x_its} steps")
     res, res_ref, rhs_norm = residual(x.double()), residual(ref), float(rhs64.norm())
     if not res <= 2.0 * res_ref + 1e-6 * rhs_norm:
         raise AssertionError(f"pcg_solve ({shape}): |S x - rhs| {res} against {res_ref} in float64")
@@ -900,9 +1199,117 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
         library_ms=None,
         **bound(moved, its * (81 * N + 18 * P + 160 * C), FP32_OPS_PER_S),
         note=f"{shape}, grid {plan.grid}, {plan.smem_bytes} B staged per block; err {err / scale:.2e} "
-             f"of max|x| vs float64 (plain fp32 {err32 / scale:.2e}), |Sx - rhs| {res:.3e} (float64 "
+             f"of max|x| vs float64 after {x_its} steps (plain fp32 after {its}: "
+             f"{err32 / max(float(ref.abs().max()), 1e-30):.2e}), |Sx - rhs| {res:.3e} (float64 "
              f"solution {res_ref:.3e}, |rhs| {rhs_norm:.3e}), one step "
              f"{err1:.2e}, deterministic")
+
+
+def device_time_ms(prof) -> tuple[float, list]:
+    """Sum of the device's own rows of a torch.profiler trace (kernels,
+    memcpy, memset), and the top ones. The rows of the host ops that
+    launched them carry the same time once more and are left out."""
+    import torch
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
+    return total, [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]
+
+
+def device_launches(prof) -> int:
+    """Kernels, copies and fills the device ran in a torch.profiler trace."""
+    import torch
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+
+
+def profile_calls(fn, device, calls: int = 20) -> dict:
+    """fn() `calls` times under torch.profiler after a warm-up: device
+    launches and device ms per call, and the four device rows that took
+    longest (name, launches and ms per call); then its CUDA-event ms per
+    call (time_ms)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy, top = device_time_ms(prof)
+    return dict(launches=device_launches(prof) / calls, device_ms=busy / calls,
+                event_ms=time_ms(fn, device),
+                top=[(name, count / calls, ms / calls) for name, count, ms in top[:4]])
+
+
+def lm_report(prob, cfg, device, stand_in: bool = False) -> dict:
+    """The normal-equation build (core.build_normal_equations) and the LM
+    candidate with its cost, at the first LM iteration of one BA problem,
+    each as device launches, device ms (torch.profiler) and event ms per
+    call; then one whole bundle_adjust under torch.profiler: device launches
+    per LM iteration, device busy ms, wall ms, idle share. The candidate is
+    core.lm_candidate where the package has it, else the steps of an older
+    LM loop (_back_substitute, the freeze masks, the additions,
+    compute_cost), so that tools/torch_perf.py lm can run this on an
+    unpacked parent tree. stand_in (C <= MAX_CAMS) adds the chains K3 and
+    K5 replace, as the large-camera route still runs them on the same
+    problem (core.MAX_CAMS set to 0 for those calls), and
+    "lm_iteration_replaced": that iteration's launches with the two chains
+    in place of K3 and K5."""
+    import torch
+
+    from sfm_tpu_torch.ba import core
+
+    inv = core.solve_invariants(prob, core.near_plane_floor(prob))
+    lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
+    cams, points = prob.cam_params, prob.points
+    ne = core.build_normal_equations(prob, cams, points, lam, cfg, inv)
+    dc = lm_dc(prob, cfg, inv, ne)
+
+    def candidate(inv):
+        if hasattr(core, "lm_candidate"):
+            return core.lm_candidate(ne, prob, dc, cams, points, cfg, inv)
+        zero = torch.zeros((), device=device)
+        dp = core._back_substitute(ne, prob, dc, inv)
+        new_cams = cams + torch.where(prob.cam_fixed[:, None], zero, dc)
+        new_points = points + torch.where(prob.point_fixed[:, None], zero, dp)
+        return new_cams, new_points, core.compute_cost(prob, new_cams, new_points, cfg, inv)
+
+    rows = {"NE build": profile_calls(
+                lambda: core.build_normal_equations(prob, cams, points, lam, cfg, inv), device),
+            "candidate": profile_calls(lambda: candidate(inv), device)}
+    if stand_in:
+        saved = core.MAX_CAMS
+        core.MAX_CAMS = 0
+        try:
+            inv_big = core.solve_invariants(prob, inv.z_floor)
+            rows["NE chain replaced"] = profile_calls(
+                lambda: core.build_normal_equations(prob, cams, points, lam, cfg, inv_big), device)
+            rows["candidate chain replaced"] = profile_calls(lambda: candidate(inv_big), device)
+        finally:
+            core.MAX_CAMS = saved
+    core.bundle_adjust(prob, cfg)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _, stats = core.bundle_adjust(prob, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    its = max(int(stats.iterations), 1)
+    busy = device_time_ms(prof)[0]
+    per_it = device_launches(prof) / its
+    rows["bundle_adjust"] = dict(lm_iterations=its, launches_per_lm_iteration=per_it,
+                                 device_ms=busy, wall_ms=wall, idle_share=1.0 - busy / wall)
+    if stand_in:
+        rows["bundle_adjust"]["lm_iteration_replaced"] = per_it + sum(
+            rows[old]["launches"] - rows[new]["launches"]
+            for old, new in (("NE chain replaced", "NE build"), ("candidate chain replaced", "candidate")))
+    return rows
 
 
 def log_results(what: str, results: dict) -> None:
@@ -1288,7 +1695,8 @@ def main() -> int:
         % pose_errors_deg(rec, scene))
     check_slice(rec, launches, scene)
     two_view_launches = launches
-    log_results("two-view BA", check_ba(ba_log[-1]["problem"], ba_log[-1]["cfg"], device))
+    log_results("two-view BA", {**check_ba(ba_log[-1]["problem"], ba_log[-1]["cfg"], device, "two-view BA"),
+                                **check_k9(ba_log[-1]["problem"], ba_log[-1]["cfg"], device)})
 
     t0 = time.perf_counter()
     ring, scene = render_ring(INC_IMAGES, INC_BLOBS, INC_ARC)
@@ -1309,10 +1717,19 @@ def main() -> int:
     # global BA problem (PCG), as that run handed it to bundle_adjust; K7 and
     # K11 once more on an orbit problem whose points each lie in ~100 views.
     final = ba_log[-1]
-    incremental = {**check_ba(final["problem"], final["cfg"], device),
+    incremental = {**check_ba(final["problem"], final["cfg"], device, "final global BA"),
+                   **check_k9(final["problem"], final["cfg"], device),
                    **check_schur(final["problem"], final["cfg"], device)}
     log_results("final global BA", incremental)
     results.update(incremental)
+    local = next(b for b in reversed(ba_log) if b["solver"] == "dense")
+    log_results("last dense local BA", check_ba(local["problem"], local["cfg"], device, "last dense local BA"))
+    # K3 and K5 beside the chains they replace, and the LM iteration's launches.
+    lm = lm_report(final["problem"], final["cfg"], device, stand_in=True)
+    for k, n in (("fused_ne_payloads", "NE build"), ("fused_cost_sums", "candidate")):
+        results[k]["device_ms"] = lm[n]["device_ms"]
+    log(f"[lm] final global BA (C={final['C']}, O={final['O']}): " + json.dumps(
+        {**lm, "bounds_ms": {k: results[k]["bound_ms"] for k in ("fused_ne_payloads", "fused_cost_sums")}}))
     orbit = schur_problem(device)
     log_results("orbit", check_schur(orbit, final["cfg"], device))
     # The fused PCG solve on the same two problems, once more on the orbit
@@ -1359,7 +1776,8 @@ def main() -> int:
         f"({100 * rmse / INC_RADIUS:.3f}% of the orbit radius)")
     paths["partition"] = launches
     first_polish = next(b for b in ba_log if b["solver"] == "pcg" and b["C"] >= 0.95 * len(rec.registered))
-    pcg_rows.append(check_pcg(first_polish["problem"], first_polish["cfg"], device, "first merged polish"))
+    pcg_rows.append(check_pcg(first_polish["problem"], first_polish["cfg"], device, "first merged polish",
+                              x_steps=PCG_X_STEPS))
     log_results("", {"pcg_solve": pcg_rows[-1]})
     results["pcg_solve"]["shapes"] = pcg_rows
     del ba_log, first_polish
@@ -1392,6 +1810,8 @@ def main() -> int:
     results["match_topk2"]["shapes"] = k2_shapes
     results["cam_segment_sum"]["shapes"] = results["cam_segment_sum"]["shapes"] + k9_big
     log(f"[kernel] twins on the merged polish's problem (ms): {json.dumps(twins)}")
+    log("[lm] launches by path: " + json.dumps(
+        {k: {name: p.get(k, 0) for name, p in paths.items()} for k in ("fused_ne_payloads", "fused_cost_sums")}))
 
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
@@ -1400,7 +1820,7 @@ def main() -> int:
          "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
          "library_ms": results[k]["library_ms"],
-         **({"loop_ms": results[k]["loop_ms"]} if "loop_ms" in results[k] else {}),
+         **{f: results[k][f] for f in ("loop_ms", "device_ms") if f in results[k]},
          "launches_by_path": {name: p.get(k, 0) for name, p in paths.items()},
          **({"shapes": [{f: r[f] for f in SHAPE_FIELDS + PCG_FIELDS if f in r}
                         for r in results[k]["shapes"]]}

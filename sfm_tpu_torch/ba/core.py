@@ -2,8 +2,9 @@
 (port of the single-chip path of sfm_tpu/ba/core.py).
 
   residual r_o = project(point_p, cam_c) - uv_o, robustified by IRLS
-  normal equations in segment-sum form (kernel K3 per observation, then
-  the deterministic sorted-segment reduction K9 per camera and per point):
+  normal equations in segment-sum form (kernel K3: one pass over the point
+  segments that sums each point's blocks and inverts them, then the camera
+  rows summed per camera):
     Hcc = segsum_c Jc^T Jc  [C, 6, 6],  Hpp = segsum_p Jp^T Jp  [P, 3, 3]
     W_o = Jc_o^T Jp_o  [O, 6, 3] (kept per observation, feature-major)
     bc = -segsum_c Jc^T r,  bp = -segsum_p Jp^T r
@@ -16,15 +17,18 @@
     preconditioner's blocks sum_c W Hpp^-1 W^T come from kernel K7, then
     all CG steps run in one pcg_solve launch (K11's coupling code and Hcc p
     per step, the dot products and updates between grid barriers);
-  back-substitution dp = Hpp^-1 (bp - W^T dc); LM accept/reject on the true
-  robust cost (kernel K5), multiplicative damping.
+  back-substitution dp = Hpp^-1 (bp - W^T dc) and the candidate's true
+  robust cost in one launch (kernel K5); LM accept/reject, multiplicative
+  damping.
 
 Past MAX_CAMS = 4096 cameras (the JAX package's _MAX_CAMS, where its one-hot
 kernels stop) the same solve goes through the large-camera-count kernel set:
 camera, intrinsic and v rows are gathered per observation by plain indexing
-and K4 (normal equations), K6 (cost), K8 (preconditioner payloads, then K9)
-and K10 (coupling payloads, then K9) take the place of K3, K5, K7 and K11;
-there the CG steps run as a Python loop (pcg_loop) over K10 and K9.
+and K4 (normal-equation payloads, then K9 and the damping and inversion
+as torch ops), K6 (cost; the back-substitution as torch ops), K8
+(preconditioner payloads, then K9) and K10 (coupling payloads, then K9) take
+the place of K3, K5, K7 and K11; there the CG steps run as a Python loop
+(pcg_loop) over K10 and K9.
 The JAX package switches its coupling matvec later (past 16384 cameras or on
 unaligned tiles, where its two-level in-kernel matvec cannot run); this
 package has no two-level kernel, so the whole set switches at one threshold.
@@ -43,10 +47,10 @@ from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.geometry.rotations import so3_hat, so3_right_jacobian
 from sfm_tpu_torch.kernels import on_cuda
 from sfm_tpu_torch.kernels.ba_kernels import (
-    MAX_CAMS, PcgPlan, cam_segment_sum, fused_cost_sums, fused_cost_sums_big, fused_ne_payloads,
-    fused_ne_payloads_big, invert_permutation, pcg_launch_plan, pcg_loop, pcg_solve, projection,
-    schur_coupling_matvec, schur_coupling_payloads_big, segment_bounds, whw_cam_reduce,
-    whw_payloads_big,
+    MAX_CAMS, LMStep, PcgPlan, cam_segment_sum, damp, fused_cost_sums, fused_cost_sums_big,
+    fused_ne_payloads, fused_ne_payloads_big, invert_permutation, pcg_launch_plan, pcg_loop,
+    pcg_solve, projection, schur_coupling_matvec, schur_coupling_payloads_big, segment_bounds,
+    sym3, sym_solve3, whw_cam_reduce, whw_payloads_big,
 )
 
 _DENSE_MAX_VOLUME = 4 << 20   # C * O gate of the dense reduced solve
@@ -96,7 +100,7 @@ class SolveInvariants(NamedTuple):
     cam_inv_perm: torch.Tensor  # [N] int32 obs o's place in cam_perm, -1 for a zero-weight row
     z_floor: torch.Tensor | None = None   # near-plane depth floor (0-d)
     intr_t: torch.Tensor | None = None    # [6, O] intrinsics per observation (large-C set only)
-    pcg_plan: PcgPlan | None = None       # pcg_solve's launch plan (CUDA, up to MAX_CAMS cameras)
+    pcg_plan: PcgPlan | None = None       # point slices of K3, K5, pcg_solve (CUDA, <= MAX_CAMS cameras)
 
 
 def uses_big_kernels(prob: BAProblem) -> bool:
@@ -148,11 +152,10 @@ def compute_cost(prob: BAProblem, cam_params, points, cfg: BAConfig,
         sums = fused_cost_sums_big(_pts_t(prob, points), inv.static_t,
                                    _rows_t(cam_params, prob.obs_cam), inv.intr_t, inv.z_floor,
                                    cfg.robust_loss, cfg.robust_scale_px)
-    else:
-        sums = fused_cost_sums(prob.obs_cam, _pts_t(prob, points), inv.static_t,
-                               cam_params.contiguous(), prob.intrinsics, inv.z_floor,
-                               cfg.robust_loss, cfg.robust_scale_px)
-    return sums[0] / sums[1].clamp_min(1.0)
+        return sums[0] / sums[1].clamp_min(1.0)
+    return fused_cost_sums(prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t,
+                           cam_params.contiguous(), prob.intrinsics, inv.point_bounds, inv.z_floor,
+                           cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan)[2][2]
 
 
 class NormalEq(NamedTuple):
@@ -163,67 +166,26 @@ class NormalEq(NamedTuple):
     bp: torch.Tensor       # [P, 3]
 
 
-def _sym_solve3(A: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
-    """Closed-form inverse of batched SPD 3x3 blocks (adjugate / det),
-    Jacobi-equilibrated so the det cannot overflow fp32 for huge blocks:
-    A^-1 = D (D A D)^-1 D with D = diag(A)^-1/2."""
-    dg = torch.sqrt(A.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
-    Dinv = 1.0 / dg
-    A = A * Dinv[..., :, None] * Dinv[..., None, :]
-    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    d, e, f = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
-    co00 = d * f - e * e
-    co01 = c * e - b * f
-    co02 = b * e - c * d
-    co11 = a * f - c * c
-    co12 = b * c - a * e
-    co22 = a * d - b * b
-    det = a * co00 + b * co01 + c * co02
-    inv_det = 1.0 / torch.where(det.abs() < eps, torch.full_like(det, eps), det)
-    inv = torch.stack([
-        torch.stack([co00, co01, co02], -1),
-        torch.stack([co01, co11, co12], -1),
-        torch.stack([co02, co12, co22], -1),
-    ], -2) * inv_det[..., None, None]
-    return inv * Dinv[..., :, None] * Dinv[..., None, :]
-
-
-def _sym3(red6: torch.Tensor) -> torch.Tensor:
-    """(00, 01, 02, 11, 12, 22) -> symmetric [..., 3, 3]."""
-    s = red6.unbind(-1)
-    return torch.stack([torch.stack([s[0], s[1], s[2]], -1),
-                        torch.stack([s[1], s[3], s[4]], -1),
-                        torch.stack([s[2], s[4], s[5]], -1)], -2)
-
-
 def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConfig,
                            inv: SolveInvariants) -> NormalEq:
-    """Damped normal-equation blocks at (cam_params, points)."""
+    """Damped normal-equation blocks at (cam_params, points); lam is a 0-d
+    tensor. Multiplicative LM damping of the block diagonals with an
+    absolute floor (kernels.ba_kernels.damp)."""
+    if not uses_big_kernels(prob):
+        Hcc, Hpp_inv, w_t, bc, bp, _ = fused_ne_payloads(
+            prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
+            prob.intrinsics, inv.point_bounds, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm,
+            lam, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan)
+        return NormalEq(Hcc=Hcc, Hpp_inv=Hpp_inv, W_t=w_t, bc=bc, bp=bp)
     C = prob.num_cameras
-    if uses_big_kernels(prob):
-        w_t, yp_t, cam_t = fused_ne_payloads_big(
-            _pts_t(prob, points), inv.static_t, _rows_t(cam_params, prob.obs_cam), inv.intr_t,
-            inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
-    else:
-        w_t, yp_t, cam_t = fused_ne_payloads(
-            prob.obs_cam, _pts_t(prob, points), inv.static_t, cam_params.contiguous(),
-            prob.intrinsics, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
+    w_t, yp_t, cam_t = fused_ne_payloads_big(
+        _pts_t(prob, points), inv.static_t, _rows_t(cam_params, prob.obs_cam), inv.intr_t,
+        inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
     camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)  # [C, 42]
-    Hcc = camred[:, :36].reshape(C, CAM_DIM, CAM_DIM)
-    bc = camred[:, 36:42]
     red = cam_segment_sum(yp_t, None, inv.point_bounds)                 # [P, 9]
-    Hpp = _sym3(red[:, :6])
-    bp = red[:, 6:9]
-
-    # Multiplicative LM damping on block diagonals, with an absolute floor so
-    # padded/unconstrained blocks stay invertible.
-    eyec = torch.eye(CAM_DIM, device=Hcc.device)
-    eyep = torch.eye(PT_DIM, device=Hcc.device)
-    dc = Hcc.diagonal(dim1=-2, dim2=-1)
-    dp = Hpp.diagonal(dim1=-2, dim2=-1)
-    Hcc_d = Hcc + (lam * dc[:, :, None] + 1e-6) * eyec
-    Hpp_d = Hpp + (lam * dp[:, :, None] + 1e-6) * eyep
-    return NormalEq(Hcc=Hcc_d, Hpp_inv=_sym_solve3(Hpp_d), W_t=w_t, bc=bc, bp=bp)
+    return NormalEq(Hcc=damp(camred[:, :36].reshape(C, CAM_DIM, CAM_DIM), lam),
+                    Hpp_inv=sym_solve3(damp(sym3(red[:, :6]), lam)), W_t=w_t,
+                    bc=camred[:, 36:42], bp=red[:, 6:9])
 
 
 def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
@@ -345,6 +307,27 @@ def _back_substitute(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, inv: Solve
     return torch.einsum("pij,pj->pi", ne.Hpp_inv, g)
 
 
+def lm_candidate(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, cam_params, points,
+                 cfg: BAConfig, inv: SolveInvariants):
+    """The LM candidate of the camera step dc: (cam_params + dc, points + dp)
+    with dp = Hpp^-1 (bp - W^T dc), the steps of frozen cameras and points
+    zero, and its robust mean cost (0-d). Up to MAX_CAMS cameras one K5
+    launch; past it the back-substitution, masks and K6 as before (dc
+    masked after the back-substitution, as sfm_tpu does: a frozen camera's
+    W rows are zero, so the two orders agree on any finite step)."""
+    if not uses_big_kernels(prob):
+        new_cams, new_points, sums = fused_cost_sums(
+            prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
+            prob.intrinsics, inv.point_bounds, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px,
+            step=LMStep(dc.contiguous(), ne.W_t, ne.Hpp_inv, ne.bp, prob.cam_fixed, prob.point_fixed),
+            plan=inv.pcg_plan)
+        return new_cams, new_points, sums[2]
+    dp = _back_substitute(ne, prob, dc, inv)
+    new_cams = torch.where(prob.cam_fixed[:, None], cam_params, cam_params + dc)
+    new_points = torch.where(prob.point_fixed[:, None], points, points + dp)
+    return new_cams, new_points, compute_cost(prob, new_cams, new_points, cfg, inv)
+
+
 def uses_dense_solver(prob: BAProblem, cfg: BAConfig) -> bool:
     """The JAX package's reduced-solver gate, unchanged: dense Cholesky for
     at most cfg.dense_schur_max_cameras (padded) cameras and C * O (padded
@@ -383,7 +366,6 @@ def bundle_adjust(prob: BAProblem, cfg: BAConfig) -> tuple[BAProblem, BAStats]:
     cam_params, points = prob.cam_params, prob.points
     cost = cost0 = compute_cost(prob, cam_params, points, cfg, inv)
     lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=cam_params.device)
-    zero = torch.zeros((), device=cam_params.device)
     it = 0
     while it < cfg.max_iterations:
         ne = build_normal_equations(prob, cam_params, points, lam, cfg, inv)
@@ -392,12 +374,7 @@ def bundle_adjust(prob: BAProblem, cfg: BAConfig) -> tuple[BAProblem, BAStats]:
             dc = _dense_schur_solve(ne, prob, rhs, inv)
         else:
             dc = _pcg(ne, prob, rhs, cfg, inv)
-        dp = _back_substitute(ne, prob, dc, inv)
-        dc = torch.where(prob.cam_fixed[:, None], zero, dc)
-        dp = torch.where(prob.point_fixed[:, None], zero, dp)
-        new_cams = cam_params + dc
-        new_points = points + dp
-        new_cost = compute_cost(prob, new_cams, new_points, cfg, inv)
+        new_cams, new_points, new_cost = lm_candidate(ne, prob, dc, cam_params, points, cfg, inv)
 
         accept = new_cost < cost
         cam_params = torch.where(accept, new_cams, cam_params)

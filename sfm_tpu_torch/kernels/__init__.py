@@ -60,8 +60,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sfm_dog_extrema": (_P, _P, _I, _I, _I, _I, _F, _P),
     "sfm_match_topk2": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "sfm_fused_ne_payloads": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
-    "sfm_fused_cost_sums": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P, _P),
+    "sfm_fused_ne_payloads": (_P,) * 12 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 7,
+    "sfm_fused_cost_sums": (_P,) * 15 + (_I, _I, _I, _I, _F, _I) + (_P,) * 6,
     "sfm_segment_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "sfm_whw_cam_reduce": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "sfm_schur_coupling_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),

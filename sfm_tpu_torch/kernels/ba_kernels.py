@@ -6,7 +6,12 @@ whole PCG solve over K11's device code in one launch
 (csrc/schur_kernels.cu).
 
 Replace the functions of the same names in sfm_tpu/kernels/schur_spmv.py;
-pcg_solve replaces sfm_tpu/ba/core.py _pcg (a fori_loop over K11).
+pcg_solve replaces sfm_tpu/ba/core.py _pcg (a fori_loop over K11). K3 also
+takes in the reductions, damping and inversions of sfm_tpu's
+build_normal_equations (the damped normal equations in two launches), and
+K5 the LM candidate of its bundle_adjust_impl (back-substitution, freeze
+masks, candidate parameters and their cost in one launch); both walk the
+point segments on pcg_solve's plan.
 The `_big` set serves problems of more than MAX_CAMS cameras, as in the JAX
 package: camera, intrinsic and v rows arrive gathered per observation
 ([6, O], plain indexing by the caller) and every result stays per
@@ -14,14 +19,16 @@ observation for the caller's K9 reduction. Layouts are
 feature-major ([rows, O]) wherever a kernel reads or writes per-observation
 rows, so a warp touches contiguous memory.
 
-Per-observation inputs shared by K3 and K5:
-  obs_cam  [O] int32      camera of each observation
-  pts_t    [3, O] f32     its point, gathered (refreshed every LM iteration)
+Inputs shared by K3 and K5:
+  obs_cam  [O] int32      camera of each observation (sorted by point)
+  points   [P, 3] f32     the points (refreshed every LM iteration)
   static_t [5, O] f32     u, v, weight, camera-free, point-free (per solve)
   cams     [C, 6] f32     rvec, tvec;  intr [C, 6] f32: fx fy cx cy k1 k2
+  point_bounds [P+1] int32  point segments covering the observations [0, N)
   z_floor  0-d f32 tensor or None: near-plane gate at the current parameters
-K4 and K6 take cams_t / intr_t [6, O] (those rows gathered per observation)
-in place of obs_cam, cams and intr.
+K4 and K6 take pts_t [3, O] (each observation's point) and cams_t / intr_t
+[6, O] (those rows gathered per observation) in place of obs_cam, points,
+cams and intr.
 """
 
 from __future__ import annotations
@@ -89,22 +96,11 @@ def _gate(w: torch.Tensor, depth: torch.Tensor, z_floor) -> torch.Tensor:
     return torch.where(depth > z_floor, w, torch.zeros((), device=w.device))
 
 
-def _check_obs_inputs(obs_cam, pts_t, static_t, cams, intr, z_floor):
-    O = obs_cam.shape[0]
-    C = cams.shape[0]
-    dev = obs_cam.device
-    check(obs_cam, "obs_cam", torch.int32, (O,), dev)
-    check(pts_t, "pts_t", torch.float32, (3, O), dev)
-    check(static_t, "static_t", torch.float32, (_STATIC_ROWS, O), dev)
-    check(cams, "cams", torch.float32, (C, 6), dev)
-    check(intr, "intr", torch.float32, (C, 6), dev)
-    if z_floor is not None:
-        check(z_floor, "z_floor", torch.float32, (), dev)
-    return O
-
-
-def fused_ne_payloads_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: str, scale: float):
-    """Plain K3: (w_t [18, O], yp_t [9, O], cam_t [42, O])."""
+def _ne_payloads_obs_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: str, scale: float):
+    """Per-observation normal-equation payloads, feature-major: (W = Jc^T Jp
+    [18, O], sym(Jp^T Jp), -Jp^T r [9, O], vec(Jc^T Jc), -Jc^T r [42, O]),
+    IRLS-weighted, near-plane gated, freeze masks applied; pts_t [3, O] is
+    each observation's point."""
     from sfm_tpu_torch.ba.core import residual_jac_analytic
 
     oc = obs_cam.long()
@@ -124,25 +120,9 @@ def fused_ne_payloads_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss:
     return w_t, yp_t, cam_t
 
 
-def fused_ne_payloads(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: str, scale: float):
-    """Per-observation normal-equation payloads, feature-major:
-    W = Jc^T Jp [18, O], point payload [9, O], camera payload [42, O]
-    (IRLS-weighted, near-plane gated, freeze masks applied)."""
-    if not on_cuda(obs_cam):
-        return fused_ne_payloads_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
-    O = _check_obs_inputs(obs_cam, pts_t, static_t, cams, intr, z_floor)
-    dev = obs_cam.device
-    w_t = torch.empty((NE_W_ROWS, O), dtype=torch.float32, device=dev)
-    yp_t = torch.empty((NE_PT_ROWS, O), dtype=torch.float32, device=dev)
-    cam_t = torch.empty((NE_CAM_ROWS, O), dtype=torch.float32, device=dev)
-    launch("sfm_fused_ne_payloads", "fused_ne_payloads",
-           ptr(obs_cam), ptr(pts_t), ptr(static_t), ptr(cams), ptr(intr), ptr(z_floor),
-           O, LOSS_CODES[loss], float(scale), ptr(w_t), ptr(yp_t), ptr(cam_t))
-    return w_t, yp_t, cam_t
-
-
-def fused_cost_sums_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: str, scale: float):
-    """Plain K5: tensor [2] = (sum robust_cost(|r|^2) * w, sum w)."""
+def _cost_sums_obs_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: str, scale: float):
+    """(sum robust_cost(|r|^2) * w, sum w) over observations, each with its
+    point pts_t [3, O] -> tensor [2]."""
     oc = obs_cam.long()
     pr = projection(cams[oc], intr[oc], pts_t.T, static_t[:2].T)
     w = _gate(static_t[2], pr["xc2"], z_floor)
@@ -150,22 +130,213 @@ def fused_cost_sums_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: s
     return torch.stack([c.sum(), w.sum()])
 
 
-_COST_THREADS = 256
+def sym3(red6: torch.Tensor) -> torch.Tensor:
+    """(00, 01, 02, 11, 12, 22) -> symmetric [..., 3, 3]."""
+    s = red6.unbind(-1)
+    return torch.stack([torch.stack([s[0], s[1], s[2]], -1),
+                        torch.stack([s[1], s[3], s[4]], -1),
+                        torch.stack([s[2], s[4], s[5]], -1)], -2)
 
 
-def fused_cost_sums(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: str, scale: float):
-    """Robustified cost and weight sums over observations -> tensor [2]."""
-    if not on_cuda(obs_cam):
-        return fused_cost_sums_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
-    O = _check_obs_inputs(obs_cam, pts_t, static_t, cams, intr, z_floor)
+def damp(H: torch.Tensor, lam) -> torch.Tensor:
+    """Multiplicative LM damping of diagonal blocks H [..., n, n], with an
+    absolute floor so padded or unconstrained blocks stay invertible:
+    H + (lam diag(H) + 1e-6) I."""
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    return H + (lam * H.diagonal(dim1=-2, dim2=-1)[..., :, None] + 1e-6) * eye
+
+
+def sym_solve3(A: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """Closed-form inverse of batched SPD 3x3 blocks (adjugate / det),
+    Jacobi-equilibrated so the det cannot overflow fp32 for huge blocks:
+    A^-1 = D (D A D)^-1 D with D = diag(A)^-1/2."""
+    dg = torch.sqrt(A.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
+    Dinv = 1.0 / dg
+    A = A * Dinv[..., :, None] * Dinv[..., None, :]
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    co11 = a * f - c * c
+    co12 = b * c - a * e
+    co22 = a * d - b * b
+    det = a * co00 + b * co01 + c * co02
+    inv_det = 1.0 / torch.where(det.abs() < eps, torch.full_like(det, eps), det)
+    inv = torch.stack([
+        torch.stack([co00, co01, co02], -1),
+        torch.stack([co01, co11, co12], -1),
+        torch.stack([co02, co12, co22], -1),
+    ], -2) * inv_det[..., None, None]
+    return inv * Dinv[..., :, None] * Dinv[..., None, :]
+
+
+def _check_tables(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor):
+    O, P, C = obs_cam.shape[0], points.shape[0], cams.shape[0]
     dev = obs_cam.device
-    nblocks = max(1, -(-O // _COST_THREADS))
-    partials = torch.empty((nblocks, 2), dtype=torch.float32, device=dev)
-    out = torch.empty((2,), dtype=torch.float32, device=dev)
+    check(obs_cam, "obs_cam", torch.int32, (O,), dev)
+    check(obs_point, "obs_point", torch.int32, (O,), dev)
+    check(points, "points", torch.float32, (P, 3), dev)
+    check(static_t, "static_t", torch.float32, (_STATIC_ROWS, O), dev)
+    check(cams, "cams", torch.float32, (C, 6), dev)
+    check(intr, "intr", torch.float32, (C, 6), dev)
+    check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
+    if z_floor is not None:
+        check(z_floor, "z_floor", torch.float32, (), dev)
+
+
+def fused_ne_payloads_plain(obs_cam, obs_point, points, static_t, cams, intr, point_bounds,
+                            cam_perm, cam_bounds, cam_inv_perm, lam, z_floor, loss: str,
+                            scale: float):
+    """Plain K3, in the inputs' dtype: the per-observation payloads, the
+    camera rows in camera order (packed[i] is the row of observation
+    cam_perm[i]), their sums per camera and per point (in index order), the
+    damping and the 3x3 inversion -> (Hcc [C, 6, 6], Hpp_inv [P, 3, 3],
+    W_t [18, O], bc [C, 6], bp [P, 3], packed [M, 42]). W_t is zero past the
+    point segments."""
+    O, C, N = obs_cam.shape[0], cams.shape[0], int(point_bounds[-1])
+    w_t, yp_t, cam_t = _ne_payloads_obs_plain(
+        obs_cam[:N], points[obs_point[:N].long()].T, static_t[:, :N], cams, intr, z_floor, loss,
+        scale)
+    w_t = torch.cat([w_t, w_t.new_zeros((NE_W_ROWS, O - N))], 1)
+    cam_t = torch.cat([cam_t, cam_t.new_zeros((NE_CAM_ROWS, O - N))], 1)
+    packed = cam_t[:, cam_perm.long()].T.contiguous()
+    camred = cam_segment_sum_plain(packed.T, None, cam_bounds)                   # [C, 42]
+    red = cam_segment_sum_plain(yp_t, None, point_bounds)                        # [P, 9]
+    Hcc = damp(camred[:, :36].reshape(C, 6, 6), lam)
+    Hpp_inv = sym_solve3(damp(sym3(red[:, :6]), lam))
+    return Hcc, Hpp_inv, w_t, camred[:, 36:42], red[:, 6:9], packed
+
+
+def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, cam_perm,
+                      cam_bounds, cam_inv_perm, lam, z_floor, loss: str, scale: float, plan=None):
+    """The damped normal equations at (cams [C, 6], points [P, 3]) in two
+    launches: one pass over the point segments (observations sorted by
+    point, obs_point [O]; point_bounds [P+1] covers [0, N)) forms each observation's
+    W = Jc^T Jp and its camera row vec(Jc^T Jc), -Jc^T r, stored at its
+    place cam_inv_perm[o] among the M weighted observations in camera order
+    (cam_perm and cam_bounds [C+1], SolveInvariants' tables), and each
+    point's damped, inverted block and -Jp^T r; then the camera rows are
+    summed per camera and Hcc's diagonal damped. IRLS-weighted, near-plane
+    gated (z_floor 0-d or None), the freeze masks of static_t applied; lam is
+    a 0-d tensor. Returns (Hcc [C, 6, 6], Hpp_inv [P, 3, 3], W_t [18, O]
+    (zero past N), bc [C, 6], bp [P, 3], packed [M, 42]). plan
+    (pcg_launch_plan: the blocks' point slices) is made here when missing.
+    Deterministic."""
+    if not on_cuda(obs_cam):
+        return fused_ne_payloads_plain(obs_cam, obs_point, points, static_t, cams, intr,
+                                       point_bounds, cam_perm, cam_bounds, cam_inv_perm, lam,
+                                       z_floor, loss, scale)
+    O, P, C = obs_cam.shape[0], points.shape[0], cams.shape[0]
+    M, N = cam_perm.shape[0], cam_inv_perm.shape[0]
+    dev = obs_cam.device
+    _check_tables(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor)
+    check(cam_perm, "cam_perm", torch.int32, (M,), dev)
+    check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
+    check(cam_inv_perm, "cam_inv_perm", torch.int32, (N,), dev)
+    check(lam, "lam", torch.float32, (), dev)
+    if not M <= N <= O:
+        raise ValueError(f"cam_perm lists {M} of {N} observations, obs_cam holds {O}")
+    if plan is None:
+        plan = pcg_launch_plan(point_bounds)
+    check(plan.block_points, "plan.block_points", torch.int32, (plan.grid + 1,), dev)
+    w_t = torch.empty((NE_W_ROWS, O), dtype=torch.float32, device=dev)
+    packed = torch.empty((M, NE_CAM_ROWS), dtype=torch.float32, device=dev)
+    hinv = torch.empty((P, 3, 3), dtype=torch.float32, device=dev)
+    bp = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    hcc = torch.empty((C, 6, 6), dtype=torch.float32, device=dev)
+    bc = torch.empty((C, 6), dtype=torch.float32, device=dev)
+    launch("sfm_fused_ne_payloads", "fused_ne_payloads",
+           ptr(obs_cam), ptr(obs_point), ptr(points), ptr(static_t), ptr(cams), ptr(intr),
+           ptr(z_floor), ptr(lam), ptr(point_bounds), ptr(cam_inv_perm), ptr(cam_bounds),
+           ptr(plan.block_points), O, P, C, LOSS_CODES[loss], float(scale), plan.grid,
+           segment_warps(M, C),
+           ptr(w_t), ptr(packed), ptr(hinv), ptr(bp), ptr(hcc), ptr(bc))
+    return hcc, hinv, w_t, bc, bp, packed
+
+
+class LMStep(NamedTuple):
+    """An LM step for fused_cost_sums: the camera step and the normal
+    equations that give the point step dp = Hpp^-1 (bp - W^T dc)."""
+
+    dc: torch.Tensor            # [C, 6]
+    W_t: torch.Tensor           # [18, O]
+    Hpp_inv: torch.Tensor       # [P, 3, 3]
+    bp: torch.Tensor            # [P, 3]
+    cam_fixed: torch.Tensor     # [C] bool
+    point_fixed: torch.Tensor   # [P] bool
+
+
+def fused_cost_sums_plain(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor,
+                          loss: str, scale: float, step: LMStep | None = None):
+    """Plain K5, in the inputs' dtype: dc masked by cam_fixed, the
+    back-substitution, dp masked by point_fixed, the candidate parameters,
+    then the robust cost sums over the point segments -> (new_cams,
+    new_points, tensor [3]: sum robust_cost(|r|^2) * w, sum w, their mean)."""
+    N = int(point_bounds[-1])
+    obs_point = obs_point[:N].long()
+    if step is not None:
+        zero = torch.zeros((), dtype=cams.dtype, device=cams.device)
+        dc = torch.where(step.cam_fixed[:, None], zero, step.dc)
+        u_t = torch.einsum("iko,io->ko", step.W_t[:, :N].reshape(6, 3, N), dc[obs_cam[:N].long()].T)
+        g = step.bp - cam_segment_sum_plain(u_t, None, point_bounds)
+        dp = torch.where(step.point_fixed[:, None], zero,
+                         torch.einsum("pij,pj->pi", step.Hpp_inv, g))
+        cams, points = cams + dc, points + dp
+    sums = _cost_sums_obs_plain(obs_cam[:N], points[obs_point].T, static_t[:, :N], cams, intr,
+                                z_floor, loss, scale)
+    return cams, points, torch.cat([sums, (sums[0] / sums[1].clamp_min(1.0))[None]])
+
+
+# K5's last-block counter, one per card: zero between launches (the last
+# block resets it), so it is made once instead of filled before every launch.
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def fused_cost_sums(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor,
+                    loss: str, scale: float, step: LMStep | None = None, plan=None):
+    """The robust cost at (cams [C, 6], points [P, 3]) or, given an LM
+    `step`, at its candidate (cams + dc, points + dp) with dp = Hpp^-1
+    (bp - W^T dc) and the steps of frozen cameras and points zero, in one
+    launch over the point segments (observations sorted by point, obs_point
+    [O]; point_bounds [P+1] covers [0, N)). Returns (new_cams [C, 6], new_points
+    [P, 3], sums [3]: sum robust_cost(|r|^2) * w, sum w, their mean); without
+    a step new_cams and new_points are cams and points. The last block to
+    finish adds the blocks' sums in block order: deterministic. plan as for
+    fused_ne_payloads."""
+    if not on_cuda(obs_cam):
+        return fused_cost_sums_plain(obs_cam, obs_point, points, static_t, cams, intr,
+                                     point_bounds, z_floor, loss, scale, step)
+    O, P, C = obs_cam.shape[0], points.shape[0], cams.shape[0]
+    dev = obs_cam.device
+    _check_tables(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor)
+    new_cams, new_points = cams, points
+    if step is not None:
+        check(step.dc, "dc", torch.float32, (C, 6), dev)
+        check(step.W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+        check(step.Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
+        check(step.bp, "bp", torch.float32, (P, 3), dev)
+        check(step.cam_fixed, "cam_fixed", torch.bool, (C,), dev)
+        check(step.point_fixed, "point_fixed", torch.bool, (P,), dev)
+        new_cams = torch.empty((C, 6), dtype=torch.float32, device=dev)
+        new_points = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    if plan is None:
+        plan = pcg_launch_plan(point_bounds)
+    check(plan.block_points, "plan.block_points", torch.int32, (plan.grid + 1,), dev)
+    partials = torch.empty((2, plan.grid), dtype=torch.float32, device=dev)
+    out = torch.empty((3,), dtype=torch.float32, device=dev)
+    if dev not in _TICKETS:
+        _TICKETS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    s = step if step is not None else LMStep(None, None, None, None, None, None)
     launch("sfm_fused_cost_sums", "fused_cost_sums",
-           ptr(obs_cam), ptr(pts_t), ptr(static_t), ptr(cams), ptr(intr), ptr(z_floor),
-           O, LOSS_CODES[loss], float(scale), ptr(partials), nblocks, ptr(out))
-    return out
+           ptr(obs_cam), ptr(obs_point), ptr(points), ptr(static_t), ptr(cams), ptr(intr),
+           ptr(z_floor), ptr(point_bounds), ptr(plan.block_points), ptr(s.dc), ptr(s.cam_fixed),
+           ptr(s.point_fixed), ptr(s.W_t), ptr(s.Hpp_inv), ptr(s.bp),
+           O, P, C, LOSS_CODES[loss], float(scale), plan.grid,
+           ptr(new_points) if step is not None else None,
+           ptr(new_cams) if step is not None else None,
+           ptr(partials), ptr(_TICKETS[dev]), ptr(out))
+    return new_cams, new_points, out
 
 
 def _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor):
@@ -181,7 +352,7 @@ def _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor):
 
 
 def _as_table(cams_t, intr_t):
-    """Pre-gathered rows as K3/K5's inputs: every observation its own camera."""
+    """Pre-gathered rows as per-camera tables: every observation its own camera."""
     O = cams_t.shape[1]
     obs_cam = torch.arange(O, dtype=torch.int32, device=cams_t.device)
     return obs_cam, cams_t.T.contiguous(), intr_t.T.contiguous()
@@ -190,12 +361,16 @@ def _as_table(cams_t, intr_t):
 def fused_ne_payloads_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
     """Plain K4: (w_t [18, O], yp_t [9, O], cam_t [42, O])."""
     obs_cam, cams, intr = _as_table(cams_t, intr_t)
-    return fused_ne_payloads_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
+    return _ne_payloads_obs_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
 
 
 def fused_ne_payloads_big(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
-    """fused_ne_payloads on camera rows cams_t [6, O] and intrinsic rows
-    intr_t [6, O] gathered per observation: the same three payloads."""
+    """Per-observation normal-equation payloads (each observation's point
+    pts_t [3, O], camera rows cams_t [6, O] and intrinsic rows intr_t
+    [6, O] gathered per observation), feature-major: W = Jc^T Jp [18, O],
+    point payload sym(Jp^T Jp), -Jp^T r [9, O], camera payload
+    vec(Jc^T Jc), -Jc^T r [42, O] (IRLS-weighted, near-plane gated, freeze
+    masks applied), for the caller's K9 reductions."""
     if not on_cuda(pts_t):
         return fused_ne_payloads_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss, scale)
     O = _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor)
@@ -212,11 +387,15 @@ def fused_ne_payloads_big(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, s
 def fused_cost_sums_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
     """Plain K6: tensor [2] = (sum robust_cost(|r|^2) * w, sum w)."""
     obs_cam, cams, intr = _as_table(cams_t, intr_t)
-    return fused_cost_sums_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
+    return _cost_sums_obs_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
+
+
+_COST_THREADS = 256
 
 
 def fused_cost_sums_big(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
-    """fused_cost_sums on rows gathered per observation -> tensor [2]."""
+    """Robustified cost and weight sums over observations on rows gathered
+    per observation (as for fused_ne_payloads_big) -> tensor [2]."""
     if not on_cuda(pts_t):
         return fused_cost_sums_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss, scale)
     O = _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor)
@@ -494,9 +673,10 @@ PCG_STAGED_ROWS = 20           # W's 18 rows, the camera and the camera-sorted p
 
 
 class PcgPlan(NamedTuple):
-    """How pcg_solve cuts its work: block b owns the points
-    [block_points[b], block_points[b+1]) and their observations, a group of
-    `lanes` lanes walks one point's observations; resident mode stages each
+    """How pcg_solve cuts its work (K3 and K5 take its block slices too):
+    block b owns the points [block_points[b], block_points[b+1]) and their
+    observations, a group of `lanes` lanes walks one point's observations
+    in pcg_solve; resident mode stages each
     block's slice in smem_bytes of shared memory (20 rows of `stride` 4-byte
     words), streaming mode reads W from device memory every step
     (stride = smem_bytes = 0)."""

@@ -22,6 +22,10 @@ from sfm_tpu_torch.ops.verify import verify_block
 from sfm_tpu_torch.pipeline.ingest import ImageBatch
 
 _FEATURE_CHUNK = 8  # images per device batch in the feature stage
+# The match stage keeps the descriptors and keypoints of every image on the
+# device below this size (sfm_tpu's _DEVICE_FEATURE_CACHE_BYTES): 6 GiB holds
+# about 3,000 images of 4,096 keypoints in fp32.
+_DEVICE_FEATURE_CACHE_BYTES = 6 << 30
 
 
 @dataclass
@@ -103,19 +107,32 @@ def match_and_verify_stage(feats: FeatureSet, pairs: np.ndarray, intrinsics: np.
     # axis down to the occupancy (power of 2, floor 512); indices are
     # prefix-stable.
     N_eff = _bucket_keypoints(int(feats.valid.sum(axis=1).max()), feats.valid.shape[1])
-    desc_all = torch.from_numpy(feats.desc[:, :N_eff]).to(device)
-    valid_all = torch.from_numpy(feats.valid[:, :N_eff]).to(device)
-    xy_all = torch.from_numpy(feats.xy[:, :N_eff]).to(device)
-    intr_all = torch.from_numpy(intrinsics.astype(np.float32)).to(device)
+    desc, valid, xy = feats.desc[:, :N_eff], feats.valid[:, :N_eff], feats.xy[:, :N_eff]
+    intr = intrinsics.astype(np.float32)
+    # Each image takes part in O(N) pairs: below _DEVICE_FEATURE_CACHE_BYTES
+    # its features go to the device once and each pair block gathers them
+    # there; above it each pair block is sliced on the host and moved.
+    on_device = desc.nbytes + xy.nbytes <= _DEVICE_FEATURE_CACHE_BYTES
+    if on_device:
+        desc_all, valid_all, xy_all, intr_all = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (desc, valid, xy, intr))
 
     for s in range(0, E, P):
         e = min(s + P, E)
-        bi = torch.from_numpy(pairs[s:e, 0].astype(np.int64)).to(device)
-        bj = torch.from_numpy(pairs[s:e, 1].astype(np.int64)).to(device)
-        pm = match_block(desc_all[bi], valid_all[bi], desc_all[bj], valid_all[bj], cfg.match)
-        uv_i = torch.gather(xy_all[bi], 1, pm.idx_i.long()[..., None].expand(-1, -1, 2))
-        uv_j = torch.gather(xy_all[bj], 1, pm.idx_j.long()[..., None].expand(-1, -1, 2))
-        geom = verify_block(s, uv_i, uv_j, pm.valid, intr_all[bi], intr_all[bj], cfg.ransac, seed)
+        if on_device:
+            bi = torch.from_numpy(pairs[s:e, 0].astype(np.int64)).to(device)
+            bj = torch.from_numpy(pairs[s:e, 1].astype(np.int64)).to(device)
+            di, vi, dj, vj = desc_all[bi], valid_all[bi], desc_all[bj], valid_all[bj]
+            xy_i, xy_j, intr_i, intr_j = xy_all[bi], xy_all[bj], intr_all[bi], intr_all[bj]
+        else:
+            bi, bj = pairs[s:e, 0], pairs[s:e, 1]
+            di, vi, dj, vj, xy_i, xy_j, intr_i, intr_j = (
+                torch.from_numpy(a).to(device)
+                for a in (desc[bi], valid[bi], desc[bj], valid[bj], xy[bi], xy[bj], intr[bi], intr[bj]))
+        pm = match_block(di, vi, dj, vj, cfg.match)
+        uv_i = torch.gather(xy_i, 1, pm.idx_i.long()[..., None].expand(-1, -1, 2))
+        uv_j = torch.gather(xy_j, 1, pm.idx_j.long()[..., None].expand(-1, -1, 2))
+        geom = verify_block(s, uv_i, uv_j, pm.valid, intr_i, intr_j, cfg.ransac, seed)
 
         out_idx_i[s:e] = pm.idx_i.cpu().numpy()
         out_idx_j[s:e] = pm.idx_j.cpu().numpy()

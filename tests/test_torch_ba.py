@@ -3,9 +3,10 @@ PCG solver and the LM solve against sfm_tpu.ba.
 
 Tolerances:
 - normal-equation blocks vs sfm_tpu build_normal_equations (its plain path)
-  and vs the fused_ne_payloads Pallas kernel in interpret mode: 1e-4 of
-  each block's max |value| (closed-form vs jacfwd Jacobians and another
-  summation order, fp32);
+  and vs the fused_ne_payloads Pallas kernel in interpret mode (its
+  payloads summed per point in float64, damped and inverted; its camera
+  sums damped): 1e-4 of each block's max |value| (closed-form vs jacfwd
+  Jacobians and another summation order, fp32);
 - robust cost vs compute_cost: rtol 1e-5 (summation order);
 - K9 plain version vs jax.ops.segment_sum: rtol 1e-6 (on the CPU both add
   each segment's rows in the same, original order);
@@ -38,7 +39,8 @@ from sfm_tpu.utils.synthetic import make_orbit_scene
 from sfm_tpu_torch.ba import core
 from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.kernels.ba_kernels import (
-    cam_segment_sum, fused_ne_payloads, schur_coupling_matvec, segment_bounds, whw_cam_reduce,
+    cam_segment_sum, damp, fused_ne_payloads, schur_coupling_matvec, segment_bounds, sym3,
+    sym_solve3, whw_cam_reduce,
 )
 from sfm_tpu_torch.utils.interop import from_numpy_problem, to_numpy
 
@@ -108,11 +110,21 @@ def test_ne_payloads_match_pallas_kernel(ne_problem, z_floor):
         jnp.concatenate([jprob.cam_params, pad], 1), jnp.concatenate([jprob.intrinsics, pad], 1),
         C, "huber", 4.0, z_floor=zf, interpret=True)
     inv = core.solve_invariants(prob, None if z_floor is None else torch.tensor(z_floor))
-    w_t, yp_t, cam_t = fused_ne_payloads(prob.obs_cam, core._pts_t(prob, prob.points), inv.static_t,
-                                         prob.cam_params, prob.intrinsics, inv.z_floor, "huber", 4.0)
+    lam = torch.tensor(1e-3)
+    Hcc, Hpp_inv, w_t, bc, bp, packed = fused_ne_payloads(
+        prob.obs_cam, prob.obs_point, prob.points, inv.static_t, prob.cam_params, prob.intrinsics, inv.point_bounds,
+        inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm, lam, inv.z_floor, "huber", 4.0)
     close(w_t, np.asarray(W_j)[:18], "W_t")
-    close(yp_t, np.asarray(Yp_j)[:9], "Yp_t")
-    close(cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds), np.asarray(camred_j)[:, :42], "camred")
+    # The Pallas kernel's per-observation point payload, summed per point in
+    # float64, damped and inverted: K3's point blocks.
+    yp = torch.from_numpy(np.asarray(Yp_j)[:9].astype(np.float64))
+    red = cam_segment_sum(yp, None, segment_bounds(prob.obs_point, prob.num_points))
+    close(Hpp_inv, sym_solve3(damp(sym3(red[:, :6]), lam.double())), "Hpp_inv")
+    close(bp, red[:, 6:9], "bp")
+    camred = torch.from_numpy(np.asarray(camred_j)[:, :42].astype(np.float64))
+    close(Hcc, damp(camred[:, :36].reshape(C, 6, 6), lam.double()), "Hcc")
+    close(bc, camred[:, 36:42], "bc")
+    close(cam_segment_sum(packed.T.contiguous(), None, inv.cam_bounds), camred, "packed rows by camera")
 
 
 @pytest.mark.parametrize("z_floor", [None, 4.0])

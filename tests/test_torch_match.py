@@ -93,3 +93,48 @@ def test_match_block_padding_contract():
     assert pm.idx_i.shape == (3, 1024) and pm.idx_i.dtype == torch.int32
     assert pm.valid[:, 512:].sum() == 0 and pm.valid.sum(1).min() >= 90
     assert torch.equal(pm.idx_i[0], pm.idx_i[2])
+
+
+def _orbit_features(num_images=4, num_points=300, slots=512, seed=11):
+    """FeatureSet of an orbit scene: each image's keypoints are its visible
+    points in a shuffled order, each with its point's descriptor plus noise,
+    then invalid padding slots."""
+    from sfm_tpu_torch.pipeline.stages import FeatureSet
+    from sfm_tpu_torch.utils.synthetic import make_orbit_scene
+
+    scene = make_orbit_scene(num_cameras=num_images, num_points=num_points, noise_px=0.3,
+                             seed=seed, arc_fraction=0.15)
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(num_points, 128)).astype(np.float32)
+    xy = np.zeros((num_images, slots, 2), np.float32)
+    desc = np.zeros((num_images, slots, 128), np.float32)
+    valid = np.zeros((num_images, slots), bool)
+    for i in range(num_images):
+        vis = rng.permutation(np.nonzero(scene.visible[i])[0])
+        d = base[vis] + 0.05 * rng.normal(size=(len(vis), 128)).astype(np.float32)
+        desc[i, :len(vis)] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        xy[i, :len(vis)] = scene.pixels[i, vis]
+        valid[i, :len(vis)] = True
+    zeros = np.zeros((num_images, slots), np.float32)
+    return FeatureSet(xy=xy, sigma=zeros, angle=zeros, response=zeros, desc=desc, valid=valid), \
+        scene.intrinsics
+
+
+def test_match_stage_host_slicing_equals_resident(monkeypatch):
+    """Above _DEVICE_FEATURE_CACHE_BYTES the match stage slices each pair
+    block on the host (sfm_tpu's fallback): the same MatchGraph, field for
+    field, as with the features resident on the device."""
+    from sfm_tpu_torch.config import PipelineConfig, RansacConfig
+    from sfm_tpu_torch.pipeline import stages
+
+    feats, intr = _orbit_features()
+    cfg = PipelineConfig(match=MatchConfig(max_matches=256, block_pairs=4),
+                         ransac=RansacConfig(num_hypotheses=128, min_inliers=10))
+    pairs = stages.exhaustive_pairs(feats.desc.shape[0])
+    cpu = torch.device("cpu")
+    resident = stages.match_and_verify_stage(feats, pairs, intr, cfg, cpu)
+    monkeypatch.setattr(stages, "_DEVICE_FEATURE_CACHE_BYTES", 0)
+    sliced = stages.match_and_verify_stage(feats, pairs, intr, cfg, cpu)
+    assert int(resident.ok.sum()) >= 3 and int(resident.num_inliers.max()) >= 50
+    for name in resident.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(sliced, name), getattr(resident, name), err_msg=name)

@@ -10,8 +10,18 @@
         (cold, then warm): stage and engine-phase seconds; then the last
         run's final global BA once more under torch.profiler: device busy
         time, idle share, device launches per LM iteration, kernel time by
-        name, seconds per PCG solve; and that BA's seconds per LM iteration
-        with the dense and with the PCG reduced solve;
+        name, seconds per PCG solve; the normal-equation build's and the LM
+        candidate's device launches and device time per call (as in lm);
+        and that BA's seconds per LM iteration with the dense and with the
+        PCG reduced solve; --save-problem PATH writes that BA's problem and
+        config (.npz) for lm;
+    python3 tools/torch_perf.py lm PATH [--root DIR]
+        on a problem saved by slice: the normal-equation build and the LM
+        candidate with its cost, one LM iteration's inputs, under
+        torch.profiler (device launches, device ms per call) and CUDA
+        events, and one bundle_adjust's device launches per LM iteration;
+        --root DIR takes sfm_tpu_torch from another tree (an unpacked parent
+        commit), so that parent and change are measured on one problem;
     python3 tools/torch_perf.py crossover
         dense Cholesky vs PCG reduced solve on the same problems, seconds
         per LM iteration across padded (C, O);
@@ -83,20 +93,7 @@ def scene_cmd(device, specs):
         print(f"[scene] {card()} {json.dumps(out)}", flush=True)
 
 
-def _device_time_ms(prof) -> tuple[float, list]:
-    """Sum of the device's own rows (kernels, memcpy, memset), and the top
-    ones. The rows of the host ops that launched them carry the same time
-    once more and are left out."""
-    import torch
-
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in rows) / 1e3
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
-    return total, [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]
-
-
-def slice_cmd(device, runs: int):
+def slice_cmd(device, runs: int, save_problem: str | None):
     from sfm_tpu_torch import reconstruct
     from sfm_tpu_torch.ba.core import uses_dense_solver
 
@@ -117,11 +114,54 @@ def slice_cmd(device, runs: int):
 
     # The final global BA of the last run, as the engine handed it over, traced.
     prob, cfg = ba_log[-1]["problem"], ba_log[-1]["cfg"]
+    if save_problem:
+        _save_problem(save_problem, prob, cfg)
     solver = "dense" if uses_dense_solver(prob, cfg) else "pcg"
     _profile_solve(prob, cfg, f"global BA {solver}")
+    _lm_steps(prob, cfg, device, "final global BA")
     row = {s: per_iteration(prob, s) for s in ("dense", "pcg")}
     print(f"[crossover] {card()} final global BA C={prob.num_cameras} O={prob.obs_w.shape[0]} "
           f"gate={solver} " + json.dumps(row), flush=True)
+
+
+def _save_problem(path: str, prob, cfg):
+    """A BA problem and its BAConfig as .npz (utils/interop field names)."""
+    import dataclasses
+
+    import numpy as np
+
+    from sfm_tpu_torch.utils.interop import to_numpy
+
+    arrays = {k: v for k, v in to_numpy(prob).items() if v is not None}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, cfg_json=json.dumps(dataclasses.asdict(cfg)), **arrays)
+
+
+def _load_problem(path: str, device):
+    import numpy as np
+
+    from sfm_tpu_torch.config import BAConfig
+    from sfm_tpu_torch.utils.interop import from_numpy_problem
+
+    data = dict(np.load(path))
+    cfg = BAConfig(**json.loads(str(data.pop("cfg_json"))))
+    return from_numpy_problem(data, device), cfg
+
+
+def _lm_steps(prob, cfg, device, what: str):
+    """chip_smoke.lm_report on this problem, printed on one line with the
+    card and the package it ran (lm --root: an older tree)."""
+    from sfm_tpu_torch.ba import core
+
+    rows = cs.lm_report(prob, cfg, device)
+    print(f"[lm] {card()} {what} C={prob.num_cameras} O={prob.obs_w.shape[0]} package "
+          f"{os.path.dirname(os.path.dirname(os.path.abspath(core.__file__)))}: " + json.dumps(rows),
+          flush=True)
+
+
+def lm_cmd(device, path: str):
+    prob, cfg = _load_problem(path, device)
+    _lm_steps(prob, cfg, device, os.path.basename(path))
 
 
 def _profile_solve(prob, cfg, what: str):
@@ -141,11 +181,11 @@ def _profile_solve(prob, cfg, what: str):
         _, stats = bundle_adjust(prob, cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top = _device_time_ms(prof)
+    busy_ms, top = cs.device_time_ms(prof)
     print(f"[profile] {card()} {what} C={prob.num_cameras} O={prob.obs_w.shape[0]} "
           f"{stats.iterations} LM iterations: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}, device launches per LM iteration "
-          f"{_device_launches(prof) / max(stats.iterations, 1):.1f}", flush=True)
+          f"{cs.device_launches(prof) / max(stats.iterations, 1):.1f}", flush=True)
     for name, count, ms in top:
         print(f"[profile]   {ms:9.3f} ms  {count:6d}x  {name}", flush=True)
     inner, solves = core._pcg, []
@@ -166,14 +206,6 @@ def _profile_solve(prob, cfg, what: str):
     if solves:
         print(f"[profile] {card()} {what}: {len(solves)} PCG solves, seconds per solve median "
               f"{statistics.median(solves):.6f} min {min(solves):.6f} max {max(solves):.6f}", flush=True)
-
-
-def _device_launches(prof) -> int:
-    """Kernels, copies and fills the device ran in the profiled window."""
-    import torch
-
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
 
 
 def pcg_cmd(device, cameras: int, points: int, blocks: int | None):
@@ -363,7 +395,7 @@ def _profile_calls(what: str, fn, calls: int = 10):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top = _device_time_ms(prof)
+    busy_ms, top = cs.device_time_ms(prof)
     print(f"[profile] {card()} {what}, {calls} calls: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms", flush=True)
     for name, count, ms in top[:6]:
@@ -462,6 +494,10 @@ def main() -> int:
     p.add_argument("specs", nargs="+")
     p = sub.add_parser("slice")
     p.add_argument("--runs", type=int, default=2)
+    p.add_argument("--save-problem", metavar="PATH")
+    p = sub.add_parser("lm")
+    p.add_argument("problem", metavar="PATH")
+    p.add_argument("--root", metavar="DIR", help="import sfm_tpu_torch from this tree")
     sub.add_parser("crossover")
     p = sub.add_parser("polish")
     p.add_argument("--iterations", type=int, default=5)
@@ -479,6 +515,8 @@ def main() -> int:
     p.add_argument("--pairs", type=int, default=32)
     p.add_argument("--keypoints", type=int, default=4096)
     args = parser.parse_args()
+    if getattr(args, "root", None):
+        sys.path.insert(0, os.path.abspath(args.root))
     if not torch.cuda.is_available():
         print("torch_perf: no CUDA device available", file=sys.stderr)
         return 1
@@ -486,7 +524,9 @@ def main() -> int:
     if args.cmd == "scene":
         scene_cmd(device, args.specs)
     elif args.cmd == "slice":
-        slice_cmd(device, args.runs)
+        slice_cmd(device, args.runs, args.save_problem)
+    elif args.cmd == "lm":
+        lm_cmd(device, args.problem)
     elif args.cmd == "kernels":
         kernels_cmd(device, args.pairs, args.keypoints)
     elif args.cmd == "pcg":
