@@ -25,7 +25,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      PCG branch, and the seven kernels of that path launched by that run
      (pcg_solve, the whole PCG solve in one launch, in place of the
      coupling-only K11, which must not launch: its device code runs inside
-     pcg_solve); then K3, K5, K9, K7 and K11 on that final BA's problem, K3
+     pcg_solve; K7 as the Schur-Jacobi blocks that K3 builds for a PCG
+     solve); then K3, K5, K9, K7 (the standalone entry and the blocks out of
+     K3) and K11 on that final BA's problem, K3
      and K5 on the run's last dense local BA, and K7 and K11 once more on an
      orbit problem with long tracks; K3 and K5 on the final BA beside the
      chains of launches they replace (device launches, device and event
@@ -46,11 +48,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   8. merged-model polish at full width: a synthetic merged model of 10,240
      cameras and about 1.5 M observations (tracks of 40-150 views, 0.5 px
      noise, 1% gross outliers, perturbed poses and points) through the
-     pipeline's own _merged_polish with the default config: K4, K6, K8, K10
-     and K9 launched and K3, K5, K7, K11, pcg_solve not; every solve's cost falls; < 1 px
+     pipeline's own _merged_polish with the default config: K4, K6, K8,
+     pcg_solve_big (every CG solve in one launch, K10's coupling code
+     inside) and K9 launched, and nothing else (not the coupling-only K10
+     entry, not the small-C kernels); every solve's cost falls; < 1 px
      afterwards; the camera RMSE falls and ends under 1% of the radius; the
      gross outliers dropped; then K4, K6, K8 and K10 on the first solve's
-     problem, each timed beside its small-camera-count twin.
+     problem, each timed beside its small-camera-count twin, pcg_solve_big
+     on the same problem as check_pcg holds pcg_solve (x after PCG_X_STEPS
+     steps) beside the loop over K10 and K9 it replaced, and the polish's
+     LM iteration (device launches and device time per LM iteration: the
+     "[lm] merged polish" line).
 Each kernel check holds the kernel against its plain version with the
 tolerance stated and takes the median time of the kernel, the plain version
 and (where one PyTorch call computes the same function) that call (CUDA
@@ -60,13 +68,16 @@ held and timed on each BA problem's own segment tables on both sides: the
 camera side (a permutation) for K = 6, 36 and 42 rows, the point side
 (sorted) for K = 3 and 9, bit-identical on a rerun. pcg_solve is held
 against its plain version in float64 and timed beside `loop_ms`, the same
-solve as Python steps over the coupling-only K11. The record (twelve rows)
-reports K1-K3, K5, K7, K9, K11 and pcg_solve at the incremental slice's
-shapes, K4, K6, K8 and K10 at the merged polish's, every kernel's launches
-on each path (`launches` is the largest of them; K11's row counts as
-launched where pcg_solve is), for K3 and K5 their profiled device time
-(`device_ms`), and for K2, K9 and pcg_solve a row per timed shape under
-`shapes`.
+solve as Python steps over the coupling-only K11 (K10 then K9 for
+pcg_solve_big). Every row also carries its device time per call
+(`device_ms`, torch.profiler). The record (thirteen rows) reports K1-K3,
+K5, K7, K9, K11 and pcg_solve at the incremental slice's shapes, K4, K6,
+K8, K10 and pcg_solve_big at the merged polish's, every kernel's launches
+on each path (`launches` is the largest of them; K11's row counts the
+launches of pcg_solve and K10's those of pcg_solve_big, which run their
+code; K7's counts K3's launches that build the Schur-Jacobi blocks), K7's
+K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
+K2, K9 and pcg_solve a row per timed shape under `shapes`.
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -98,15 +109,27 @@ KERNELS = {
     # The whole PCG solve over K11's device code: the fori_loop of _pcg.
     "pcg_solve": ("sfm_tpu_torch/csrc/schur_kernels.cu",
                   "sfm_tpu/kernels/schur_spmv.py:975 + sfm_tpu/ba/core.py:858"),
+    # The same kernel past 4096 cameras (streaming mode) over K10's device code.
+    "pcg_solve_big": ("sfm_tpu_torch/csrc/schur_kernels.cu",
+                      "sfm_tpu/kernels/schur_spmv.py:935 + sfm_tpu/ba/core.py:858"),
 }
 # The large-camera-count BA set (more than 4096 cameras) and the set that
 # serves the engines' problems; K9 cam_segment_sum reduces for both.
 BIG_KERNELS = ("fused_ne_payloads_big", "fused_cost_sums_big", "whw_payloads_big",
-               "schur_coupling_payloads_big")
+               "schur_coupling_payloads_big", "pcg_solve_big")
 SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS)
-# The engines' PCG solves launch pcg_solve, which runs K11's coupling code
-# inside; the coupling-only K11 entry launches on no path.
-ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k != "schur_coupling_matvec")
+# Kernels whose device code runs inside another launch on the main path, by
+# the count of that launch: K11's coupling inside pcg_solve, K10's inside
+# pcg_solve_big. Their coupling-only entries launch on no path. (K7's code
+# runs inside K3's launches for a PCG solve, and fused_ne_payloads counts
+# those launches for whw_cam_reduce itself.)
+INSIDE = {"schur_coupling_matvec": "pcg_solve", "schur_coupling_payloads_big": "pcg_solve_big"}
+# The engines' PCG solves launch pcg_solve and K3 with the Schur-Jacobi
+# blocks (counted for K7).
+ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k not in INSIDE)
+# The merged polish: the large-C set, the CG solve in one pcg_solve_big
+# launch, K9.
+POLISH_KERNELS = tuple(k for k in BIG_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
 TWO_VIEW_KERNELS = ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums",
                     "cam_segment_sum")
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
@@ -155,8 +178,13 @@ PCG_X_STEPS = 8
 # kernels/ba_kernels.NE_CAM_ROWS: rows of the camera payload K3/K4 hand to K9.
 NE_CAM_ROWS = 42
 # Per-shape rows of a kernel that is timed at several shapes (K2, K9).
-SHAPE_FIELDS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-PCG_FIELDS = ("loop_ms",)
+SHAPE_FIELDS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms")
+PCG_FIELDS = ("loop_ms", "loop_device_ms")
+# Shared memory of one H100 SXM: 132 SMs of 227 KB a block. What a CG step
+# reads beyond it comes from device memory again every step (check_pcg's
+# bound).
+SMEM_BYTES = 132 * 232448
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -184,6 +212,79 @@ def time_ms(fn, device, runs: int = 21) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# Traced sessions that recorded fewer device launches than another session
+# of the same calls, and all traced sessions (main prints them).
+TRACE_SESSIONS = {"short": 0, "all": 0}
+
+
+def traced(fn, calls: int = 1, sessions: int = 3, pad_s: float = 0.1):
+    """torch.profiler over `calls` calls of fn(), `sessions` times: each
+    session runs the calls twice, the first step (device tracing already
+    on) discarded, the kept one between pad_s of idle card on each side. A
+    trace can miss launches near its ends, up to half of a session's in a
+    process that has run many kernels (PERF.md section 7). So each device
+    row counts the most launches any session recorded, at its mean time per
+    launch over all sessions. Returns (rows (name, launches, ms) by ms, the
+    median wall ms of the kept calls, fn()'s last result)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    seen, walls, totals = {}, [], []
+    for _ in range(sessions):
+        steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=steps) as prof:
+            for step in range(2):
+                torch.cuda.synchronize()
+                time.sleep(pad_s * step)
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    out = fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                time.sleep(pad_s * step)
+                prof.step()
+        walls.append(wall)
+        rows = device_rows(prof)
+        totals.append(sum(e.count for e in rows))
+        for e in rows:
+            n, ms, most = seen.get(e.key, (0, 0.0, 0))
+            seen[e.key] = (n + e.count, ms + e.self_device_time_total / 1e3, max(most, e.count))
+    TRACE_SESSIONS["all"] += sessions
+    TRACE_SESSIONS["short"] += sum(t < max(totals) for t in totals)
+    rows = [(key[:60], most, most * ms / n) for key, (n, ms, most) in seen.items()]
+    return sorted(rows, key=lambda r: -r[2]), statistics.median(walls), out
+
+
+def device_rows(prof) -> list:
+    """The device's own rows of a torch.profiler trace (kernels, memcpy,
+    memset). The rows of the host ops that launched them carry the same
+    time once more, and the schedule's step annotation ("ProfilerStep*")
+    the span of its step: both are left out."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
+def per_call(rows, calls: int) -> tuple[float, float, list]:
+    """(device launches, device ms) per call of traced rows over `calls`
+    calls, and the rows as (name, launches per call, ms per call)."""
+    top = [(name, n / calls, ms / calls) for name, n, ms in rows]
+    return sum(r[1] for r in top), sum(r[2] for r in top), top
+
+
+def device_ms(fn, device, calls: int = 10) -> float | None:
+    """Device time per call of fn() after a warm-up (traced, per_call over
+    `calls` calls); None off the card or when no session recorded a device
+    row (not measured)."""
+    if device.type != "cuda":
+        return None
+    fn()
+    ms = per_call(traced(fn, calls)[0], calls)[1]
+    return ms if ms > 0 else None
 
 
 def max_rel(a, b) -> tuple[float, float]:
@@ -237,6 +338,7 @@ def check_dog(device, size: int):
                 ms=time_ms(lambda: k1.dog_extrema_scores(gauss, pre), device),
                 plain_ms=time_ms(lambda: k1.dog_extrema_scores_plain(gauss, pre), device),
                 library_ms=None, **bound(nbytes(gauss, out), ops, FP32_OPS_PER_S),
+                device_ms=device_ms(lambda: k1.dog_extrema_scores(gauss, pre), device),
                 note=f"exact, {n_ext} extrema")
 
 
@@ -289,7 +391,8 @@ def check_match_shape(device, shape):
     return dict(shape=what, max_abs_err=err, clear_rows=n_clear, rows=p * n1,
                 ms=time_ms(lambda: k2.match_topk2(da, db, vb), device),
                 plain_ms=time_ms(lambda: k2.match_topk2_plain(da, db, vb), device),
-                library_ms=None, **bound(moved, 2 * p * n1 * n2 * 128, BF16_TENSOR_OPS_PER_S))
+                library_ms=None, **bound(moved, 2 * p * n1 * n2 * 128, BF16_TENSOR_OPS_PER_S),
+                device_ms=device_ms(lambda: k2.match_topk2(da, db, vb), device))
 
 
 def check_match(device, n: int, batch: int = 32):
@@ -365,17 +468,30 @@ def record_match_shapes():
         match.match_topk2 = inner
 
 
+def pcg_build(core, prob, cfg) -> dict:
+    """bundle_adjust's flag for its normal-equation build on this problem:
+    the Schur-Jacobi blocks from K3 on the PCG branch. None for a package
+    from before the flag (tools/torch_perf.py runs these helpers on older
+    trees too)."""
+    import inspect
+
+    if "schur_jacobi" not in inspect.signature(core.build_normal_equations).parameters:
+        return {}
+    return dict(schur_jacobi=not core.uses_dense_solver(prob, cfg))
+
+
 def first_iteration_inputs(prob, cfg):
     """What the main path's bundle_adjust(prob, cfg) hands the kernels in its
     first LM iteration: (solve invariants with the near-plane floor, normal
-    equations at the initial damping)."""
+    equations at the initial damping, built as bundle_adjust builds them)."""
     import torch
 
     from sfm_tpu_torch.ba import core
 
     inv = core.solve_invariants(prob, core.near_plane_floor(prob))
     lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=prob.cam_params.device)
-    return inv, core.build_normal_equations(prob, prob.cam_params, prob.points, lam, cfg, inv)
+    return inv, core.build_normal_equations(prob, prob.cam_params, prob.points, lam, cfg, inv,
+                                            **pcg_build(core, prob, cfg))
 
 
 def raised_floor(prob):
@@ -528,6 +644,27 @@ def lm_dc(prob, cfg, inv, ne):
             else core._pcg(ne, prob, rhs, cfg, inv))
 
 
+def schur_matvec_step(ne, prob, v, inv):
+    """S v for one v [C, 6] as a step of the Python CG loop that pcg_solve
+    replaced: Hcc v minus the coupling (the coupling-only K11, or past
+    MAX_CAMS K10 then K9). check_pcg times kernels.ba_kernels.pcg_loop over
+    it beside pcg_solve; the tests hold S v with it."""
+    import torch
+
+    from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    if core.uses_big_kernels(prob):
+        y_t = kb.schur_coupling_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.point_bounds,
+                                             inv.cam_inv_perm.shape[0], core._rows_t(v, prob.obs_cam))
+        coupling = kb.cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
+    else:
+        coupling = kb.schur_coupling_matvec(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point,
+                                            inv.point_bounds, inv.cam_perm, inv.cam_bounds,
+                                            v.contiguous(), inv.cam_inv_perm)
+    return torch.einsum("cij,cj->ci", ne.Hcc, v) - coupling
+
+
 def lm_step(prob, cfg, inv, ne):
     """That step as K5's candidate mode takes it."""
     from sfm_tpu_torch.kernels import ba_kernels as kb
@@ -657,7 +794,11 @@ def check_ba(prob, cfg, device, what: str):
             raise AssertionError(f"fused_cost_sums ({tag}): two runs differ (must be deterministic)")
         if label == "gate raised" and not float(sums[1]) < float(prob.obs_w.sum()):
             raise AssertionError("fused_cost_sums: the near-plane gate removed nothing")
-        ne = core.NormalEq(*out[:5])
+        # The step as bundle_adjust takes it: a PCG solve's build carries K3's
+        # Schur-Jacobi blocks (the other outputs bit-identical, check_schur).
+        whw = (None if core.uses_dense_solver(prob, cfg)
+               else kb.fused_ne_payloads(*ne_args(pts, z), plan=inv.pcg_plan, schur_jacobi=True)[6])
+        ne = core.NormalEq(*out[:5], whw=whw)
         step = lm_step(dataclasses.replace(prob, points=pts), cfg, inv, ne)
         step64 = kb.LMStep(*(f64(t) for t in step[:4]), step.cam_fixed, step.point_fixed)
         cand = kb.fused_cost_sums(*cost_args(pts, z), step=step, plan=inv.pcg_plan)
@@ -694,6 +835,7 @@ def check_ba(prob, cfg, device, what: str):
         ms=time_ms(lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), device),
         plain_ms=time_ms(lambda: kb.fused_ne_payloads_plain(*args), device),
         library_ms=None, **bound(ne_moved, ne_ops, FP32_OPS_PER_S),
+        device_ms=device_ms(lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), device),
         note=f"{shape}: errors vs float64 (ne_errors) " + "; ".join(notes["ne"]) + "; deterministic")
     c_moved, c_ops = cost_bytes_ops(prob, inv, step=True)
     results["fused_cost_sums"] = dict(
@@ -701,6 +843,7 @@ def check_ba(prob, cfg, device, what: str):
         ms=time_ms(lambda: kb.fused_cost_sums(*cargs, step=step, plan=inv.pcg_plan), device),
         plain_ms=time_ms(lambda: kb.fused_cost_sums_plain(*cargs, step=step), device),
         library_ms=None, **bound(c_moved, c_ops, FP32_OPS_PER_S),
+        device_ms=device_ms(lambda: kb.fused_cost_sums(*cargs, step=step, plan=inv.pcg_plan), device),
         note=f"{shape}, with each input's own step: errors vs float64 " + "; ".join(notes["cost"])
              + f"; at the given parameters {time_ms(lambda: kb.fused_cost_sums(*cargs, plan=inv.pcg_plan), device):.4f} ms, "
              f"sums {sums.tolist()}, bound {bound(*cost_bytes_ops(prob, inv, step=False), FP32_OPS_PER_S)['bound_ms'] * 1e3:.2f} us; "
@@ -768,6 +911,7 @@ def check_segment_sum(inv, O: int, C: int, P: int, device):
             ms=time_ms(lambda: kb.cam_segment_sum(*args), device),
             plain_ms=time_ms(lambda: kb.cam_segment_sum_plain(*args[:3]), device),
             library_ms=time_ms(library, device),
+            device_ms=device_ms(lambda: kb.cam_segment_sum(*args), device),
             **bound(4 * (K * N + (N if side == "camera" else 0) + S + 1 + S * K), K * N, FP32_OPS_PER_S),
             note=f"[{K}, {O}] ({N} weighted) -> [{S}, {K}], rel err {rel:.2e} vs the plain version in "
                  "float64, deterministic; library_ms: " +
@@ -814,7 +958,8 @@ def check_big(prob, cfg, device):
     """K4, K6, K8 and K10 on a BA problem of more than 4096 cameras, at the
     inputs of its first LM iteration, against their plain versions; then
     K3, K5, K7 and K11 (which serve any camera count) on the same inputs, so
-    that each twin pair is timed side by side. Tolerances: K4's W and
+    that each twin pair is timed side by side. K10 is the coupling code of
+    the large-C pcg_solve (check_pcg holds that solve). Tolerances: K4's W and
     camera payload 1e-6 of each block's max against K3's W and packed
     camera rows on the same inputs (the same device code on rows gathered
     elsewhere; K3 is held to its plain version on the other slices'
@@ -831,7 +976,10 @@ def check_big(prob, cfg, device):
     plain version in float64 (K11's bar: fp32 tree sums over a point's ~100
     observations, with cancellation in the signed sums), identical bits on a
     rerun; K8 and K10 reduced by K9 against K7 and K11 to 1e-5. K4 and K6 are
-    checked once more with the near-plane floor raised. Returns (results of
+    checked once more with the near-plane floor raised. The route's
+    whole-block damping and inversion (core._sym3_big, _damp_big,
+    _sym_solve3_big) must give the bits of sym3, damp and sym_solve3 on this
+    problem's blocks. Returns (results of
     the four, twin timings, K9's rows on this problem's segment tables)."""
     import torch
 
@@ -855,8 +1003,8 @@ def check_big(prob, cfg, device):
     def big_args64(z_floor):
         return (*(t.double() for t in big_args(z_floor)[:4]), z_floor.double(), *loss)
 
-    # K3 and K5 serve any camera count; at C > MAX_CAMS the solve has no plan for them.
-    plan = kb.pcg_launch_plan(inv.point_bounds)
+    # K3 and K5 serve any camera count, on pcg_solve's plan (made at any count).
+    plan = inv.pcg_plan
     lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
 
     def small_args(z_floor):
@@ -896,6 +1044,7 @@ def check_big(prob, cfg, device):
         ms=time_ms(lambda: kb.fused_ne_payloads_big(*a4), device),
         plain_ms=time_ms(lambda: kb.fused_ne_payloads_big_plain(*a4), device),
         library_ms=None, **bound(obs_in + nbytes(*out), 300 * O, FP32_OPS_PER_S),
+        device_ms=device_ms(lambda: kb.fused_ne_payloads_big(*a4), device),
         note=f"{shape}, rel err {max(e[1] for e in errs):.2e} (vs K3's W and camera rows "
              f"{max(e[1] for e in twin):.2e}); also with the gate raised")
     results["fused_cost_sums_big"] = dict(
@@ -903,6 +1052,7 @@ def check_big(prob, cfg, device):
         ms=time_ms(lambda: kb.fused_cost_sums_big(*a4), device),
         plain_ms=time_ms(lambda: kb.fused_cost_sums_big_plain(*a4), device),
         library_ms=None, **bound(obs_in + nbytes(sums), 60 * O, FP32_OPS_PER_S),
+        device_ms=device_ms(lambda: kb.fused_cost_sums_big(*a4), device),
         note=f"{shape}, sums {sums.tolist()}, deterministic, K5's within rtol 1e-5; also with the "
              "gate raised")
     gather_ms = time_ms(lambda: core._rows_t(cams, prob.obs_cam), device)
@@ -915,6 +1065,20 @@ def check_big(prob, cfg, device):
         big_ms=results["fused_cost_sums_big"]["ms"], gather_ms=gather_ms,
         small_ms=time_ms(lambda: kb.fused_cost_sums(*a5, plan=plan), device))
 
+    # The route's whole-block damping and inversion give the bits of the
+    # helpers K3's plain version uses (kernels.ba_kernels sym3, damp,
+    # sym_solve3) on this problem's point and camera blocks.
+    _, yp_t, cam_t = kb.fused_ne_payloads_big(*big_args(inv.z_floor))
+    red6 = kb.cam_segment_sum(yp_t, None, inv.point_bounds)[:, :6]
+    hcc = kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)[:, :36].reshape(C, 6, 6)
+    hpp = kb.damp(kb.sym3(red6), lam)
+    if not (torch.equal(core._sym3_big(red6), kb.sym3(red6))
+            and torch.equal(core._damp_big(kb.sym3(red6), lam), hpp)
+            and torch.equal(core._damp_big(hcc, lam), kb.damp(hcc, lam))
+            and torch.equal(core._sym_solve3_big(hpp), kb.sym_solve3(hpp))):
+        raise AssertionError("the large-C route's block damping and inversion differ from sym3, damp, sym_solve3")
+    log(f"[big] {shape}: the route's block damping and inversion bit-identical to sym3, damp, sym_solve3")
+
     W_t, Hinv = ne.W_t, ne.Hpp_inv
     k8 = (W_t, Hinv, prob.obs_point)
     out = kb.whw_payloads_big(*k8)
@@ -924,7 +1088,7 @@ def check_big(prob, cfg, device):
     if not torch.equal(out, kb.whw_payloads_big(*k8)):
         raise AssertionError("whw_payloads_big: two runs differ (must be deterministic)")
     k7 = (W_t, Hinv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
-    whw7 = kb.whw_cam_reduce(*k7)
+    whw7 = kb.whw_cam_reduce(*k7, inv.cam_inv_perm)
     rel7 = max_rel(kb.cam_segment_sum(out, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), whw7.double())[1]
     if rel7 > 1e-5:
         raise AssertionError(f"whw_payloads_big + cam_segment_sum vs whw_cam_reduce: {rel7}")
@@ -933,12 +1097,13 @@ def check_big(prob, cfg, device):
         ms=time_ms(lambda: kb.whw_payloads_big(*k8), device),
         plain_ms=time_ms(lambda: kb.whw_payloads_big_plain(*k8), device),
         library_ms=None, **bound(4 * (18 * O + O + 9 * P + 36 * O), 324 * O, FP32_OPS_PER_S),
+        device_ms=device_ms(lambda: kb.whw_payloads_big(*k8), device),
         note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic; "
              f"reduced by K9 it is K7's output to {rel7:.2e}")
     twins["K8 (+K9) vs K7"] = dict(
         big_ms=results["whw_payloads_big"]["ms"],
         reduce_ms=time_ms(lambda: kb.cam_segment_sum(out, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), device),
-        small_ms=time_ms(lambda: kb.whw_cam_reduce(*k7), device))
+        small_ms=time_ms(lambda: kb.whw_cam_reduce(*k7, inv.cam_inv_perm), device))
 
     v = torch.randn((C, 6), generator=torch.Generator(device=device).manual_seed(7), device=device)
     v_obs_t = core._rows_t(v, prob.obs_cam)
@@ -962,6 +1127,7 @@ def check_big(prob, cfg, device):
         plain_ms=time_ms(lambda: kb.schur_coupling_payloads_big_plain(*k10), device),
         library_ms=None,
         **bound(4 * (18 * O + O + P + 1 + 9 * P + 6 * O + 6 * O), 81 * O + 18 * P, FP32_OPS_PER_S),
+        device_ms=device_ms(lambda: kb.schur_coupling_payloads_big(*k10), device),
         note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic; "
              f"reduced by K9 it is K11's output to {rel11:.2e}")
     twins["K10 (+K9) vs K11"] = dict(
@@ -1053,7 +1219,11 @@ def check_schur(prob, cfg, device):
     a fixed tree order, so the error is bounded by ~log2(n) * eps of the
     summed magnitudes (n up to ~1000 terms per camera, ~1e-6), with a margin
     for the cancellation in K11's signed sums. Both must give identical bits
-    on a rerun."""
+    on a rerun. K7 twice: its standalone entry, and the blocks that K3
+    builds with the normal equations for a PCG solve (the path's K7: the
+    same bar and rerun; its other outputs bit-identical to K3 without the
+    blocks; within 1e-6 of the standalone entry, which runs the same device
+    code), with K3's time without and with the blocks."""
     import torch
 
     from sfm_tpu_torch.ba import core
@@ -1068,22 +1238,54 @@ def check_schur(prob, cfg, device):
     results = {}
 
     k7 = (W_t, Hinv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
-    out = kb.whw_cam_reduce(*k7)
+    out = kb.whw_cam_reduce(*k7, inv.cam_inv_perm)
     ref = kb.whw_cam_reduce_plain(W_t.double(), Hinv.double(), *k7[2:])
     err, rel = max_rel(out, ref)
     if rel > 1e-5:
         raise AssertionError(f"whw_cam_reduce: relative error {rel} ({shape})")
-    if not torch.equal(out, kb.whw_cam_reduce(*k7)):
+    if not torch.equal(out, kb.whw_cam_reduce(*k7, inv.cam_inv_perm)):
         raise AssertionError("whw_cam_reduce: two runs differ (must be deterministic)")
+    # The path's K7: the blocks out of K3's two launches (schur_jacobi, a PCG
+    # solve's build), the same bar, the normal equations untouched by them.
+    lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
+    k3 = (prob.obs_cam, prob.obs_point, prob.points, inv.static_t, prob.cam_params.contiguous(),
+          prob.intrinsics, inv.point_bounds, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm, lam,
+          inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
+    with_blocks = kb.fused_ne_payloads(*k3, plan=inv.pcg_plan, schur_jacobi=True)
+    without = kb.fused_ne_payloads(*k3, plan=inv.pcg_plan)
+    if not (all(torch.equal(a, b) for a, b in zip(with_blocks[:5], without[:5]))
+            and torch.equal(with_blocks[5][:, :NE_CAM_ROWS], without[5])):
+        raise AssertionError(f"fused_ne_payloads: the Schur-Jacobi blocks changed the normal equations ({shape})")
+    blocks = with_blocks[6]
+    err3, rel3 = max_rel(blocks, kb.whw_cam_reduce_plain(with_blocks[2].double(), with_blocks[1].double(),
+                                                         *k7[2:]))
+    if rel3 > 1e-5:
+        raise AssertionError(f"fused_ne_payloads' Schur-Jacobi blocks: relative error {rel3} ({shape})")
+    if not torch.equal(blocks, kb.fused_ne_payloads(*k3, plan=inv.pcg_plan, schur_jacobi=True)[6]):
+        raise AssertionError("fused_ne_payloads' Schur-Jacobi blocks: two runs differ (must be deterministic)")
+    # The same device code as the standalone entry on the same W and Hpp^-1.
+    twin = max_rel(blocks, out.double())[1]
+    if twin > 1e-6:
+        raise AssertionError(f"fused_ne_payloads' Schur-Jacobi blocks vs whw_cam_reduce: {twin}")
     # Bytes: the N weighted observations' W and ids, each point's H^-1, the
     # camera segments, the output. Operations: the 6x6 product per observation.
     moved = 4 * (18 * N + 9 * P + 2 * N + C + 1 + 36 * C)
+    k3_ms = [time_ms(lambda: kb.fused_ne_payloads(*k3, plan=inv.pcg_plan, schur_jacobi=sj), device)
+             for sj in (False, True)]
+    k3_dev = [device_ms(lambda: kb.fused_ne_payloads(*k3, plan=inv.pcg_plan, schur_jacobi=sj), device)
+              for sj in (False, True)]
     results["whw_cam_reduce"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: kb.whw_cam_reduce(*k7), device),
+        ms=time_ms(lambda: kb.whw_cam_reduce(*k7, inv.cam_inv_perm), device),
         plain_ms=time_ms(lambda: kb.whw_cam_reduce_plain(*k7), device),
         library_ms=None, **bound(moved, 324 * N, FP32_OPS_PER_S),
-        note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic")
+        device_ms=device_ms(lambda: kb.whw_cam_reduce(*k7, inv.cam_inv_perm), device),
+        k3_ms=k3_ms, k3_device_ms=k3_dev,
+        note=f"{shape}, standalone entry: rel err {rel:.2e} vs the plain version in float64, "
+             f"deterministic; in K3 (the path): rel err {rel3:.2e} ({err3:.3e}), deterministic, "
+             f"{'bit-identical to' if twin == 0.0 else f'{twin:.2e} from'} the standalone entry; K3 "
+             f"without / with the blocks {k3_ms[0]:.4f} / {k3_ms[1]:.4f} ms"
+             + ("" if k3_dev[0] is None else f", device {k3_dev[0] * 1e3:.2f} / {k3_dev[1] * 1e3:.2f} us"))
 
     v = torch.randn((C, 6), generator=torch.Generator(device=device).manual_seed(7),
                     device=device)
@@ -1106,6 +1308,7 @@ def check_schur(prob, cfg, device):
         ms=time_ms(lambda: kb.schur_coupling_matvec(*k11), device),
         plain_ms=time_ms(lambda: kb.schur_coupling_matvec_plain(*k11[:8]), device),
         library_ms=None, **bound(moved, 81 * N + 18 * P, FP32_OPS_PER_S),
+        device_ms=device_ms(lambda: kb.schur_coupling_matvec(*k11), device),
         note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic")
     return results
 
@@ -1117,19 +1320,30 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     Schur-Jacobi preconditioner, rhs), against pcg_solve_plain in float64 on
     the same inputs: x within 1e-3 of max|x| after cfg.cg_iterations steps
     (fp32 CG drifts from the float64 iterates), or after x_steps steps where
-    given (PCG_X_STEPS on the first merged polish: its float64 solve is far
+    given (PCG_X_STEPS on the merged polishes: their float64 solves are far
     from converged after 64 steps, and the fp32 drift of any order of sums
     grows step by step), |S x - rhs| at most twice the float64 solution's
     + 1e-6 |rhs| after cfg.cg_iterations steps (S applied in float64),
     within 1e-5 after one step; identical bits on a rerun. streaming=True forces the mode
     that reads W from device memory every step; blocks replaces the card's
-    grid by a grid of that many blocks (each then owns more cameras). Timed
-    beside loop_ms: the same solve as Python steps over the coupling-only
-    K11 (pcg_loop), and the plain version in fp32. Bound: what the solve must
-    move, its inputs (W, the tables, the camera blocks) read once and x
-    written once, against the operations of cfg.cg_iterations steps; the
-    per-step scratch (packed y rows, camera vectors: a few MB at these
-    shapes) stays in the 50 MB L2 and is not charged."""
+    grid by a grid of that many blocks (each then owns more cameras). Past
+    MAX_CAMS cameras (the merged polish at full width) this is the launch
+    counted as pcg_solve_big, in the streaming mode its plan picks. Timed
+    beside loop_ms: the same solve as Python steps over the coupling matvec
+    that pcg_solve replaced (pcg_loop over schur_matvec_step: the
+    coupling-only K11, or K10 then K9 past MAX_CAMS), and the plain version
+    in fp32; device_ms and loop_device_ms from torch.profiler. Bound: the
+    operations of cfg.cg_iterations steps over the weighted rows against
+    the bytes: what a step must read (the weighted rows' W, camera and
+    camera-sorted place, the point and camera blocks) once, rhs and x once,
+    and, in every step after the first, again the part of a step's reads
+    that all SMs' shared memory (SMEM_BYTES, 30.7 MB) cannot hold: on the
+    merged polish W alone is 108 MB, so most of it comes from device memory
+    every step. The 50 MB L2 is not counted as holding any of it between
+    steps: it is a cache that W streams through, not storage a kernel fills
+    (an L2 access-policy window that pinned part of W could go below this
+    bound; not tried). The per-step scratch (packed y rows, camera
+    vectors) is not charged."""
     import torch
 
     from sfm_tpu_torch.ba import core
@@ -1138,8 +1352,8 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     inv, ne = first_iteration_inputs(prob, cfg)
     O, C, P, M = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, inv.cam_perm.numel()
     N = inv.cam_inv_perm.numel()
-    if core.uses_dense_solver(prob, cfg) or core.uses_big_kernels(prob):
-        raise AssertionError(f"pcg check: C={C}, O={O} does not take the fused PCG solve")
+    if core.uses_dense_solver(prob, cfg):
+        raise AssertionError(f"pcg check: C={C}, O={O} takes the dense solver, not PCG")
     M_inv, d = core.pcg_preconditioner(ne, prob, inv)
     rhs = core._schur_rhs(ne, prob, inv).contiguous()
     if device.type == "cuda" and blocks is None:
@@ -1158,16 +1372,15 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     def plain64(n):
         return kb.pcg_solve_plain(W64, H64, *tables, Hcc64, M64, d64, rhs64, n, tol)
 
-    def plain32():
-        return kb.pcg_solve_plain(ne.W_t, ne.Hpp_inv, *tables, ne.Hcc, M_inv, d, rhs, its, tol)
+    def plain32(n=its):
+        return kb.pcg_solve_plain(ne.W_t, ne.Hpp_inv, *tables, ne.Hcc, M_inv, d, rhs, n, tol)
 
     def residual(x):
         Sx = torch.einsum("cij,cj->ci", Hcc64, x) - kb.schur_coupling_matvec_plain(W64, H64, *tables, x)
         return float((Sx - rhs64).norm())
 
     def loop():
-        return kb.pcg_loop(lambda v: torch.einsum("cij,cj->ci", ne.Hcc, v) - kb.schur_coupling_matvec(
-            ne.W_t, ne.Hpp_inv, *tables, v, inv.cam_inv_perm), M_inv, d, rhs, its, tol)
+        return kb.pcg_loop(lambda v: schur_matvec_step(ne, prob, v, inv), M_inv, d, rhs, its, tol)
 
     shape = (f"{what}: O={O} ({M} weighted) C={C} P={P}, {'streaming' if plan.streaming else 'resident'}"
              + (f", {blocks} blocks" if blocks else ""))
@@ -1183,75 +1396,66 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     if not res <= 2.0 * res_ref + 1e-6 * rhs_norm:
         raise AssertionError(f"pcg_solve ({shape}): |S x - rhs| {res} against {res_ref} in float64")
     ref1 = plain64(1)
+    scale1 = max(float(ref1.abs().max()), 1e-30)
     err1 = float((fused(1).double() - ref1).abs().max())
-    if not err1 <= 1e-5 * max(float(ref1.abs().max()), 1e-30):
-        raise AssertionError(f"pcg_solve ({shape}): one step off by {err1}")
+    if not err1 <= 1e-5 * scale1:
+        raise AssertionError(f"pcg_solve ({shape}): one step off by {err1} ({err1 / scale1:.2e} of max|x|)")
+    err1_32 = float((plain32(1).double() - ref1).abs().max())
     if not torch.equal(x, fused(its)):
         raise AssertionError(f"pcg_solve ({shape}): two runs differ (must be deterministic)")
     # How far fp32 alone drifts from float64 here (not a bar): the plain version in fp32.
     err32 = float((plain32().double() - ref).abs().max())
-    moved = 4 * (20 * N + P + 1 + 9 * P + C + 1 + 36 * C + 36 * C + 6 * C + 6 * C + 6 * C)
+    # A step reads each weighted row's W, camera and camera-sorted place (80
+    # B), each point's Hpp^-1 and bound (40 B), each camera's Hcc, M^-1 and
+    # d (312 B); rhs is read and x written once.
+    step_bytes = 80 * M + 40 * P + 312 * C
+    rereads = max(0, step_bytes - SMEM_BYTES)
+    moved = step_bytes + (its - 1) * rereads + 48 * C
     return dict(
         shape=shape, max_abs_err=err,
         ms=time_ms(lambda: fused(its), device),
         loop_ms=time_ms(loop, device),
         plain_ms=time_ms(plain32, device),
         library_ms=None,
-        **bound(moved, its * (81 * N + 18 * P + 160 * C), FP32_OPS_PER_S),
-        note=f"{shape}, grid {plan.grid}, {plan.smem_bytes} B staged per block; err {err / scale:.2e} "
+        **bound(moved, its * (81 * M + 18 * P + 160 * C), FP32_OPS_PER_S),
+        device_ms=device_ms(lambda: fused(its), device),
+        loop_device_ms=device_ms(loop, device, calls=3),
+        note=f"{shape}, grid {plan.grid}, {plan.smem_bytes} B staged per block, a step's "
+             f"{step_bytes} B charged once, {rereads} B of them {its - 1}x more; err {err / scale:.2e} "
              f"of max|x| vs float64 after {x_its} steps (plain fp32 after {its}: "
              f"{err32 / max(float(ref.abs().max()), 1e-30):.2e}), |Sx - rhs| {res:.3e} (float64 "
-             f"solution {res_ref:.3e}, |rhs| {rhs_norm:.3e}), one step "
-             f"{err1:.2e}, deterministic")
+             f"solution {res_ref:.3e}, |rhs| {rhs_norm:.3e}), one step {err1 / scale1:.2e} of max|x| "
+             f"(plain fp32 {err1_32 / scale1:.2e}), deterministic")
 
 
-def device_time_ms(prof) -> tuple[float, list]:
-    """Sum of the device's own rows of a torch.profiler trace (kernels,
-    memcpy, memset), and the top ones. The rows of the host ops that
-    launched them carry the same time once more and are left out."""
-    import torch
-
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in rows) / 1e3
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
-    return total, [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]
+def device_time_ms(rows) -> tuple[float, list]:
+    """Total device ms of traced rows, and the twelve longest rows."""
+    return sum(r[2] for r in rows), rows[:12]
 
 
-def device_launches(prof) -> int:
-    """Kernels, copies and fills the device ran in a torch.profiler trace."""
-    import torch
-
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+def device_launches(rows) -> int:
+    """Kernels, copies and fills the device ran, of traced rows."""
+    return sum(r[1] for r in rows)
 
 
 def profile_calls(fn, device, calls: int = 20) -> dict:
     """fn() `calls` times under torch.profiler after a warm-up: device
-    launches and device ms per call, and the four device rows that took
-    longest (name, launches and ms per call); then its CUDA-event ms per
-    call (time_ms)."""
-    import torch
-
+    launches and device ms per call (per_call), and the four device rows
+    that took longest (name, launches and ms per call); then its CUDA-event
+    ms per call (time_ms)."""
     fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy, top = device_time_ms(prof)
-    return dict(launches=device_launches(prof) / calls, device_ms=busy / calls,
-                event_ms=time_ms(fn, device),
-                top=[(name, count / calls, ms / calls) for name, count, ms in top[:4]])
+    launches, ms, top = per_call(traced(fn, calls)[0], calls)
+    return dict(launches=launches, device_ms=ms, event_ms=time_ms(fn, device), top=top[:4])
 
 
 def lm_report(prob, cfg, device, stand_in: bool = False) -> dict:
-    """The normal-equation build (core.build_normal_equations) and the LM
-    candidate with its cost, at the first LM iteration of one BA problem,
-    each as device launches, device ms (torch.profiler) and event ms per
-    call; then one whole bundle_adjust under torch.profiler: device launches
-    per LM iteration, device busy ms, wall ms, idle share. The candidate is
+    """The normal-equation build (core.build_normal_equations, as
+    bundle_adjust builds it: with K3's Schur-Jacobi blocks on the PCG
+    branch) and the LM candidate with its cost, at the first LM iteration
+    of one BA problem, each as device launches, device ms (torch.profiler)
+    and event ms per call; then one whole bundle_adjust under
+    torch.profiler: device launches and device ms per LM iteration, device
+    busy ms, wall ms, idle share. The candidate is
     core.lm_candidate where the package has it, else the steps of an older
     LM loop (_back_substitute, the freeze masks, the additions,
     compute_cost), so that tools/torch_perf.py lm can run this on an
@@ -1267,7 +1471,8 @@ def lm_report(prob, cfg, device, stand_in: bool = False) -> dict:
     inv = core.solve_invariants(prob, core.near_plane_floor(prob))
     lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
     cams, points = prob.cam_params, prob.points
-    ne = core.build_normal_equations(prob, cams, points, lam, cfg, inv)
+    build = pcg_build(core, prob, cfg)   # as bundle_adjust builds: with K3's blocks for PCG
+    ne = core.build_normal_equations(prob, cams, points, lam, cfg, inv, **build)
     dc = lm_dc(prob, cfg, inv, ne)
 
     def candidate(inv):
@@ -1280,7 +1485,7 @@ def lm_report(prob, cfg, device, stand_in: bool = False) -> dict:
         return new_cams, new_points, core.compute_cost(prob, new_cams, new_points, cfg, inv)
 
     rows = {"NE build": profile_calls(
-                lambda: core.build_normal_equations(prob, cams, points, lam, cfg, inv), device),
+                lambda: core.build_normal_equations(prob, cams, points, lam, cfg, inv, **build), device),
             "candidate": profile_calls(lambda: candidate(inv), device)}
     if stand_in:
         saved = core.MAX_CAMS
@@ -1292,19 +1497,13 @@ def lm_report(prob, cfg, device, stand_in: bool = False) -> dict:
             rows["candidate chain replaced"] = profile_calls(lambda: candidate(inv_big), device)
         finally:
             core.MAX_CAMS = saved
-    core.bundle_adjust(prob, cfg)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        _, stats = core.bundle_adjust(prob, cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    trace, wall, (_, stats) = traced(lambda: core.bundle_adjust(prob, cfg))
     its = max(int(stats.iterations), 1)
-    busy = device_time_ms(prof)[0]
-    per_it = device_launches(prof) / its
+    busy = device_time_ms(trace)[0]
+    per_it = device_launches(trace) / its
     rows["bundle_adjust"] = dict(lm_iterations=its, launches_per_lm_iteration=per_it,
-                                 device_ms=busy, wall_ms=wall, idle_share=1.0 - busy / wall)
+                                 device_ms=busy, device_ms_per_lm_iteration=busy / its, wall_ms=wall,
+                                 idle_share=1.0 - busy / wall)
     if stand_in:
         rows["bundle_adjust"]["lm_iteration_replaced"] = per_it + sum(
             rows[old]["launches"] - rows[new]["launches"]
@@ -1605,15 +1804,17 @@ def run_polish(device):
 
 
 def check_polish(r):
-    """The large-camera-count kernel set (and K9) launched and the other
-    four not; O in 1.4-1.6 M; every solve's cost fell; < 1.0 px after the
-    polish; the camera RMSE fell and ends under 1% of the radius; at least
-    95% of the gross outliers dropped and under 1% of the other rows."""
+    """The large-camera-count kernel set with every CG solve in one
+    pcg_solve_big launch (and K9) launched, and nothing else: not the
+    coupling-only K10 entry, not the small-C kernels; O in 1.4-1.6 M; every
+    solve's cost fell; < 1.0 px after the polish; the camera RMSE fell and
+    ends under 1% of the radius; at least 95% of the gross outliers dropped
+    and under 1% of the other rows."""
     import numpy as np
 
     rec, truth, launches = r["rec"], r["truth"], r["launches"]
-    missing = [k for k in BIG_KERNELS + ("cam_segment_sum",) if launches.get(k, 0) == 0]
-    stray = [k for k in SMALL_KERNELS if k != "cam_segment_sum" and launches.get(k, 0) != 0]
+    missing = [k for k in POLISH_KERNELS if launches.get(k, 0) == 0]
+    stray = [k for k in KERNELS if k not in POLISH_KERNELS and launches.get(k, 0) != 0]
     if missing or stray:
         raise AssertionError(f"polish: never launched {missing}, launched but not of this path {stray}")
     if not 1.4e6 <= r["n_obs"] <= 1.6e6:
@@ -1726,8 +1927,6 @@ def main() -> int:
     log_results("last dense local BA", check_ba(local["problem"], local["cfg"], device, "last dense local BA"))
     # K3 and K5 beside the chains they replace, and the LM iteration's launches.
     lm = lm_report(final["problem"], final["cfg"], device, stand_in=True)
-    for k, n in (("fused_ne_payloads", "NE build"), ("fused_cost_sums", "candidate")):
-        results[k]["device_ms"] = lm[n]["device_ms"]
     log(f"[lm] final global BA (C={final['C']}, O={final['O']}): " + json.dumps(
         {**lm, "bounds_ms": {k: results[k]["bound_ms"] for k in ("fused_ne_payloads", "fused_cost_sums")}}))
     orbit = schur_problem(device)
@@ -1807,31 +2006,41 @@ def main() -> int:
     log_results("merged polish", big)
     log_shapes("cam_segment_sum", k9_big)
     results.update(big)
+    # The polish's CG solve in one launch (K10's code inside) beside the
+    # loop over K10 and K9 it replaced, and the polish's LM iteration.
+    results["pcg_solve_big"] = check_pcg(first["problem"], first["cfg"], device, "merged polish",
+                                         x_steps=PCG_X_STEPS)
+    log_results("", {"pcg_solve_big": results["pcg_solve_big"]})
+    lm_big = lm_report(first["problem"], first["cfg"], device)
+    log(f"[lm] merged polish, first solve (C={first['C']}, O={first['O']}): {json.dumps(lm_big)}")
     results["match_topk2"]["shapes"] = k2_shapes
     results["cam_segment_sum"]["shapes"] = results["cam_segment_sum"]["shapes"] + k9_big
     log(f"[kernel] twins on the merged polish's problem (ms): {json.dumps(twins)}")
     log("[lm] launches by path: " + json.dumps(
-        {k: {name: p.get(k, 0) for name, p in paths.items()} for k in ("fused_ne_payloads", "fused_cost_sums")}))
+        {k: {name: p.get(k, 0) for name, p in paths.items()}
+         for k in ("fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce", "pcg_solve", "pcg_solve_big")}))
 
+    # K10's and K11's rows count the launches that run their code (INSIDE).
+    by_path = {k: {name: p.get(INSIDE.get(k, k), 0) for name, p in paths.items()} for k in KERNELS}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
-         "launches": max(p.get(k, 0) for p in paths.values()),
+         "launches": max(by_path[k].values()),
          "max_abs_err": results[k]["max_abs_err"],
          "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"], "bound_by": results[k]["bound_by"],
          "library_ms": results[k]["library_ms"],
-         **{f: results[k][f] for f in ("loop_ms", "device_ms") if f in results[k]},
-         "launches_by_path": {name: p.get(k, 0) for name, p in paths.items()},
+         **{f: results[k][f] for f in ("loop_ms", "loop_device_ms", "device_ms", "k3_ms", "k3_device_ms")
+            if f in results[k]},
+         "launches_by_path": by_path[k],
          **({"shapes": [{f: r[f] for f in SHAPE_FIELDS + PCG_FIELDS if f in r}
                         for r in results[k]["shapes"]]}
             if "shapes" in results[k] else {})}
         for k in KERNELS]}
-    # K11's coupling code runs inside pcg_solve: its row counts as launched where pcg_solve is.
-    fused = next(k["launches"] for k in record["kernels"] if k["name"] == "pcg_solve")
-    never = [k["name"] for k in record["kernels"]
-             if k["launches"] == 0 and not (k["name"] == "schur_coupling_matvec" and fused > 0)]
+    never = [k["name"] for k in record["kernels"] if k["launches"] == 0]
     if never:
         raise AssertionError(f"kernels launched by no path: {never}")
+    log(f"[profile] {TRACE_SESSIONS['short']} of {TRACE_SESSIONS['all']} traced sessions recorded fewer "
+        f"device launches than another session of the same calls")
     log(f"[done] chip_smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(record))
     print(smi)

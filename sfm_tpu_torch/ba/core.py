@@ -14,21 +14,23 @@
     the volume gate, the JAX package's gate unchanged): S assembled
     column-block-wise through the implicit matvec, Cholesky; or
   - by preconditioned CG in the Jacobi-equilibrated space: the Schur-Jacobi
-    preconditioner's blocks sum_c W Hpp^-1 W^T come from kernel K7, then
-    all CG steps run in one pcg_solve launch (K11's coupling code and Hcc p
-    per step, the dot products and updates between grid barriers);
+    preconditioner's blocks sum_c W Hpp^-1 W^T come out of K3's two
+    launches (K7's device code, built only for a PCG solve), then all CG
+    steps run in one pcg_solve launch (K11's coupling code and Hcc p per
+    step, the dot products and updates between grid barriers);
   back-substitution dp = Hpp^-1 (bp - W^T dc) and the candidate's true
   robust cost in one launch (kernel K5); LM accept/reject, multiplicative
   damping.
 
 Past MAX_CAMS = 4096 cameras (the JAX package's _MAX_CAMS, where its one-hot
-kernels stop) the same solve goes through the large-camera-count kernel set:
-camera, intrinsic and v rows are gathered per observation by plain indexing
-and K4 (normal-equation payloads, then K9 and the damping and inversion
-as torch ops), K6 (cost; the back-substitution as torch ops), K8
-(preconditioner payloads, then K9) and K10 (coupling payloads, then K9) take
-the place of K3, K5, K7 and K11; there the CG steps run as a Python loop
-(pcg_loop) over K10 and K9.
+kernels stop) the normal equations and the candidate go through the
+large-camera-count kernel set: camera and intrinsic rows are gathered per
+observation by plain indexing and K4 (normal-equation payloads, then K9 and
+the damping and inversion as torch ops), K6 (cost; the back-substitution as
+torch ops) and K8 (preconditioner payloads, then K9) take the place of K3,
+K5 and K7. The CG solve is one pcg_solve launch there too (its streaming
+mode: W does not fit on the chip), whose coupling phase is K10's device
+code; the standalone K10 entry (then K9) serves checks and tests.
 The JAX package switches its coupling matvec later (past 16384 cameras or on
 unaligned tiles, where its two-level in-kernel matvec cannot run); this
 package has no two-level kernel, so the whole set switches at one threshold.
@@ -38,6 +40,7 @@ Intrinsics refinement (8-wide camera blocks) raises NotImplementedError.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -47,10 +50,9 @@ from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.geometry.rotations import so3_hat, so3_right_jacobian
 from sfm_tpu_torch.kernels import on_cuda
 from sfm_tpu_torch.kernels.ba_kernels import (
-    MAX_CAMS, LMStep, PcgPlan, cam_segment_sum, damp, fused_cost_sums, fused_cost_sums_big,
-    fused_ne_payloads, fused_ne_payloads_big, invert_permutation, pcg_launch_plan, pcg_loop,
-    pcg_solve, projection, schur_coupling_matvec, schur_coupling_payloads_big, segment_bounds,
-    sym3, sym_solve3, whw_cam_reduce, whw_payloads_big,
+    MAX_CAMS, LMStep, PcgPlan, cam_segment_sum, fused_cost_sums, fused_cost_sums_big,
+    fused_ne_payloads, fused_ne_payloads_big, invert_permutation, pcg_launch_plan, pcg_solve,
+    projection, segment_bounds, whw_payloads_big,
 )
 
 _DENSE_MAX_VOLUME = 4 << 20   # C * O gate of the dense reduced solve
@@ -100,7 +102,7 @@ class SolveInvariants(NamedTuple):
     cam_inv_perm: torch.Tensor  # [N] int32 obs o's place in cam_perm, -1 for a zero-weight row
     z_floor: torch.Tensor | None = None   # near-plane depth floor (0-d)
     intr_t: torch.Tensor | None = None    # [6, O] intrinsics per observation (large-C set only)
-    pcg_plan: PcgPlan | None = None       # point slices of K3, K5, pcg_solve (CUDA, <= MAX_CAMS cameras)
+    pcg_plan: PcgPlan | None = None       # point slices of pcg_solve (CUDA), and of K3, K5 up to MAX_CAMS
 
 
 def uses_big_kernels(prob: BAProblem) -> bool:
@@ -109,8 +111,9 @@ def uses_big_kernels(prob: BAProblem) -> bool:
 
 
 def _rows_t(table: torch.Tensor, obs_cam: torch.Tensor) -> torch.Tensor:
-    """Rows of a per-camera table [C, K] gathered per observation -> [K, O]."""
-    return table.T[:, obs_cam.long()].contiguous()
+    """Rows of a per-camera table [C, K] gathered per observation -> [K, O]
+    (one gather, which writes the feature-major result contiguously)."""
+    return table.T.index_select(1, obs_cam)
 
 
 def solve_invariants(prob: BAProblem, z_floor: torch.Tensor | None = None) -> SolveInvariants:
@@ -134,12 +137,12 @@ def solve_invariants(prob: BAProblem, z_floor: torch.Tensor | None = None) -> So
         z_floor=z_floor,
         intr_t=_rows_t(prob.intrinsics, prob.obs_cam) if big else None,
         # Once per bundle_adjust, not per LM iteration: the plan reads point_bounds back.
-        pcg_plan=pcg_launch_plan(point_bounds) if not big and on_cuda(point_bounds) else None,
+        pcg_plan=pcg_launch_plan(point_bounds) if on_cuda(point_bounds) else None,
     )
 
 
 def _pts_t(prob: BAProblem, points: torch.Tensor) -> torch.Tensor:
-    return points[prob.obs_point.long()].T.contiguous()
+    return points.T.index_select(1, prob.obs_point)
 
 
 def compute_cost(prob: BAProblem, cam_params, points, cfg: BAConfig,
@@ -164,43 +167,106 @@ class NormalEq(NamedTuple):
     W_t: torch.Tensor      # [18, O] row i*3+k = W[i, k]
     bc: torch.Tensor       # [C, 6]
     bp: torch.Tensor       # [P, 3]
+    whw: torch.Tensor | None = None   # [C, 36] sum_c W Hpp^-1 W^T, when built for PCG
 
 
 def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConfig,
-                           inv: SolveInvariants) -> NormalEq:
+                           inv: SolveInvariants, schur_jacobi: bool = False) -> NormalEq:
     """Damped normal-equation blocks at (cam_params, points); lam is a 0-d
     tensor. Multiplicative LM damping of the block diagonals with an
-    absolute floor (kernels.ba_kernels.damp)."""
+    absolute floor (kernels.ba_kernels.damp). schur_jacobi (a PCG solve's
+    build, up to MAX_CAMS cameras): K3 also returns the Schur-Jacobi blocks
+    in the same launches; past MAX_CAMS the preconditioner builds them
+    (K8 + K9)."""
     if not uses_big_kernels(prob):
-        Hcc, Hpp_inv, w_t, bc, bp, _ = fused_ne_payloads(
+        out = fused_ne_payloads(
             prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
             prob.intrinsics, inv.point_bounds, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm,
-            lam, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan)
-        return NormalEq(Hcc=Hcc, Hpp_inv=Hpp_inv, W_t=w_t, bc=bc, bp=bp)
+            lam, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan,
+            schur_jacobi=schur_jacobi)
+        return NormalEq(*out[:5], whw=out[6] if schur_jacobi else None)
     C = prob.num_cameras
     w_t, yp_t, cam_t = fused_ne_payloads_big(
         _pts_t(prob, points), inv.static_t, _rows_t(cam_params, prob.obs_cam), inv.intr_t,
         inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
     camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)  # [C, 42]
     red = cam_segment_sum(yp_t, None, inv.point_bounds)                 # [P, 9]
-    return NormalEq(Hcc=damp(camred[:, :36].reshape(C, CAM_DIM, CAM_DIM), lam),
-                    Hpp_inv=sym_solve3(damp(sym3(red[:, :6]), lam)), W_t=w_t,
+    return NormalEq(Hcc=_damp_big(camred[:, :36].reshape(C, CAM_DIM, CAM_DIM), lam),
+                    Hpp_inv=_sym_solve3_big(_damp_big(_sym3_big(red[:, :6]), lam)), W_t=w_t,
                     bc=camred[:, 36:42], bp=red[:, 6:9])
+
+
+# The large-camera route's damping and inversion of its blocks (10,240
+# camera blocks, ~16,000 point blocks on the merged polish): the arithmetic
+# of kernels.ba_kernels' sym3, damp and sym_solve3 (which K3's plain
+# version uses), the same roundings in the same order, in whole-block
+# operations. Their per-entry forms took ~60 small launches per LM
+# iteration there (tools/torch_perf.py polish).
+_SYM3_FULL = (0, 1, 2, 1, 3, 4, 2, 4, 5)   # (00, 01, 02, 11, 12, 22) -> row-major 3x3
+# The entries A[i+a, j+b] (indices mod 3) for (a, b) = (1, 1), (2, 2), (1, 2),
+# (2, 1), each read from the upper triangle as sym_solve3 reads them: the
+# cofactor factors.
+_COFACTOR_SHIFTS = tuple(3 * min(r, c) + max(r, c)
+                         for a, b in ((1, 1), (2, 2), (1, 2), (2, 1)) for i in range(3) for j in range(3)
+                         for r, c in [((i + a) % 3, (j + b) % 3)])
+
+
+@functools.lru_cache(maxsize=None)
+def _index(values: tuple, device: torch.device) -> torch.Tensor:
+    """A constant index tensor, made once per device (a list index would be
+    copied to the card at every call)."""
+    return torch.tensor(values, dtype=torch.long, device=device)
+
+
+def _sym3_big(red6: torch.Tensor) -> torch.Tensor:
+    """sym3 in one gather: (00, 01, 02, 11, 12, 22) -> symmetric [..., 3, 3]."""
+    return red6.index_select(-1, _index(_SYM3_FULL, red6.device)).reshape(*red6.shape[:-1], 3, 3)
+
+
+def _damp_big(H: torch.Tensor, lam) -> torch.Tensor:
+    """damp on a copy's diagonal: H + (lam diag(H) + 1e-6) I."""
+    out = H.clone()
+    d = out.diagonal(dim1=-2, dim2=-1)
+    d += lam * d + 1e-6
+    return out
+
+
+def _sym_solve3_big(A: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """sym_solve3 (adjugate / det of the Jacobi-equilibrated block) with the
+    cofactors in cyclic form, cof[i, j] = A[i+1, j+1] A[i+2, j+2] -
+    A[i+1, j+2] A[i+2, j+1] (indices mod 3), from one gather: for a
+    symmetric block the products of the written-out adjugate (d f - e e,
+    c e - b f, ...), and the determinant summed in its order."""
+    dg = torch.sqrt(A.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
+    Dinv = 1.0 / dg
+    A = A * Dinv[..., :, None] * Dinv[..., None, :]
+    lead = A.shape[:-2]
+    X = A.reshape(*lead, 9).index_select(-1, _index(_COFACTOR_SHIFTS, A.device)).reshape(*lead, 4, 3, 3)
+    cof = X[..., 0, :, :] * X[..., 1, :, :] - X[..., 2, :, :] * X[..., 3, :, :]
+    terms = A[..., 0, :] * cof[..., 0, :]
+    det = terms[..., 0] + terms[..., 1] + terms[..., 2]
+    inv_det = 1.0 / torch.where(det.abs() < eps, eps, det)
+    return cof * inv_det[..., None, None] * Dinv[..., :, None] * Dinv[..., None, :]
 
 
 def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The Schur-Jacobi preconditioner: the exact block diagonal of S,
-    M = Hcc - sum_c W Hpp^-1 W^T (K7, or K8 then K9) + 1e-6 I, inverted Jacobi-equilibrated
-    so huge blocks cannot overflow the fp32 inversion: M^-1 = D (D M D)^-1 D
-    with D = diag(M)^-1/2. Returns (M^-1 [C, 6, 6], sqrt|diag M| [C, 6])."""
+    M = Hcc - sum_c W Hpp^-1 W^T + 1e-6 I (the blocks from ne.whw, which K3
+    built with the normal equations; past MAX_CAMS from K8 then K9),
+    inverted Jacobi-equilibrated so huge blocks cannot overflow the fp32
+    inversion: M^-1 = D (D M D)^-1 D with D = diag(M)^-1/2. Returns
+    (M^-1 [C, 6, 6], sqrt|diag M| [C, 6])."""
     C = prob.num_cameras
     if uses_big_kernels(prob):
         whw = cam_segment_sum(whw_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point),
                               inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
+    elif ne.whw is None:
+        raise ValueError("pcg_preconditioner: build the normal equations with schur_jacobi=True")
     else:
-        whw = whw_cam_reduce(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
-    M = ne.Hcc - whw.reshape(C, CAM_DIM, CAM_DIM) + 1e-6 * torch.eye(CAM_DIM, device=ne.Hcc.device)
+        whw = ne.whw
+    M = ne.Hcc - whw.reshape(C, CAM_DIM, CAM_DIM)
+    M.diagonal(dim1=-2, dim2=-1).add_(1e-6)
     dg = torch.sqrt(M.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
     Dinv = 1.0 / dg
     M_eq = M * Dinv[:, :, None] * Dinv[:, None, :]
@@ -208,14 +274,24 @@ def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
     return M_inv, dg   # (inv_ex hands back column-major blocks on the GPU)
 
 
+# One vector (x_t 2-D) goes through a broadcast product and a sum: two
+# launches, where the einsum's batched matrix-vector path took ~29 launches
+# and ~1.7 ms of device time at the merged polish's 1.9 M observations
+# (tools/torch_perf.py polish).
 def _w_apply(W_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
     """y[..., i, o] = sum_k W_o[i, k] x[..., k, o]: W_t [18, O], x_t [..., 3, O] -> [..., 6, O]."""
-    return torch.einsum("iko,...ko->...io", W_t.reshape(CAM_DIM, PT_DIM, -1), x_t)
+    Wm = W_t.reshape(CAM_DIM, PT_DIM, -1)
+    if x_t.dim() == 2:
+        return (Wm * x_t[None]).sum(1)
+    return torch.einsum("iko,...ko->...io", Wm, x_t)
 
 
 def _w_apply_T(W_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
     """u[..., k, o] = sum_i W_o[i, k] x[..., i, o]: x_t [..., 6, O] -> [..., 3, O]."""
-    return torch.einsum("iko,...io->...ko", W_t.reshape(CAM_DIM, PT_DIM, -1), x_t)
+    Wm = W_t.reshape(CAM_DIM, PT_DIM, -1)
+    if x_t.dim() == 2:
+        return (Wm * x_t[:, None]).sum(0)
+    return torch.einsum("iko,...io->...ko", Wm, x_t)
 
 
 def _cam_reduce(y_t: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
@@ -243,32 +319,15 @@ def _schur_matvec(ne: NormalEq, prob: BAProblem, V: torch.Tensor, inv: SolveInva
     return torch.einsum("cij,...cj->...ci", ne.Hcc, V) - _cam_reduce(y_t, inv)
 
 
-def _schur_matvec_pcg(ne: NormalEq, prob: BAProblem, v: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
-    """Implicit S @ v for one v [C, 6]: Hcc v minus the coupling term (K11,
-    or K10 then K9)."""
-    if uses_big_kernels(prob):
-        y_t = schur_coupling_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.point_bounds,
-                                          inv.cam_inv_perm.shape[0], _rows_t(v, prob.obs_cam))
-        coupling = cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
-    else:
-        coupling = schur_coupling_matvec(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point,
-                                         inv.point_bounds, inv.cam_perm, inv.cam_bounds,
-                                         v.contiguous(), inv.cam_inv_perm)
-    return torch.einsum("cij,cj->ci", ne.Hcc, v) - coupling
-
-
 def _pcg(ne: NormalEq, prob: BAProblem, rhs: torch.Tensor, cfg: BAConfig,
          inv: SolveInvariants) -> torch.Tensor:
     """Preconditioned CG on the reduced camera system (kernels.ba_kernels
     pcg_loop's algorithm: Jacobi-equilibrated by D = sqrt|diag M| of the
     Schur-Jacobi preconditioner M, cfg.cg_iterations steps, converged or dead
-    solves frozen through torch.where, nothing read back to the host). Up to
-    MAX_CAMS cameras the whole solve is one pcg_solve launch; past it the
-    steps run as a loop over K10 then K9."""
+    solves frozen, nothing read back to the host): at any camera count the
+    whole solve is one pcg_solve launch (past MAX_CAMS in its streaming
+    mode, with K10's coupling code)."""
     M_inv, d = pcg_preconditioner(ne, prob, inv)
-    if uses_big_kernels(prob):
-        return pcg_loop(lambda v: _schur_matvec_pcg(ne, prob, v, inv), M_inv, d, rhs,
-                        cfg.cg_iterations, cfg.cg_tolerance)
     return pcg_solve(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds,
                      inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm, ne.Hcc, M_inv, d,
                      rhs.contiguous(), cfg.cg_iterations, cfg.cg_tolerance, plan=inv.pcg_plan)
@@ -277,7 +336,7 @@ def _pcg(ne: NormalEq, prob: BAProblem, rhs: torch.Tensor, cfg: BAConfig,
 def _schur_rhs(ne: NormalEq, prob: BAProblem, inv: SolveInvariants) -> torch.Tensor:
     """rhs = bc - W Hpp^-1 bp."""
     h = torch.einsum("pij,pj->pi", ne.Hpp_inv, ne.bp)
-    y_t = _w_apply(ne.W_t, h[prob.obs_point.long()].T)
+    y_t = _w_apply(ne.W_t, h.index_select(0, prob.obs_point).T)
     return ne.bc - _cam_reduce(y_t, inv)
 
 
@@ -302,7 +361,7 @@ def _dense_schur_solve(ne: NormalEq, prob: BAProblem, rhs: torch.Tensor, inv: So
 
 def _back_substitute(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
     """dp = Hpp^-1 (bp - W^T dc)."""
-    u_t = _w_apply_T(ne.W_t, dc[prob.obs_cam.long()].T)
+    u_t = _w_apply_T(ne.W_t, dc.index_select(0, prob.obs_cam).T)
     g = ne.bp - _point_reduce(u_t, inv)
     return torch.einsum("pij,pj->pi", ne.Hpp_inv, g)
 
@@ -368,7 +427,7 @@ def bundle_adjust(prob: BAProblem, cfg: BAConfig) -> tuple[BAProblem, BAStats]:
     lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=cam_params.device)
     it = 0
     while it < cfg.max_iterations:
-        ne = build_normal_equations(prob, cam_params, points, lam, cfg, inv)
+        ne = build_normal_equations(prob, cam_params, points, lam, cfg, inv, schur_jacobi=not use_dense)
         rhs = _schur_rhs(ne, prob, inv)
         if use_dense:
             dc = _dense_schur_solve(ne, prob, rhs, inv)

@@ -37,6 +37,19 @@
 //  2. ne_cams_kernel: the packed pass of segment_sum.cuh per camera (the
 //     rows already lie in camera order, so K9's transpose-scatter drops
 //     out), with the diagonal damping folded in: Hcc [C, 6, 6], bc [C, 6].
+// For a PCG solve K3 also builds the Schur-Jacobi preconditioner's blocks
+// sum_c W Hpp^-1 W^T, which replace sfm_tpu/kernels/schur_spmv.py
+// whw_cam_reduce (K7) on the solver's path: the camera rows are then 64
+// floats wide, and after its chunks ne_points_kernel sweeps its slice once
+// more, when the damped Hpp^-1 of all its points are written (by this
+// block: slices hold whole points), one observation a thread in
+// observation order (W in contiguous rows, Hpp^-1 per point, which
+// neighbouring threads share), and stores the 21 distinct entries of
+// W_o Hpp^-1 W_o^T (schur_jacobi.cuh) beside the observation's camera row;
+// ne_cams_kernel sums 63 columns in place of 42 and writes the mirrored
+// blocks [C, 36] too. No launch of its own, and the dense solves (which
+// need no preconditioner) do not pay for it. The standalone whw_cam_reduce
+// entry (schur_kernels.cu) runs the same device code.
 //
 // fused_cost_sums (K5) replaces schur_spmv.py fused_cost_sums (Pallas: the
 // robust cost over observation tiles) together with the LM candidate of
@@ -80,6 +93,7 @@
 #include <cuda_runtime.h>
 
 #include "ba_project.cuh"
+#include "schur_jacobi.cuh"
 #include "segment_sum.cuh"
 
 namespace {
@@ -91,6 +105,9 @@ constexpr int kCostThreads = 256;
 constexpr int kSegThreads = 512;   // K3 and K5: observations per chunk, one a thread
 constexpr int kSegWarps = kSegThreads / 32;
 constexpr int kCamRows = 42;       // vec(Jc^T Jc) (36) then -Jc^T r (6)
+// With the Schur-Jacobi blocks: the camera row, the 21 entries of
+// W Hpp^-1 W^T, one unused float (16-byte rows).
+constexpr int kPcgRow = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The IRLS-weighted Jacobian rows of one observation: the two rows of Jc
@@ -231,8 +248,9 @@ struct NeArgs {
   const int* block_points;  // [G+1]
   int O, P, loss;
   float scale;
+  int row;                  // floats per packed row: kCamRows, or kPcgRow with the blocks
   float* w_t;               // [18, O]
-  float* packed;            // [M, 42]
+  float* packed;            // [M, row]
   float* hinv;              // [P, 9]
   float* bp;                // [P, 3]
 };
@@ -306,7 +324,10 @@ __device__ __forceinline__ bool segment_total(float (*rows)[kSegThreads], int ch
 // thread; then the first thread of each point segment in the chunk adds the
 // segment's terms from shared memory. Points without observations (the
 // capacity padding's slots among them) are finished by every block for its
-// share of [0, P), the zero-weight tail [N, O) of W likewise.
+// share of [0, P), the zero-weight tail [N, O) of W likewise. With the
+// Schur-Jacobi blocks (a.row == kPcgRow) a last sweep over the slice stores
+// each weighted observation's 21 entries of W Hpp^-1 W^T at columns
+// [42, 63) of its packed row.
 __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) {
   __shared__ float rows[9][kSegThreads];
   __shared__ float carry[2][9];
@@ -329,12 +350,21 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
                                a.static_t[(size_t)4 * O + o], a.zf, a.loss, a.scale);
       store_w(J, a.w_t, O, o);
       const int place = a.cam_inv_perm[o];
-      if (place >= 0) {
+      if (place >= 0 && a.row == kCamRows) {
         // 168 bytes per row: every row starts 8-byte aligned.
         float2* row = reinterpret_cast<float2*>(a.packed + (size_t)kCamRows * place);
 #pragma unroll
         for (int k = 0; k < kCamRows / 2; ++k)
           row[k] = make_float2(cam_entry(J, 2 * k), cam_entry(J, 2 * k + 1));
+      } else if (place >= 0) {
+        // 256 bytes per row: 16-byte stores.
+        float4* row = reinterpret_cast<float4*>(a.packed + (size_t)kPcgRow * place);
+#pragma unroll
+        for (int k = 0; k < kCamRows / 4; ++k)
+          row[k] = make_float4(cam_entry(J, 4 * k), cam_entry(J, 4 * k + 1),
+                               cam_entry(J, 4 * k + 2), cam_entry(J, 4 * k + 3));
+        reinterpret_cast<float2*>(row)[kCamRows / 2 - 1] =
+            make_float2(cam_entry(J, kCamRows - 2), cam_entry(J, kCamRows - 1));
       }
 #pragma unroll
       for (int k = 0; k < 9; ++k) rows[k][tid] = point_entry(J, k);
@@ -347,6 +377,22 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
         finish_point(a, pt, t, lam);
     }
     __syncthreads();
+  }
+  if (a.row == kPcgRow) {
+    // W and Hpp^-1 of the slice were written by this block before the last
+    // barrier.
+    for (int o = o_lo + tid; o < o_hi; o += kSegThreads) {
+      const int place = a.cam_inv_perm[o];
+      if (place < 0) continue;
+      float e[sfm::kWhwEntries];
+      sfm::whw_of_observation(a.w_t, a.hinv, O, o, a.obs_point[o], e);
+      // Column 42 of a 256-byte row: 8-byte aligned.
+      float* dst = a.packed + (size_t)kPcgRow * place + kCamRows;
+#pragma unroll
+      for (int k = 0; k < sfm::kWhwEntries / 2; ++k)
+        reinterpret_cast<float2*>(dst)[k] = make_float2(e[2 * k], e[2 * k + 1]);
+      dst[sfm::kWhwEntries - 1] = e[sfm::kWhwEntries - 1];
+    }
   }
   float zero[9];
 #pragma unroll
@@ -361,15 +407,20 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
 }
 
 // Camera c's 42 sums of the packed rows [cam_bounds[c], cam_bounds[c+1]),
-// the diagonal of Hcc damped by lam diag + 1e-6. blockDim = 32 * warps.
+// the diagonal of Hcc damped by lam diag + 1e-6; with whw (rows of kPcgRow
+// floats) also the 21 sums of W Hpp^-1 W^T, mirrored to whw [C, 36].
+// blockDim = 32 * warps.
 __global__ __launch_bounds__(32 * sfm::kMaxSegmentWarps) void ne_cams_kernel(
     const float* __restrict__ packed, const int* __restrict__ cam_bounds,
-    const float* __restrict__ lam, float* __restrict__ hcc, float* __restrict__ bc) {
+    const float* __restrict__ lam, float* __restrict__ hcc, float* __restrict__ bc,
+    float* __restrict__ whw) {
   __shared__ float part[sfm::kMaxSegmentWarps][sfm::kTileRows];
-  __shared__ float sums[kCamRows];
+  __shared__ float sums[kCamRows + sfm::kWhwEntries];
   const int c = blockIdx.x;
-  sfm::segment_sum_packed_rows(packed, cam_bounds[c], cam_bounds[c + 1], kCamRows, 0, kCamRows,
-                               part, sums);
+  const int row = whw != nullptr ? kPcgRow : kCamRows;
+  const int cols = whw != nullptr ? kCamRows + sfm::kWhwEntries : kCamRows;
+  sfm::segment_sum_packed_rows(packed, cam_bounds[c], cam_bounds[c + 1], row, 0, cols, part,
+                               sums);
   __syncthreads();
   const float l = *lam;
   for (int k = threadIdx.x; k < kCamRows; k += blockDim.x) {
@@ -381,6 +432,9 @@ __global__ __launch_bounds__(32 * sfm::kMaxSegmentWarps) void ne_cams_kernel(
       bc[6 * (size_t)c + k - 36] = v;
     }
   }
+  if (whw != nullptr)
+    for (int k = threadIdx.x; k < 36; k += blockDim.x)
+      whw[36 * (size_t)c + k] = sfm::whw_block_entry(sums + kCamRows, k);
 }
 
 // ---- K5: the LM candidate and its robust cost -------------------------------
@@ -649,23 +703,26 @@ __global__ __launch_bounds__(kCostThreads) void cost_finish_kernel(
 // point_bounds [P+1] covers [0, N); cam_inv_perm [N] gives each
 // observation's place among the M weighted ones in their stable camera sort
 // (-1: none), which cam_bounds [C+1] cuts into segments; cam_warps (1..32)
-// is the warps per camera of the camera pass. packed [M, 42] is
-// caller-allocated scratch. Two launches.
+// is the warps per camera of the camera pass. whw null: packed [M, 42] is
+// caller-allocated scratch. Otherwise packed is [M, 64] and whw [C, 36]
+// gets the Schur-Jacobi blocks. Two launches.
 extern "C" int sfm_fused_ne_payloads(
     const int* obs_cam, const int* obs_point, const float* points, const float* static_t,
     const float* cams, const float* intr, const float* zf, const float* lam,
     const int* point_bounds, const int* cam_inv_perm, const int* cam_bounds,
     const int* block_points, int O, int P, int C, int loss, float scale, int grid, int cam_warps,
-    float* w_t, float* packed, float* hinv, float* bp, float* hcc, float* bc, void* stream) {
+    float* w_t, float* packed, float* hinv, float* bp, float* hcc, float* bc, float* whw,
+    void* stream) {
   if (grid < 1 || cam_warps < 1 || cam_warps > sfm::kMaxSegmentWarps)
     return (int)cudaErrorInvalidValue;
   const NeArgs a{obs_cam, obs_point, points, static_t, cams, intr, zf, lam, point_bounds,
-                 cam_inv_perm, block_points, O, P, loss, scale, w_t, packed, hinv, bp};
+                 cam_inv_perm, block_points, O, P, loss, scale,
+                 whw != nullptr ? kPcgRow : kCamRows, w_t, packed, hinv, bp};
   ne_points_kernel<<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(a);
   const int err = (int)cudaGetLastError();
   if (err != 0 || C == 0) return err;
   ne_cams_kernel<<<C, 32 * cam_warps, 0, (cudaStream_t)stream>>>(packed, cam_bounds, lam, hcc,
-                                                                  bc);
+                                                                  bc, whw);
   return (int)cudaGetLastError();
 }
 

@@ -5,14 +5,20 @@
 // whw_cam_reduce replaces sfm_tpu/kernels/schur_spmv.py whw_cam_reduce
 // (Pallas: per-observation W Hpp^-1 W^T formed in VMEM, reduced into a
 // [36, C] accumulator by a one-hot MXU matmul over the sequential grid).
-// Bound on the H100: bytes — ~320 flops per observation against 80 bytes of
-// index, W and Hpp^-1 reads, and the reads are gathers. One block per camera
-// walks that camera's segment of the stable camera-sorting permutation;
-// each thread forms the 6x6 product of its observations in registers and
-// the block sums them in a fixed order (warp shuffles, then the warps in
-// order). The [O, 6, 6] payload never reaches device memory, there are no
-// float atomics, and a rerun gives identical bits. Hpp^-1 is read per point
-// ([P, 3, 3]) through the observation's point id: no [9, O] gather.
+// Bound on the H100: bytes — ~200 flops per observation against ~80 bytes of
+// index, W and Hpp^-1 reads. On the solver's path this kernel takes no
+// launch of its own: fused_ne_payloads (K3, ba_kernels.cu) builds the
+// blocks with the normal equations of a PCG solve, with the same device
+// code (schur_jacobi.cuh, segment_sum.cuh). The standalone entry here is
+// that code in two launches: one thread per observation in observation
+// order (W read in contiguous rows, Hpp^-1 per point, which neighbouring
+// threads share) forms the 21 distinct entries of W_o Hpp^-1 W_o^T and
+// stores them at the observation's camera-sorted place of a packed
+// [M, 24] scratch; then the packed pass of the sorted-segment reduction
+// sums each camera's rows, and the block is mirrored to [C, 36]. Observation
+// order, not camera order: gathering W's 18 feature-major rows in camera
+// order costs a 32-byte sector per 4-byte value and three dependent gathers
+// per observation. No float atomics, and a rerun gives identical bits.
 //
 // schur_coupling_matvec replaces schur_spmv.py schur_coupling_matvec
 // (Pallas: paged VPU gather of v, tile-local same-point pair indicator and
@@ -28,7 +34,6 @@
 // sorted-segment reduction (segment_sum.cuh) sums y by camera with
 // coalesced loads and no gather. No atomics anywhere: reruns are
 // bit-identical.
-
 //
 // whw_payloads_big replaces schur_spmv.py whw_payloads_big (Pallas: the
 // same W Hpp^-1 W^T tile written out per observation for camera counts whose
@@ -36,107 +41,66 @@
 // (W and the point id; Hpp^-1 is read per point and stays in cache, as
 // observations are sorted by point) and 144 out per observation against
 // ~320 flops. One thread per observation in observation order, so W is read
-// in contiguous rows (whw_cam_reduce gathers it in camera order) and the
-// [36, O] payload is stored feature-major for the sorted-segment reduction.
+// in contiguous rows and the [36, O] payload is stored feature-major for
+// the sorted-segment reduction.
 //
 // schur_coupling_payloads_big replaces schur_spmv.py
 // schur_coupling_payloads_big (Pallas: v gathered per observation outside
 // the kernel, the per-point sum through a tile-local same-point indicator
 // matmul that needs every point segment inside one tile). Bound: bytes —
-// W is read twice (144 bytes per observation), v 24, y 24. Observation-
-// parallel, for long tracks: one thread per observation forms
-// u_o = W_o^T v_o [3, O]; the deterministic sorted-segment reduction
-// (segment_sum.cuh) sums u over each point's contiguous segment into g_p, a
-// sub-warp group per point, so a segment of any length and at any offset is
-// one group's work and no segment straddles anything; then one thread per
-// observation forms y_o = W_o (Hpp^-1_p g_p) [6, O]. The caller reduces y by
-// camera. No atomics: reruns are bit-identical.
-
-//
-// pcg_solve replaces sfm_tpu/ba/core.py _pcg (a jax.lax.fori_loop of
-// cfg.cg_iterations CG steps over schur_spmv.py schur_coupling_matvec, one
-// device program): the whole preconditioned CG solve of the reduced camera
-// system in one cooperative launch. Bound: bytes — W (72 bytes per
-// observation) is read every step by the coupling matvec; the camera
-// vectors are a few KB. What the design does about it: each block copies
-// its slice of the observations (W's 18 rows, the camera and the
-// camera-sorted place, 80 bytes per observation; slices balanced by
-// observation count and cut at point boundaries) into shared memory once,
-// with 16-byte cp.async chunks, and every step reads W from there; only the
-// packed y rows and the camera vectors go through L2. A step is four phases
-// between grid barriers: (A) K11's point code per point of the block's
-// slice, a group of 1-32 lanes per point (the plan's width for the mean
-// track length: a warp per point would leave most lanes idle on tracks of
-// 3-5 views); (B) the packed camera sums of segment_sum.cuh per camera of the
-// block (cameras c = b, b + G, ...), then Ap = (Hcc v - coupling) / d and
-// the block's partials of p.Ap and r.r; (C) every block adds all partials in
-// index order (identical bits everywhere, so every block takes the same
-// done, dead and alpha), updates x and r and forms z = d M^-1 (d r); (D) the
-// same for r.z, then p and v = p / d. A lane group of 8 owns a camera's six
-// rows in (C) and (D), so x, r, z and p are read and written by one thread
-// only. When the largest slice does not fit the shared-memory budget, the
-// same kernel (template flag) reads W from device memory every step. No
-// float atomics: a rerun gives identical bits.
+// W 72 bytes per observation, v 24 in, y 24 out. It is K11's point code
+// (coupling_point) with v read per observation ([6, O]) and y_o written in
+// observation order ([6, O]) for the caller's camera reduction: a group of
+// 1-32 lanes per point (32 on the merged model's tracks of 40-150 views).
+// The same code is the coupling phase of pcg_solve past 4,096 cameras, so
+// this entry's check holds what that solve runs; u and the point sums stay
+// in registers. No atomics: reruns are bit-identical.
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 
 #include <cstdint>
 
+#include "schur_jacobi.cuh"
 #include "segment_sum.cuh"
 
 namespace {
 
-constexpr int kWhwThreads = 128;
 constexpr int kPointThreads = 128;
+constexpr int kObsThreads = 128;
+constexpr int kWhwRow = 24;  // floats per packed row of the standalone K7: 21 entries, 16-byte rows
 
-__global__ __launch_bounds__(kWhwThreads) void whw_cam_kernel(
+// K7, first pass: the 21 entries of each weighted observation of [0, N) at
+// its camera-sorted place of packed [M, kWhwRow].
+__global__ __launch_bounds__(kObsThreads) void whw_rows_kernel(
     const float* __restrict__ w_t, const float* __restrict__ hinv,
-    const int* __restrict__ obs_point, const int* __restrict__ cam_perm,
-    const int* __restrict__ cam_bounds, int O, float* __restrict__ out) {
-  __shared__ float part[kWhwThreads / 32][36];
+    const int* __restrict__ obs_point, const int* __restrict__ cam_inv_perm, int O, int N,
+    float* __restrict__ packed) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= N) return;
+  const int place = cam_inv_perm[o];
+  if (place < 0) return;  // a zero-weight row: of no camera segment
+  float e[sfm::kWhwEntries];
+  sfm::whw_of_observation(w_t, hinv, O, o, obs_point[o], e);
+  float4* row = reinterpret_cast<float4*>(packed + (size_t)kWhwRow * place);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) row[k] = make_float4(e[4 * k], e[4 * k + 1], e[4 * k + 2], e[4 * k + 3]);
+  packed[(size_t)kWhwRow * place + 20] = e[20];
+}
+
+// K7, second pass: camera c's 21 sums, mirrored to its [36] block.
+// blockDim = 32 * warps.
+__global__ __launch_bounds__(32 * sfm::kMaxSegmentWarps) void whw_cams_kernel(
+    const float* __restrict__ packed, const int* __restrict__ cam_bounds,
+    float* __restrict__ out) {
+  __shared__ float part[sfm::kMaxSegmentWarps][sfm::kTileRows];
+  __shared__ float sums[sfm::kWhwEntries];
   const int c = blockIdx.x;
-  const int lo = cam_bounds[c], hi = cam_bounds[c + 1];
-  float acc[36];
-#pragma unroll
-  for (int k = 0; k < 36; ++k) acc[k] = 0.0f;
-  for (int i = lo + threadIdx.x; i < hi; i += kWhwThreads) {
-    const int o = cam_perm[i];
-    const float* h = hinv + 9 * (size_t)obs_point[o];
-    float W[18], H[9], u[18];
-#pragma unroll
-    for (int k = 0; k < 18; ++k) W[k] = w_t[(size_t)k * O + o];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) H[k] = h[k];
-    // u[i, l] = sum_k W[i, k] Hinv[k, l];  whw[i, j] = sum_l u[i, l] W[j, l].
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-#pragma unroll
-      for (int l = 0; l < 3; ++l)
-        u[r * 3 + l] = W[r * 3] * H[l] + W[r * 3 + 1] * H[3 + l] +
-                       W[r * 3 + 2] * H[6 + l];
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-#pragma unroll
-      for (int j = 0; j < 6; ++j)
-        acc[r * 6 + j] += u[r * 3] * W[j * 3] + u[r * 3 + 1] * W[j * 3 + 1] +
-                          u[r * 3 + 2] * W[j * 3 + 2];
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 36; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) part[warp][k] = v;
-  }
+  sfm::segment_sum_packed_rows(packed, cam_bounds[c], cam_bounds[c + 1], kWhwRow, 0,
+                               sfm::kWhwEntries, part, sums);
   __syncthreads();
-  if (threadIdx.x < 36) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWhwThreads / 32; ++w) s += part[w][threadIdx.x];
-    out[(size_t)c * 36 + threadIdx.x] = s;
-  }
+  for (int k = threadIdx.x; k < 36; k += blockDim.x)
+    out[36 * (size_t)c + k] = sfm::whw_block_entry(sums, k);
 }
 
 // Per-observation rows of the coupling matvec as they lie in device memory:
@@ -154,29 +118,73 @@ struct GlobalObs {
   __device__ __forceinline__ int sorted_place(int o) const { return place[o]; }
 };
 
+// Where the coupling of K11 and pcg_solve reads v and writes y: v is a
+// [C, 6] table read through the observation's camera, y_o goes to its
+// camera-sorted place of y_packed [M, 6] (no row for a zero-weight one).
+// Plain loads and stores: the fused PCG solve rewrites v and reads y_packed
+// in the same launch.
+struct CameraIo {
+  const float* v;
+  float* y_packed;
+  // Rows of 24 bytes (8-byte aligned): three 8-byte accesses each.
+  template <class Obs>
+  __device__ __forceinline__ void load_v(const Obs& obs, int o, float (&vo)[6]) const {
+    const float2* vc = reinterpret_cast<const float2*>(v + 6 * (size_t)obs.camera(o));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float2 t = vc[i];
+      vo[2 * i] = t.x;
+      vo[2 * i + 1] = t.y;
+    }
+  }
+  template <class Obs>
+  __device__ __forceinline__ int dest(const Obs& obs, int o) const { return obs.sorted_place(o); }
+  __device__ __forceinline__ void store_y(int dst, const float (&y)[6]) const {
+    float2* row = reinterpret_cast<float2*>(y_packed + 6 * (size_t)dst);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[i] = make_float2(y[2 * i], y[2 * i + 1]);
+  }
+};
+
+// K10's: v gathered per observation (v_obs_t [6, O]), y_o written in
+// observation order (y_t [6, O]).
+struct ObservationIo {
+  const float* __restrict__ v_obs_t;
+  float* __restrict__ y_t;
+  int O;
+  template <class Obs>
+  __device__ __forceinline__ void load_v(const Obs&, int o, float (&vo)[6]) const {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) vo[i] = v_obs_t[(size_t)i * O + o];
+  }
+  template <class Obs>
+  __device__ __forceinline__ int dest(const Obs&, int o) const { return o; }
+  __device__ __forceinline__ void store_y(int dst, const float (&y)[6]) const {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) y_t[(size_t)i * O + dst] = y[i];
+  }
+};
+
 // One point's share of (W Hpp^-1 W^T) v, by a group of `width` lanes (a
 // power of two <= 32; lane is the lane's place in its group; all 32 lanes of
 // the warp call it together, each group with its own point, so the
 // shuffles see the whole warp; p < 0 with lo = hi for a group without a
-// point): u_o = W_o^T v[cam_o] summed over the point's observations [lo, hi)
-// into g_p, h_p = Hpp^-1_p g_p, y_o = W_o h_p written to the observation's
-// camera-sorted place of y_packed [M, 6]. v and y_packed take plain loads and
-// stores: the fused PCG solve rewrites v and reads y_packed in the same
-// launch.
-template <class Obs>
+// point): u_o = W_o^T v_o summed over the point's observations [lo, hi)
+// into g_p, h_p = Hpp^-1_p g_p, y_o = W_o h_p written where io puts it.
+template <class Obs, class Io>
 __device__ __forceinline__ void coupling_point(
-    const Obs& obs, const float* __restrict__ hinv, const float* v, int p,
-    int lo, int hi, int lane, int width, float* y_packed) {
+    const Obs& obs, const Io& io, const float* __restrict__ hinv, int p, int lo, int hi,
+    int lane, int width) {
   float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
   for (int o = lo + lane; o < hi; o += width) {
-    const float* vc = v + 6 * (size_t)obs.camera(o);
+    float vo[6];
+    io.load_v(obs, o, vo);
     float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f;
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
-      const float vi = vc[i];
-      u0 += obs.w(i * 3, o) * vi;
-      u1 += obs.w(i * 3 + 1, o) * vi;
-      u2 += obs.w(i * 3 + 2, o) * vi;
+      u0 += obs.w(i * 3, o) * vo[i];
+      u1 += obs.w(i * 3 + 1, o) * vo[i];
+      u2 += obs.w(i * 3 + 2, o) * vo[i];
     }
     g0 += u0;
     g1 += u1;
@@ -195,13 +203,13 @@ __device__ __forceinline__ void coupling_point(
   const float h1 = h[3] * g0 + h[4] * g1 + h[5] * g2;
   const float h2 = h[6] * g0 + h[7] * g1 + h[8] * g2;
   for (int o = lo + lane; o < hi; o += width) {
-    const int place = obs.sorted_place(o);
-    if (place < 0) continue;  // a zero-weight row: of no camera segment
-    float* y = y_packed + 6 * (size_t)place;
+    const int dst = io.dest(obs, o);
+    if (dst < 0) continue;  // a zero-weight row: of no camera segment
+    float y[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i)
-      y[i] = obs.w(i * 3, o) * h0 + obs.w(i * 3 + 1, o) * h1 +
-             obs.w(i * 3 + 2, o) * h2;
+      y[i] = obs.w(i * 3, o) * h0 + obs.w(i * 3 + 1, o) * h1 + obs.w(i * 3 + 2, o) * h2;
+    io.store_y(dst, y);
   }
 }
 
@@ -214,12 +222,28 @@ __global__ __launch_bounds__(kPointThreads) void coupling_point_kernel(
   // together.
   const int p = blockIdx.x * (kPointThreads / 32) + (threadIdx.x >> 5);
   if (p >= P) return;
-  coupling_point(GlobalObs{w_t, obs_cam, cam_inv_perm, O}, hinv, v, p,
-                 point_bounds[p], point_bounds[p + 1], threadIdx.x & 31, 32,
-                 y_packed);
+  coupling_point(GlobalObs{w_t, obs_cam, cam_inv_perm, O}, CameraIo{v, y_packed}, hinv, p,
+                 point_bounds[p], point_bounds[p + 1], threadIdx.x & 31, 32);
 }
 
-constexpr int kObsThreads = 128;
+// K10: a group of `lanes` lanes per point, consecutive groups on
+// consecutive points; then the unweighted tail [N, O) of y_t, each block its
+// share.
+__global__ __launch_bounds__(kPointThreads) void coupling_big_kernel(
+    const float* __restrict__ w_t, const float* __restrict__ hinv,
+    const int* __restrict__ point_bounds, const float* __restrict__ v_obs_t, int O, int P,
+    int N, int lanes, float* __restrict__ y_t) {
+  const int p = blockIdx.x * (kPointThreads / lanes) + (int)threadIdx.x / lanes;
+  const bool has = p < P;
+  coupling_point(GlobalObs{w_t, nullptr, nullptr, O}, ObservationIo{v_obs_t, y_t, O}, hinv,
+                 has ? p : -1, has ? point_bounds[p] : 0, has ? point_bounds[p + 1] : 0,
+                 threadIdx.x & (lanes - 1), lanes);
+  for (int o = N + blockIdx.x * kPointThreads + threadIdx.x; o < O;
+       o += gridDim.x * kPointThreads) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) y_t[(size_t)i * O + o] = 0.0f;
+  }
+}
 
 __global__ __launch_bounds__(kObsThreads) void whw_payloads_kernel(
     const float* __restrict__ w_t, const float* __restrict__ hinv,
@@ -248,52 +272,44 @@ __global__ __launch_bounds__(kObsThreads) void whw_payloads_kernel(
           u[r * 3 + 2] * W[j * 3 + 2];
 }
 
-// u_o = W_o^T v_o: w_t [18, O], v_obs_t [6, O] -> u_t [3, O].
-__global__ __launch_bounds__(kObsThreads) void coupling_u_kernel(
-    const float* __restrict__ w_t, const float* __restrict__ v_obs_t, int O,
-    float* __restrict__ u_t) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= O) return;
-  float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const float vi = v_obs_t[(size_t)i * O + o];
-    u0 += w_t[(size_t)(i * 3) * O + o] * vi;
-    u1 += w_t[(size_t)(i * 3 + 1) * O + o] * vi;
-    u2 += w_t[(size_t)(i * 3 + 2) * O + o] * vi;
-  }
-  u_t[o] = u0;
-  u_t[(size_t)O + o] = u1;
-  u_t[(size_t)2 * O + o] = u2;
-}
-
-// y_o = W_o Hpp^-1_p g_p for the observations [0, N) that the point
-// segments cover, zero for the unweighted tail [N, O).
-__global__ __launch_bounds__(kObsThreads) void coupling_y_kernel(
-    const float* __restrict__ w_t, const float* __restrict__ hinv,
-    const int* __restrict__ obs_point, const float* __restrict__ g, int O,
-    int N, float* __restrict__ y_t) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= O) return;
-  float h0 = 0.0f, h1 = 0.0f, h2 = 0.0f;
-  if (o < N) {
-    const size_t p = (size_t)obs_point[o];
-    const float* h = hinv + 9 * p;
-    const float g0 = g[3 * p], g1 = g[3 * p + 1], g2 = g[3 * p + 2];
-    h0 = h[0] * g0 + h[1] * g1 + h[2] * g2;
-    h1 = h[3] * g0 + h[4] * g1 + h[5] * g2;
-    h2 = h[6] * g0 + h[7] * g1 + h[8] * g2;
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-    y_t[(size_t)i * O + o] =
-        o < N ? w_t[(size_t)(i * 3) * O + o] * h0 +
-                    w_t[(size_t)(i * 3 + 1) * O + o] * h1 +
-                    w_t[(size_t)(i * 3 + 2) * O + o] * h2
-              : 0.0f;
-}
-
 // ---- pcg_solve --------------------------------------------------------------
+//
+// pcg_solve replaces sfm_tpu/ba/core.py _pcg (a jax.lax.fori_loop of
+// cfg.cg_iterations CG steps over schur_spmv.py schur_coupling_matvec, or
+// schur_coupling_payloads_big past its two-level kernel's reach, one device
+// program): the whole preconditioned CG solve of the reduced camera system
+// in one cooperative launch, at every camera count. Bound: bytes — W (72
+// bytes per observation) is read every step by the coupling matvec; the
+// camera vectors are a few KB at 128 cameras and 240 KB at 10,240. What the
+// design does about it: where the largest slice fits the shared-memory
+// budget, each block copies its slice of the observations (W's 18 rows, the
+// camera and the camera-sorted place, 80 bytes per observation; slices
+// balanced by observation count and cut at point boundaries) into shared
+// memory once, with 16-byte cp.async chunks, and every step reads W from
+// there; only the packed y rows and the camera vectors go through L2. Past
+// that (the merged model's 1.5 M observations hold ~110 MB of W, more than
+// the 50 MB L2 and the SMs' shared memory together) the same kernel
+// (template flag) reads W from device memory every step, the slices still
+// cut at point boundaries, so a point's sums stay inside one block. A step
+// is four phases between grid barriers: (A) the coupling code of
+// K10/K11 (coupling_point) per point of the block's slice, a group of 1-32
+// lanes per point (the plan's width for the mean track length: a warp per
+// point would leave most lanes idle on tracks of 3-5 views); (B) the packed
+// camera sums of segment_sum.cuh for the block's cameras c = b, b + G, ...,
+// several cameras at once: a team of 16 / t warps per camera for t cameras a
+// pass (t the least power of two that covers the most cameras a block owns,
+// up to one warp a camera), each team adding its camera's rows in a fixed
+// order, then Ap = (Hcc v - coupling) / d and the block's partials of p.Ap
+// and r.r; (C) every block adds all partials in index order (identical bits
+// everywhere, so every block takes the same done, dead and alpha), updates x
+// and r and forms z = d M^-1 (d r); (D) the same for r.z, then p and
+// v = p / d. A lane group of 8 owns a camera's six rows in (C) and (D), so
+// x, r, z and p are read and written by one thread only; the
+// preconditioner's six-term products are summed in double (the merged
+// polish's equilibrated blocks cancel ~4 digits). (B) takes cameras in
+// teams because a block owns up to 78 of them at 10,240 cameras, and one
+// at a time costs two block barriers each. No float atomics: a rerun gives
+// identical bits.
 
 constexpr int kPcgThreads = 512;
 constexpr int kPcgWarps = kPcgThreads / 32;
@@ -411,8 +427,11 @@ __device__ __forceinline__ void grid_total2(const float* pa, const float* pb, in
   __syncthreads();
 }
 
+// Streaming mode keeps two blocks on an SM (at most 64 registers a thread):
+// its coupling phase waits on device memory, and 32 warps an SM hide more
+// of that wait than 16.
 template <bool kResident>
-__global__ __launch_bounds__(kPcgThreads, 1) void pcg_solve_kernel(const PcgArgs a) {
+__global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kernel(const PcgArgs a) {
   __shared__ float part_s[kPcgWarps][sfm::kTileRows];
   __shared__ float red[kPcgWarps][2];
   __shared__ float bcast[2];
@@ -434,6 +453,14 @@ __global__ __launch_bounds__(kPcgThreads, 1) void pcg_solve_kernel(const PcgArgs
   // grp owns one camera per pass and its lane `row` < 6 one row of it.
   const int ncam = b < a.C ? (a.C - 1 - b) / G + 1 : 0;
   const int grp = threadIdx.x >> 3, row = threadIdx.x & 7, gbase = lane & ~7;
+  // (B)'s teams: the least power of two t of cameras a pass that covers the
+  // most cameras any block owns (at most one a warp), 16 / t warps a team.
+  // It depends on C and G alone, so the order of every sum is fixed.
+  const int ncam_max = (a.C + G - 1) / G;
+  int teams = 1;
+  while (teams < kPcgWarps && teams < ncam_max) teams <<= 1;
+  const int team_warps = kPcgWarps / teams;
+  const int warp = threadIdx.x >> 5, team = warp / team_warps, twarp = warp % team_warps;
 
   SharedObs sobs{};
   if constexpr (kResident) {
@@ -450,6 +477,7 @@ __global__ __launch_bounds__(kPcgThreads, 1) void pcg_solve_kernel(const PcgArgs
                      s, o_lo, word_shift(a.w_t + o_lo), a.O & 3};
   }
   const GlobalObs gobs{a.w_t, a.obs_cam, a.cam_inv_perm, a.O};
+  const CameraIo io{a.v, a.y_packed};
 
   // fn(live, c, e) for every (camera, row) of the block; every thread calls
   // fn the same number of times (a block-uniform count), so fn may shuffle
@@ -462,24 +490,30 @@ __global__ __launch_bounds__(kPcgThreads, 1) void pcg_solve_kernel(const PcgArgs
       fn(live, c, (size_t)c * 6 + row);
     }
   };
-  // d_e (M^-1 (d r))_e for the row of this lane, dr = d r of this lane's row.
-  auto precond = [&](bool live, int c, float dd, float dr) {
-    float acc = 0.0f;
+  // d_e (M^-1 (d r))_e for the row of this lane, dr = d r of this lane's
+  // row. In double: the equilibrated blocks of M^-1 are ill-conditioned
+  // (on the merged polish this six-term product cancels ~4 digits, and in
+  // fp32 it sets the solve's error after one step: chip_smoke's
+  // pcg_solve_big row logs the plain fp32 version's), and its cost is 36
+  // FMAs a camera.
+  auto precond = [&](bool live, int c, float dd, double dr) {
+    double acc = 0.0;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      const float drj = __shfl_sync(kAll, dr, gbase + j);
-      if (live) acc += a.minv[(size_t)c * 36 + row * 6 + j] * drj;
+      const double drj = __shfl_sync(kAll, dr, gbase + j);
+      if (live) acc += (double)a.minv[(size_t)c * 36 + row * 6 + j] * drj;
     }
-    return dd * acc;
+    return (float)((double)dd * acc);
   };
 
-  // b = rhs / d, x = 0, r = b, z = M^-1 r, p = z; rz = r.z, |b|^2.
+  // b = rhs / d, x = 0, r = b, z = M^-1 r, p = z (d b = rhs exactly);
+  // rz = r.z, |b|^2.
   float acc_a = 0.0f, acc_b = 0.0f;
   each_camera_row([&](bool live, int c, size_t e) {
     const float dd = live ? a.d[e] : 1.0f;
     const float dinv = 1.0f / dd;
     const float bv = live ? dinv * a.rhs[e] : 0.0f;
-    const float z = precond(live, c, dd, dd * bv);
+    const float z = precond(live, c, dd, live ? (double)a.rhs[e] : 0.0);
     if (live) {
       a.x[e] = 0.0f;
       a.r[e] = bv;
@@ -510,17 +544,27 @@ __global__ __launch_bounds__(kPcgThreads, 1) void pcg_solve_kernel(const PcgArgs
       const int lo = has ? a.point_bounds[pt] : 0, hi = has ? a.point_bounds[pt + 1] : 0;
       const int sub = threadIdx.x & (a.lanes - 1);
       if constexpr (kResident)
-        coupling_point(sobs, a.hinv, a.v, has ? pt : -1, lo, hi, sub, a.lanes, a.y_packed);
+        coupling_point(sobs, io, a.hinv, has ? pt : -1, lo, hi, sub, a.lanes);
       else
-        coupling_point(gobs, a.hinv, a.v, has ? pt : -1, lo, hi, sub, a.lanes, a.y_packed);
+        coupling_point(gobs, io, a.hinv, has ? pt : -1, lo, hi, sub, a.lanes);
     }
     grid.sync();
 
-    // (B) coupling per camera into ap, then Ap = (Hcc v - coupling) / d.
-    for (int j = 0; j < ncam; ++j) {
+    // (B) coupling per camera into ap, `teams` cameras a pass; then
+    // Ap = (Hcc v - coupling) / d.
+    for (int j0 = 0; j0 < ncam; j0 += teams) {
+      const int j = j0 + team;
+      const bool live = j < ncam;
       const int c = b + j * G;
-      sfm::segment_sum_packed_rows(a.y_packed, a.cam_bounds[c], a.cam_bounds[c + 1], 6, 0, 6,
-                                   part_s, a.ap + (size_t)c * 6);
+      sfm::segment_sum_packed_warp(a.y_packed, live ? a.cam_bounds[c] : 0,
+                                   live ? a.cam_bounds[c + 1] : 0, 6, 0, 6, twarp, team_warps,
+                                   part_s[warp]);
+      __syncthreads();
+      if (twarp == 0 && lane < 6 && live) {
+        float s = 0.0f;
+        for (int w = 0; w < team_warps; ++w) s += part_s[team * team_warps + w][lane];
+        a.ap[(size_t)c * 6 + lane] = s;
+      }
       __syncthreads();
     }
     acc_a = 0.0f;
@@ -558,7 +602,7 @@ __global__ __launch_bounds__(kPcgThreads, 1) void pcg_solve_kernel(const PcgArgs
         re = a.r[e] - alpha * a.ap[e];
         a.r[e] = re;
       }
-      const float z = precond(live, c, dd, dd * re);
+      const float z = precond(live, c, dd, (double)dd * re);
       if (live) {
         a.z[e] = z;
         acc_a += re * z;
@@ -615,32 +659,37 @@ extern "C" int sfm_whw_payloads_big(const float* w_t, const float* hinv,
   return (int)cudaGetLastError();
 }
 
-// u_t [3, O] and g [P, 3] are caller-allocated scratch; point_bounds [P+1]
-// covers the observations [0, N) (sorted by point); seg_lanes is the
-// sub-warp group width of the point-side reduction.
+// point_bounds [P+1] covers the observations [0, N) (sorted by point);
+// `lanes` (a power of two <= 32) lanes walk one point. One launch; rows
+// [N, O) of y_t are zero.
 extern "C" int sfm_schur_coupling_payloads_big(
-    const float* w_t, const float* hinv, const int* obs_point,
-    const int* point_bounds, const float* v_obs_t, int O, int P, int N,
-    int seg_lanes, float* u_t, float* g, float* y_t, void* stream) {
-  const int blocks = (O + kObsThreads - 1) / kObsThreads;
-  coupling_u_kernel<<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(
-      w_t, v_obs_t, O, u_t);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  err = sfm::launch_segment_sum(u_t, nullptr, point_bounds, O, 3, P, N,
-                                seg_lanes, nullptr, g, (cudaStream_t)stream);
-  if (err != 0) return err;
-  coupling_y_kernel<<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(
-      w_t, hinv, obs_point, g, O, N, y_t);
+    const float* w_t, const float* hinv, const int* point_bounds, const float* v_obs_t,
+    int O, int P, int N, int lanes, float* y_t, void* stream) {
+  if (P < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kPointThreads / lanes;
+  const int blocks = (P + per_block - 1) / per_block;
+  coupling_big_kernel<<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
+      w_t, hinv, point_bounds, v_obs_t, O, P, N, lanes, y_t);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sfm_whw_cam_reduce(const float* w_t, const float* hinv,
-                                  const int* obs_point, const int* cam_perm,
-                                  const int* cam_bounds, int O, int C,
-                                  float* out, void* stream) {
-  whw_cam_kernel<<<C, kWhwThreads, 0, (cudaStream_t)stream>>>(
-      w_t, hinv, obs_point, cam_perm, cam_bounds, O, out);
+// The weighted observations of [0, N): cam_inv_perm [N] gives each one's
+// place among the M of them in their stable camera sort (-1: a zero-weight
+// row), which cam_bounds [C+1] cuts into segments; packed [M, 24] is
+// caller-allocated scratch and warps (1..32) the warps per camera of the
+// camera pass. Two launches.
+extern "C" int sfm_whw_cam_reduce(const float* w_t, const float* hinv, const int* obs_point,
+                                  const int* cam_inv_perm, const int* cam_bounds, int O, int N,
+                                  int C, int warps, float* packed, float* out, void* stream) {
+  if (warps < 1 || warps > sfm::kMaxSegmentWarps) return (int)cudaErrorInvalidValue;
+  if (N > 0) {
+    whw_rows_kernel<<<(N + kObsThreads - 1) / kObsThreads, kObsThreads, 0,
+                      (cudaStream_t)stream>>>(w_t, hinv, obs_point, cam_inv_perm, O, N, packed);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  whw_cams_kernel<<<C, 32 * warps, 0, (cudaStream_t)stream>>>(packed, cam_bounds, out);
   return (int)cudaGetLastError();
 }
 

@@ -124,19 +124,19 @@ __device__ __forceinline__ void kahan_add(float& acc, float& c, float v) {
   acc = t;
 }
 
-// Second pass, one segment: out[r] = sum of packed[m, k0 + r] over m in
-// [lo, hi) for r < kw <= kTileRows, packed [M, K] observation-major, summed
-// by the block's blockDim.x / 32 <= kMaxSegmentWarps warps (every thread of
-// the block calls it; part is shared scratch of as many rows). With a chunk
-// of kw <= 32 rows a warp covers 32 / kw observations per step (lane ->
+// Second pass, one warp's share of one segment: warp `warp` of a team of
+// `warps` warps that owns the segment [lo, hi) of packed [M, K]
+// (observation-major) adds every `warps`-th step of the segment's
+// observations for the rows k0 + r, r < kw <= kTileRows, and writes its sums
+// to part_row[r]. All 32 lanes of the warp call it together. With a chunk of
+// kw <= 32 rows a warp covers 32 / kw observations per step (lane ->
 // (observation, row)); with 32 < kw <= 64 a lane covers rows lane and
 // lane + 32 of one observation. packed is read with plain loads: the fused
 // PCG solve (schur_kernels.cu) writes it in the same launch.
-__device__ __forceinline__ void segment_sum_packed_rows(
-    const float* packed, int lo, int hi, int K, int k0, int kw,
-    float (*part)[kTileRows], float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
+__device__ __forceinline__ void segment_sum_packed_warp(
+    const float* packed, int lo, int hi, int K, int k0, int kw, int warp, int warps,
+    float* part_row) {
+  const int lane = threadIdx.x & 31;
   const bool wide = kw > 32;
   const int nsub = wide ? 1 : 32 / kw;
   const int sub = wide ? 0 : lane / kw;
@@ -174,11 +174,23 @@ __device__ __forceinline__ void segment_sum_packed_rows(
     float tot = 0.0f;
     for (int s = 0; s < nsub; ++s)
       tot += __shfl_sync(kFullMask, acc0, (k + s * kw) & 31);
-    if (lane < kw) part[warp][lane] = tot;
+    if (lane < kw) part_row[lane] = tot;
   } else {
-    part[warp][lane] = acc0;
-    if (on1) part[warp][lane + 32] = acc1;
+    part_row[lane] = acc0;
+    if (on1) part_row[lane + 32] = acc1;
   }
+}
+
+// Second pass, one segment: out[r] = sum of packed[m, k0 + r] over m in
+// [lo, hi) for r < kw <= kTileRows, by the block's blockDim.x / 32 <=
+// kMaxSegmentWarps warps (every thread of the block calls it; part is shared
+// scratch of as many rows): each warp's share (segment_sum_packed_warp),
+// then the warps' sums in warp order.
+__device__ __forceinline__ void segment_sum_packed_rows(
+    const float* packed, int lo, int hi, int K, int k0, int kw,
+    float (*part)[kTileRows], float* out) {
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  segment_sum_packed_warp(packed, lo, hi, K, k0, kw, warp, warps, part[warp]);
   __syncthreads();
   for (int r = threadIdx.x; r < kw; r += blockDim.x) {
     float s = 0.0f;

@@ -16,7 +16,13 @@ Wrapper contract (one Python function per kernel):
   the wrapper raises: there is no fallback;
 - inputs are checked for device, dtype, shape and contiguity; outputs are
   allocated with ``torch.empty``;
-- each launch adds one to ``LAUNCHES[name]``, and nothing else does.
+- each launch adds one to ``LAUNCHES[name]``, and nothing else does. Two
+  launches run the device code of another kernel too and count for it
+  where they do: ``fused_ne_payloads`` with the Schur-Jacobi blocks runs
+  ``whw_cam_reduce``'s and adds one to its count as well; ``pcg_solve``
+  past ``ba_kernels.MAX_CAMS`` cameras counts as ``pcg_solve_big`` (its
+  coupling phase is ``schur_coupling_payloads_big``'s device code, as
+  ``pcg_solve``'s is ``schur_coupling_matvec``'s).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ LAUNCHES: dict[str, int] = {
     "whw_payloads_big": 0,
     "schur_coupling_payloads_big": 0,
     "pcg_solve": 0,
+    "pcg_solve_big": 0,
 }
 
 _P = ctypes.c_void_p
@@ -60,15 +67,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sfm_dog_extrema": (_P, _P, _I, _I, _I, _I, _F, _P),
     "sfm_match_topk2": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "sfm_fused_ne_payloads": (_P,) * 12 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 7,
+    "sfm_fused_ne_payloads": (_P,) * 12 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 8,
     "sfm_fused_cost_sums": (_P,) * 15 + (_I, _I, _I, _I, _F, _I) + (_P,) * 6,
     "sfm_segment_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "sfm_whw_cam_reduce": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "sfm_whw_cam_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "sfm_schur_coupling_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "sfm_fused_ne_payloads_big": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
     "sfm_fused_cost_sums_big": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P, _P),
     "sfm_whw_payloads_big": (_P, _P, _P, _I, _P, _P),
-    "sfm_schur_coupling_payloads_big": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "sfm_schur_coupling_payloads_big": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "sfm_pcg_blocks_per_sm": (_I, _I, ctypes.POINTER(_I)),
     "sfm_pcg_solve": (_P,) * 11 + (_I, _I, _I, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }

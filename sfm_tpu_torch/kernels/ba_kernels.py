@@ -2,16 +2,18 @@
 fused_cost_sums_big and K9 cam_segment_sum (csrc/ba_kernels.cu,
 csrc/ba_project.cuh), K7 whw_cam_reduce, K8 whw_payloads_big, K10
 schur_coupling_payloads_big, K11 schur_coupling_matvec and pcg_solve, the
-whole PCG solve over K11's device code in one launch
-(csrc/schur_kernels.cu).
+whole PCG solve over K10's and K11's device code in one launch
+(csrc/schur_kernels.cu, csrc/schur_jacobi.cuh).
 
 Replace the functions of the same names in sfm_tpu/kernels/schur_spmv.py;
-pcg_solve replaces sfm_tpu/ba/core.py _pcg (a fori_loop over K11). K3 also
+pcg_solve replaces sfm_tpu/ba/core.py _pcg (a fori_loop over K11, or over
+K10 past its two-level kernel's reach) at every camera count. K3 also
 takes in the reductions, damping and inversions of sfm_tpu's
-build_normal_equations (the damped normal equations in two launches), and
-K5 the LM candidate of its bundle_adjust_impl (back-substitution, freeze
-masks, candidate parameters and their cost in one launch); both walk the
-point segments on pcg_solve's plan.
+build_normal_equations (the damped normal equations in two launches, for a
+PCG solve with the Schur-Jacobi blocks of K7), and K5 the LM candidate of
+its bundle_adjust_impl (back-substitution, freeze masks, candidate
+parameters and their cost in one launch); both walk the point segments on
+pcg_solve's plan.
 The `_big` set serves problems of more than MAX_CAMS cameras, as in the JAX
 package: camera, intrinsic and v rows arrive gathered per observation
 ([6, O], plain indexing by the caller) and every result stays per
@@ -39,15 +41,17 @@ from typing import NamedTuple
 import torch
 
 from sfm_tpu_torch.geometry.losses import robust_cost, robust_weight
-from sfm_tpu_torch.kernels import check, launch, library, on_cuda, ptr
+from sfm_tpu_torch.kernels import LAUNCHES, check, launch, library, on_cuda, ptr
 
 MAX_CAMS = 4096    # above this the BA core takes K4/K6/K8/K10 (sfm_tpu's _MAX_CAMS)
 LOSS_CODES = {"none": 0, "huber": 1, "cauchy": 2}
 NE_CAM_ROWS = 42   # vec(Jc^T Jc) (36) then -Jc^T r (6)
 NE_W_ROWS = 18     # vec(W = Jc^T Jp), row-major 6x3
 NE_PT_ROWS = 9     # sym(Jp^T Jp) (00, 01, 02, 11, 12, 22) then -Jp^T r
+NE_PCG_ROWS = 64   # with the Schur-Jacobi blocks: the camera row, 21 entries of W Hpp^-1 W^T, one unused
 _STATIC_ROWS = 5
 _SYM3 = ([0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2])
+_UPPER6 = [i * 6 + j for i in range(6) for j in range(i, 6)]   # csrc/schur_jacobi.cuh's order
 
 
 def rot_entries(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -187,13 +191,15 @@ def _check_tables(obs_cam, obs_point, points, static_t, cams, intr, point_bounds
 
 def fused_ne_payloads_plain(obs_cam, obs_point, points, static_t, cams, intr, point_bounds,
                             cam_perm, cam_bounds, cam_inv_perm, lam, z_floor, loss: str,
-                            scale: float):
+                            scale: float, schur_jacobi: bool = False):
     """Plain K3, in the inputs' dtype: the per-observation payloads, the
     camera rows in camera order (packed[i] is the row of observation
     cam_perm[i]), their sums per camera and per point (in index order), the
     damping and the 3x3 inversion -> (Hcc [C, 6, 6], Hpp_inv [P, 3, 3],
     W_t [18, O], bc [C, 6], bp [P, 3], packed [M, 42]). W_t is zero past the
-    point segments."""
+    point segments. With schur_jacobi the packed rows are [M, 64] (the
+    camera row, the 21 upper entries of W Hpp^-1 W^T, a zero) and a seventh
+    output holds the Schur-Jacobi blocks [C, 36] (whw_cam_reduce_plain's)."""
     O, C, N = obs_cam.shape[0], cams.shape[0], int(point_bounds[-1])
     w_t, yp_t, cam_t = _ne_payloads_obs_plain(
         obs_cam[:N], points[obs_point[:N].long()].T, static_t[:, :N], cams, intr, z_floor, loss,
@@ -205,11 +211,17 @@ def fused_ne_payloads_plain(obs_cam, obs_point, points, static_t, cams, intr, po
     red = cam_segment_sum_plain(yp_t, None, point_bounds)                        # [P, 9]
     Hcc = damp(camred[:, :36].reshape(C, 6, 6), lam)
     Hpp_inv = sym_solve3(damp(sym3(red[:, :6]), lam))
-    return Hcc, Hpp_inv, w_t, camred[:, 36:42], red[:, 6:9], packed
+    out = (Hcc, Hpp_inv, w_t, camred[:, 36:42], red[:, 6:9], packed)
+    if not schur_jacobi:
+        return out
+    whw_t = _whw_rows_t(w_t, Hpp_inv[obs_point.long()])[_UPPER6][:, cam_perm.long()]
+    packed = torch.cat([packed, whw_t.T, packed.new_zeros((packed.shape[0], 1))], 1)
+    return (*out[:5], packed, whw_cam_reduce_plain(w_t, Hpp_inv, obs_point, cam_perm, cam_bounds))
 
 
 def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, cam_perm,
-                      cam_bounds, cam_inv_perm, lam, z_floor, loss: str, scale: float, plan=None):
+                      cam_bounds, cam_inv_perm, lam, z_floor, loss: str, scale: float, plan=None,
+                      schur_jacobi: bool = False):
     """The damped normal equations at (cams [C, 6], points [P, 3]) in two
     launches: one pass over the point segments (observations sorted by
     point, obs_point [O]; point_bounds [P+1] covers [0, N)) forms each observation's
@@ -220,13 +232,16 @@ def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bo
     summed per camera and Hcc's diagonal damped. IRLS-weighted, near-plane
     gated (z_floor 0-d or None), the freeze masks of static_t applied; lam is
     a 0-d tensor. Returns (Hcc [C, 6, 6], Hpp_inv [P, 3, 3], W_t [18, O]
-    (zero past N), bc [C, 6], bp [P, 3], packed [M, 42]). plan
+    (zero past N), bc [C, 6], bp [P, 3], packed [M, 42]). With schur_jacobi
+    (a PCG solve's build) the same two launches also form the Schur-Jacobi
+    blocks sum_c W Hpp^-1 W^T (whw_cam_reduce's device code: that count goes
+    up too), returned seventh as [C, 36], and packed is [M, 64]. plan
     (pcg_launch_plan: the blocks' point slices) is made here when missing.
     Deterministic."""
     if not on_cuda(obs_cam):
         return fused_ne_payloads_plain(obs_cam, obs_point, points, static_t, cams, intr,
                                        point_bounds, cam_perm, cam_bounds, cam_inv_perm, lam,
-                                       z_floor, loss, scale)
+                                       z_floor, loss, scale, schur_jacobi)
     O, P, C = obs_cam.shape[0], points.shape[0], cams.shape[0]
     M, N = cam_perm.shape[0], cam_inv_perm.shape[0]
     dev = obs_cam.device
@@ -241,18 +256,23 @@ def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bo
         plan = pcg_launch_plan(point_bounds)
     check(plan.block_points, "plan.block_points", torch.int32, (plan.grid + 1,), dev)
     w_t = torch.empty((NE_W_ROWS, O), dtype=torch.float32, device=dev)
-    packed = torch.empty((M, NE_CAM_ROWS), dtype=torch.float32, device=dev)
+    packed = torch.empty((M, NE_PCG_ROWS if schur_jacobi else NE_CAM_ROWS), dtype=torch.float32,
+                         device=dev)
     hinv = torch.empty((P, 3, 3), dtype=torch.float32, device=dev)
     bp = torch.empty((P, 3), dtype=torch.float32, device=dev)
     hcc = torch.empty((C, 6, 6), dtype=torch.float32, device=dev)
     bc = torch.empty((C, 6), dtype=torch.float32, device=dev)
+    whw = torch.empty((C, 36), dtype=torch.float32, device=dev) if schur_jacobi else None
     launch("sfm_fused_ne_payloads", "fused_ne_payloads",
            ptr(obs_cam), ptr(obs_point), ptr(points), ptr(static_t), ptr(cams), ptr(intr),
            ptr(z_floor), ptr(lam), ptr(point_bounds), ptr(cam_inv_perm), ptr(cam_bounds),
            ptr(plan.block_points), O, P, C, LOSS_CODES[loss], float(scale), plan.grid,
            segment_warps(M, C),
-           ptr(w_t), ptr(packed), ptr(hinv), ptr(bp), ptr(hcc), ptr(bc))
-    return hcc, hinv, w_t, bc, bp, packed
+           ptr(w_t), ptr(packed), ptr(hinv), ptr(bp), ptr(hcc), ptr(bc), ptr(whw))
+    if not schur_jacobi:
+        return hcc, hinv, w_t, bc, bp, packed
+    LAUNCHES["whw_cam_reduce"] += 1     # the launch ran K7's device code
+    return hcc, hinv, w_t, bc, bp, packed, whw
 
 
 class LMStep(NamedTuple):
@@ -514,11 +534,17 @@ def whw_cam_reduce_plain(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
     return cam_segment_sum_plain(_whw_rows_t(W_t, Hpp_inv[obs_point.long()]), cam_perm, cam_bounds)
 
 
-def whw_cam_reduce(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
+_WHW_ROW = 24   # csrc/schur_kernels.cu kWhwRow: floats per packed row of the standalone K7
+
+
+def whw_cam_reduce(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds, cam_inv_perm):
     """Schur-Jacobi blocks sum_{o in c} W_o Hpp^-1_{p(o)} W_o^T: W_t [18, O]
     (row i*3+k = W[i, k]), Hpp_inv [P, 3, 3], obs_point [O] int32,
     cam_perm [M] int32 and cam_bounds [C+1] int32 (a stable camera sort of
-    the weighted observations) -> [C, 36]. Deterministic."""
+    the weighted observations) -> [C, 36]. cam_inv_perm [N] is each
+    observation's place in cam_perm (-1 outside it, invert_permutation).
+    The device code of fused_ne_payloads' blocks, in two launches of its
+    own (a PCG solve takes the blocks from K3). Deterministic."""
     if not on_cuda(W_t):
         return whw_cam_reduce_plain(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds)
     O = W_t.shape[1]
@@ -528,13 +554,20 @@ def whw_cam_reduce(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
     check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
     check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
     check(obs_point, "obs_point", torch.int32, (O,), dev)
-    check(cam_perm, "cam_perm", torch.int32, (None,), dev)
+    M = cam_perm.shape[0]
+    check(cam_perm, "cam_perm", torch.int32, (M,), dev)
     check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
     out = torch.empty((C, 36), dtype=torch.float32, device=dev)
     if C == 0:
         return out
+    N = cam_inv_perm.shape[0]
+    check(cam_inv_perm, "cam_inv_perm", torch.int32, (N,), dev)
+    if not M <= N <= O:
+        raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
+    packed = torch.empty((M, _WHW_ROW), dtype=torch.float32, device=dev)
     launch("sfm_whw_cam_reduce", "whw_cam_reduce",
-           ptr(W_t), ptr(Hpp_inv), ptr(obs_point), ptr(cam_perm), ptr(cam_bounds), O, C, ptr(out))
+           ptr(W_t), ptr(Hpp_inv), ptr(obs_point), ptr(cam_inv_perm), ptr(cam_bounds), O, N, C,
+           segment_warps(M, C), ptr(packed), ptr(out))
     return out
 
 
@@ -609,6 +642,8 @@ def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_pe
     if not M <= N <= O:
         raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
     y_packed = torch.empty((M, 6), dtype=torch.float32, device=dev)
+    if v.data_ptr() % 8:   # the kernel reads v's 24-byte rows as 8-byte pairs
+        v = v.clone()
     launch("sfm_schur_coupling_matvec", "schur_coupling_matvec",
            ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(v), ptr(cam_inv_perm),
            ptr(cam_bounds), O, P, C, segment_warps(M, C), ptr(y_packed), ptr(out))
@@ -673,10 +708,10 @@ PCG_STAGED_ROWS = 20           # W's 18 rows, the camera and the camera-sorted p
 
 
 class PcgPlan(NamedTuple):
-    """How pcg_solve cuts its work (K3 and K5 take its block slices too):
-    block b owns the points [block_points[b], block_points[b+1]) and their
-    observations, a group of `lanes` lanes walks one point's observations
-    in pcg_solve; resident mode stages each
+    """How pcg_solve cuts its work (K3 and K5 take its block slices too, up
+    to MAX_CAMS cameras): block b owns the points [block_points[b],
+    block_points[b+1]) and their observations, a group of `lanes` lanes
+    walks one point's observations in pcg_solve; resident mode stages each
     block's slice in smem_bytes of shared memory (20 rows of `stride` 4-byte
     words), streaming mode reads W from device memory every step
     (stride = smem_bytes = 0)."""
@@ -697,7 +732,9 @@ def pcg_plan(point_bounds: torch.Tensor, num_sms: int, blocks_per_sm: int = 1,
     boundaries (a block starts at the first point that starts at or after
     its share), so a slice is off its share by less than one point's
     segment. Resident mode when the largest slice's 20 staged rows fit
-    PCG_SMEM_BUDGET bytes, unless `streaming` says otherwise. The kernel skips the
+    PCG_SMEM_BUDGET bytes (the engines' solves), streaming when they do not
+    (the merged polish: ~11,500 observations a block), unless `streaming`
+    says otherwise. The kernel skips the
     empty points at the end of a block's range (the capacity padding's
     slots, all after the last observation), so they cost no block time."""
     pb = point_bounds.detach().to("cpu", torch.int64)
@@ -743,7 +780,11 @@ def pcg_solve(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_boun
     coupling as schur_coupling_matvec computes it; the same inputs and
     contract). Hcc, M_inv [C, 6, 6], d, rhs [C, 6] -> x [C, 6]. The dot
     products are summed in a fixed per-block order: deterministic. plan
-    (pcg_launch_plan) is made here when missing."""
+    (pcg_launch_plan) is made here when missing. Any camera count: past
+    MAX_CAMS (the merged polish) the launch counts as pcg_solve_big, and the
+    plan's streaming mode reads W from device memory every step. The kernel
+    applies the preconditioner in float64 (the plain version in the inputs'
+    dtype): fp32 loses ~4 digits there on the merged polish's blocks."""
     if not on_cuda(W_t):
         return pcg_solve_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm,
                                cam_bounds, Hcc, M_inv, d, rhs, iterations, tolerance)
@@ -776,7 +817,7 @@ def pcg_solve(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_boun
     check(plan.block_points, "plan.block_points", torch.int32, (plan.grid + 1,), dev)
     y_packed = torch.empty((M, 6), dtype=torch.float32, device=dev)
     work = torch.empty((36 * C + 3 * plan.grid,), dtype=torch.float32, device=dev)
-    launch("sfm_pcg_solve", "pcg_solve",
+    launch("sfm_pcg_solve", "pcg_solve_big" if C > MAX_CAMS else "pcg_solve",
            ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(cam_inv_perm),
            ptr(cam_bounds), ptr(Hcc), ptr(M_inv), ptr(d), ptr(rhs), ptr(plan.block_points),
            O, C, int(iterations), float(tolerance), int(plan.streaming), plan.grid, plan.lanes,
@@ -802,8 +843,9 @@ def schur_coupling_payloads_big(W_t, Hpp_inv, obs_point, point_bounds, num_obs: 
     gathered per observation (v.T[:, obs_cam]); u_o = W_o^T v_o, g_p the sum
     of u over point p's segment, y_o = W_o Hpp^-1_p g_p -> y_t [6, O], for
     the caller's camera reduction. Observations are sorted by point and
-    point_bounds [P+1] covers [0, num_obs); rows past num_obs are zero.
-    Deterministic."""
+    point_bounds [P+1] covers [0, num_obs); rows past num_obs are zero. One
+    launch of the coupling code that pcg_solve runs past MAX_CAMS cameras
+    (the solver's path takes that solve). Deterministic."""
     if not on_cuda(W_t):
         return schur_coupling_payloads_big_plain(W_t, Hpp_inv, obs_point, point_bounds,
                                                  num_obs, v_obs_t)
@@ -820,9 +862,7 @@ def schur_coupling_payloads_big(W_t, Hpp_inv, obs_point, point_bounds, num_obs: 
     y_t = torch.empty((6, O), dtype=torch.float32, device=dev)
     if O == 0 or P == 0:
         return y_t.zero_()
-    u_t = torch.empty((3, O), dtype=torch.float32, device=dev)
-    g = torch.empty((P, 3), dtype=torch.float32, device=dev)
     launch("sfm_schur_coupling_payloads_big", "schur_coupling_payloads_big",
-           ptr(W_t), ptr(Hpp_inv), ptr(obs_point), ptr(point_bounds), ptr(v_obs_t),
-           O, P, int(num_obs), segment_lanes(O, P), ptr(u_t), ptr(g), ptr(y_t))
+           ptr(W_t), ptr(Hpp_inv), ptr(point_bounds), ptr(v_obs_t),
+           O, P, int(num_obs), segment_lanes(O, P), ptr(y_t))
     return y_t

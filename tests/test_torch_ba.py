@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import schur_matvec_step
 from sfm_tpu.ba import core as jcore
 from sfm_tpu.ba.problem import build_problem as jbuild_problem
 from sfm_tpu.config import BAConfig as JBAConfig
@@ -39,8 +40,8 @@ from sfm_tpu.utils.synthetic import make_orbit_scene
 from sfm_tpu_torch.ba import core
 from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.kernels.ba_kernels import (
-    cam_segment_sum, damp, fused_ne_payloads, schur_coupling_matvec, segment_bounds, sym3,
-    sym_solve3, whw_cam_reduce,
+    cam_segment_sum, damp, fused_ne_payloads, invert_permutation, schur_coupling_matvec, segment_bounds,
+    sym3, sym_solve3, whw_cam_reduce, whw_cam_reduce_plain,
 )
 from sfm_tpu_torch.utils.interop import from_numpy_problem, to_numpy
 
@@ -194,7 +195,8 @@ def test_whw_cam_reduce_plain_matches_pallas_kernel():
     ids_t = torch.from_numpy(ids)
     perm = torch.argsort(ids_t, stable=True)
     got = whw_cam_reduce(torch.from_numpy(W.T.copy()), torch.from_numpy(hinv), torch.from_numpy(obs_point),
-                         perm.to(torch.int32), segment_bounds(ids_t[perm], C)).numpy()
+                         perm.to(torch.int32), segment_bounds(ids_t[perm], C),
+                         invert_permutation(perm, len(ids))).numpy()
     scale = np.abs(ref).max()
     np.testing.assert_allclose(got / scale, ref / scale, atol=2e-5)
 
@@ -236,16 +238,16 @@ def test_preconditioner_matches_jax(monkeypatch):
     jprob, prob, _, ne_j = _jax_pcg_setup()
     inv = core.solve_invariants(prob)
     ne_t = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3),
-                                       BAConfig(dense_schur_max_cameras=0), inv)
+                                       BAConfig(dense_schur_max_cameras=0), inv, schur_jacobi=True)
     M_inv, sdiag = core.pcg_preconditioner(ne_t, prob, inv)
     close(sdiag, ne_j.sdiag, "sdiag")
     close(M_inv * sdiag[:, :, None] * sdiag[:, None, :],
           ne_j.M_inv * ne_j.sdiag[:, :, None] * ne_j.sdiag[:, None, :], "M_inv (equilibrated)")
 
     def refused(*args):
-        raise AssertionError("the dense path built the PCG preconditioner (K7)")
+        raise AssertionError("the dense path built the PCG preconditioner")
 
-    monkeypatch.setattr(core, "whw_cam_reduce", refused)       # the dense path never builds it
+    monkeypatch.setattr(core, "pcg_preconditioner", refused)   # the dense path never builds it
     core.bundle_adjust(prob, BAConfig(max_iterations=1))
 
 
@@ -256,13 +258,15 @@ def test_pcg_matches_jax():
         Hcc=torch.from_numpy(np.array(ne_j.Hcc)), Hpp_inv=torch.from_numpy(np.array(ne_j.Hpp_inv)),
         W_t=torch.from_numpy(np.array(ne_j.W.reshape(O, 18).T)), bc=torch.from_numpy(np.array(ne_j.bc)),
         bp=torch.from_numpy(np.array(ne_j.bp)))
+    inv = core.solve_invariants(prob)
+    ne_t = ne_t._replace(whw=whw_cam_reduce_plain(ne_t.W_t, ne_t.Hpp_inv, prob.obs_point, inv.cam_perm,
+                                                  inv.cam_bounds))
     rhs = jcore._schur_rhs(ne_j, jprob)
     x_j = np.asarray(jcore._pcg(ne_j, jprob, rhs, jcfg))
-    inv = core.solve_invariants(prob)
     x_t = core._pcg(ne_t, prob, torch.from_numpy(np.array(rhs)), BAConfig(dense_schur_max_cameras=0), inv)
     close(x_t, x_j, "x", tol=1e-3)
-    S_x = core._schur_matvec_pcg(ne_t, prob, x_t, inv).numpy()
-    S_xj = core._schur_matvec_pcg(ne_t, prob, torch.from_numpy(np.array(x_j)), inv).numpy()
+    S_x = schur_matvec_step(ne_t, prob, x_t, inv).numpy()
+    S_xj = schur_matvec_step(ne_t, prob, torch.from_numpy(np.array(x_j)), inv).numpy()
     r_t = np.linalg.norm(S_x - np.asarray(rhs))
     r_j = np.linalg.norm(S_xj - np.asarray(rhs))
     assert r_t < 1e-2 * np.linalg.norm(np.asarray(rhs)) and r_t < 2.0 * r_j + 1e-6
@@ -313,15 +317,16 @@ def test_segment_tables_leave_out_the_padding_tail(ne_problem):
     full = inv._replace(point_bounds=segment_bounds(prob.obs_point, prob.num_points),
                         cam_perm=full_perm.to(torch.int32),
                         cam_bounds=segment_bounds(prob.obs_cam[full_perm], prob.num_cameras))
-    ne = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3), BAConfig(), inv)
+    ne = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3), BAConfig(), inv,
+                                     schur_jacobi=True)
     ne_full = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3),
-                                          BAConfig(), full)
+                                          BAConfig(), full, schur_jacobi=True)
     for a, b in zip((*ne, *core.pcg_preconditioner(ne, prob, inv)),
                     (*ne_full, *core.pcg_preconditioner(ne_full, prob, full))):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     v = torch.from_numpy(np.random.default_rng(4).normal(size=(prob.num_cameras, 6)).astype(np.float32))
-    torch.testing.assert_close(core._schur_matvec_pcg(ne, prob, v, inv),
-                               core._schur_matvec_pcg(ne, prob, v, full), rtol=0, atol=0)
+    torch.testing.assert_close(schur_matvec_step(ne, prob, v, inv),
+                               schur_matvec_step(ne, prob, v, full), rtol=0, atol=0)
 
 
 def test_kernel_input_checks():

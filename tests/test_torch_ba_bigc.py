@@ -18,7 +18,9 @@ fixture (make_big_problem, C=4224, O=8192, P=512). Tolerances:
   anchored cameras) vs sfm_tpu's: every array equal;
 - bundle_adjust past 4096 cameras (4224 cameras around 4096 points, 16
   views each) vs sfm_tpu's XLA path: same initial cost to 1e-5,
-  same final cost to 1e-3 relative (same LM schedule).
+  same final cost to 1e-3 relative (same LM schedule); its route: K4, K6
+  and K8 for the normal equations, the candidate and the preconditioner,
+  one pcg_solve per CG solve (no Python CG loop over K10 and K9).
 """
 
 import jax.numpy as jnp
@@ -26,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import arc_ring_reconstruction
+from chip_smoke import arc_ring_reconstruction, schur_matvec_step
 from sfm_tpu.ba import core as jcore
 from sfm_tpu.ba.problem import build_problem as jbuild_problem
 from sfm_tpu.config import BAConfig as JBAConfig
@@ -151,8 +153,8 @@ def test_large_c_route_matches_small_c_route(monkeypatch):
 
     def run():
         inv = core.solve_invariants(prob, core.near_plane_floor(prob))
-        ne = core.build_normal_equations(prob, prob.cam_params, prob.points, lam, cfg, inv)
-        return (*ne, *core.pcg_preconditioner(ne, prob, inv), core._schur_matvec_pcg(ne, prob, v, inv),
+        ne = core.build_normal_equations(prob, prob.cam_params, prob.points, lam, cfg, inv, schur_jacobi=True)
+        return (*ne[:5], *core.pcg_preconditioner(ne, prob, inv), schur_matvec_step(ne, prob, v, inv),
                 core.compute_cost(prob, prob.cam_params, prob.points, cfg, inv))
 
     assert core.uses_big_kernels(prob)
@@ -162,6 +164,29 @@ def test_large_c_route_matches_small_c_route(monkeypatch):
     small = run()
     for i, (a, b) in enumerate(zip(big, small)):
         close(a, b, f"output {i}", tol=1e-5)
+
+
+@pytest.mark.parametrize("lam", [1e-3, 1e2])
+def test_large_c_block_forms_match_the_reference_helpers(lam):
+    """The large-C route's damping and inversion (core._sym3_big, _damp_big,
+    _sym_solve3_big) against kernels.ba_kernels' sym3, damp and sym_solve3,
+    which K3's plain version uses: on point blocks spanning 18 decades of
+    scale, with all-zero (padding) blocks, and on camera blocks. The same
+    roundings in the same order: every output bit-identical."""
+    rng = np.random.default_rng(11)
+    J = rng.normal(size=(512, 4, 3))
+    red = np.einsum("bki,bkj->bij", J, J) * 10.0 ** rng.uniform(-9, 9, (512, 1, 1))
+    red6 = torch.from_numpy(red[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].astype(np.float32))
+    red6[::17] = 0.0
+    lam_t = torch.tensor(lam)
+    assert torch.equal(core._sym3_big(red6), ba_kernels.sym3(red6))
+    H = ba_kernels.sym3(red6)
+    assert torch.equal(core._damp_big(H, lam_t), ba_kernels.damp(H, lam_t))
+    Jc = torch.from_numpy(rng.normal(size=(64, 8, 6)).astype(np.float32))
+    Hc = Jc.transpose(1, 2) @ Jc
+    assert torch.equal(core._damp_big(Hc, lam_t), ba_kernels.damp(Hc, lam_t))
+    A = ba_kernels.damp(H, lam_t)
+    assert torch.equal(core._sym_solve3_big(A), ba_kernels.sym_solve3(A))
 
 
 _REC_FIELDS = ("intrinsics", "rvecs", "tvecs", "registered", "points", "point_errors", "point_valid",
@@ -229,25 +254,30 @@ def test_bundle_adjust_past_max_cams_matches_jax(monkeypatch):
     assert prob.num_cameras == 4352
     kw = dict(max_iterations=4, cg_iterations=16)
     assert not core.uses_dense_solver(prob, BAConfig(**kw))
-    calls = {name: 0 for name in ("fused_ne_payloads_big", "fused_cost_sums_big", "whw_payloads_big",
-                                  "schur_coupling_payloads_big", "fused_ne_payloads", "fused_cost_sums",
-                                  "whw_cam_reduce", "schur_coupling_matvec")}
+    route = ("fused_ne_payloads_big", "fused_cost_sums_big", "whw_payloads_big", "pcg_solve")
+    # The small-C set, and the entries a CG loop over the coupling would call.
+    never = {core: ("fused_ne_payloads", "fused_cost_sums"),
+             ba_kernels: ("schur_coupling_payloads_big", "whw_cam_reduce", "schur_coupling_matvec")}
+    calls = {name: 0 for name in route + sum(never.values(), ())}
 
-    def counted(name):
-        fn = getattr(core, name)
+    def counted(module, name):
+        fn = getattr(module, name)
 
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             calls[name] += 1
-            return fn(*args)
+            return fn(*args, **kwargs)
         return wrapper
 
-    for name in calls:
-        monkeypatch.setattr(core, name, counted(name))
+    for module, names in ((core, route), *never.items()):
+        for name in names:
+            monkeypatch.setattr(module, name, counted(module, name))
     out_t, st_t = core.bundle_adjust(prob, BAConfig(**kw))
-    # The route record: every kernel of the large-C set ran, none of the other.
-    assert all(calls[n] > 0 for n in calls if n.endswith("_big")), calls
-    assert not any(calls[n] for n in calls if not n.endswith("_big")), calls
-    assert calls["schur_coupling_payloads_big"] == st_t.iterations * kw["cg_iterations"]
+    # The route record: the large-C set for the normal equations, the
+    # candidate and the preconditioner, one fused solve per LM iteration, and
+    # neither the small-C set nor a CG loop over the coupling matvec.
+    assert all(calls[n] > 0 for n in route), calls
+    assert not any(calls[n] for n in calls if n not in route), calls
+    assert calls["pcg_solve"] == st_t.iterations
 
     out_j, st_j = jcore.bundle_adjust(jprob, JBAConfig(**kw))
     assert float(st_t.initial_cost) == pytest.approx(float(st_j.initial_cost), rel=1e-5)

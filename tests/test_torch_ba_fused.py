@@ -15,6 +15,14 @@ Tolerances:
   its camera-sorted place, and summed per camera (K9's sorted pass) exactly
   what K9 gives on the per-observation rows through the permutation (both
   add in camera-sorted order on the CPU);
+- K3 with the Schur-Jacobi blocks (a PCG solve's build): the normal
+  equations bit-identical to K3 without them, the blocks exactly
+  whw_cam_reduce_plain's, their packed entries summed per camera the
+  blocks' upper triangle to 1e-6 of max (the same values in the same
+  order), and the blocks against sfm_tpu's whw_cam_reduce (Pallas,
+  interpret mode) on the same W and Hpp^-1 to 2e-5 of max (K7's bar in
+  tests/test_torch_ba.py); the dense solves' builds leave the blocks out,
+  the PCG solves' take them from K3 and never call K7 alone;
 - K5's candidate vs sfm_tpu's _back_substitute, freeze masks and
   compute_cost on the same normal equations and step: dp within 1e-4 of
   max |dp| (summation order of the point sums), the cost rel 1e-5, for each
@@ -30,10 +38,12 @@ import torch
 from sfm_tpu.ba import core as jcore
 from sfm_tpu.ba.problem import build_problem as jbuild_problem
 from sfm_tpu.config import BAConfig as JBAConfig
+from sfm_tpu.kernels import schur_spmv
 from sfm_tpu.scene.state import Reconstruction as JReconstruction
 from sfm_tpu.utils.synthetic import make_orbit_scene
 from sfm_tpu_torch.ba import core
 from sfm_tpu_torch.config import BAConfig
+from sfm_tpu_torch.kernels import _SIGNATURES
 from sfm_tpu_torch.kernels import ba_kernels as kb
 from sfm_tpu_torch.utils.interop import from_numpy_problem
 
@@ -97,11 +107,11 @@ def _jax_ne(jprob, lam, zf, loss="huber"):
                                         jcfg, inv=jinv)
 
 
-def _k3(prob, inv, lam, loss="huber"):
+def _k3(prob, inv, lam, loss="huber", **kw):
     return kb.fused_ne_payloads(prob.obs_cam, prob.obs_point, prob.points, inv.static_t,
                                 prob.cam_params, prob.intrinsics, inv.point_bounds, inv.cam_perm,
                                 inv.cam_bounds, inv.cam_inv_perm, torch.tensor(lam), inv.z_floor,
-                                loss, 4.0)
+                                loss, 4.0, **kw)
 
 
 @pytest.mark.parametrize("lam", [1e-3, 1e2])
@@ -186,3 +196,84 @@ def test_k5_candidate_matches_jax(problem, loss, zf):
                                        JBAConfig(robust_loss=loss, robust_scale_px=4.0),
                                        z_floor=None if zf is None else jnp.asarray(zf, jnp.float32)))
     assert float(sums0[2]) == pytest.approx(cost0_j, rel=1e-5)
+
+
+# ---- K3 with the Schur-Jacobi blocks (K7's device code) -----------------------
+
+
+@pytest.mark.parametrize("zf", [None, Z_FLOOR])
+def test_k3_schur_jacobi_blocks_match_k7_and_jax(problem, zf):
+    jprob, prob = problem
+    inv = core.solve_invariants(prob, None if zf is None else torch.tensor(zf))
+    plain = _k3(prob, inv, 1e-3)
+    out = _k3(prob, inv, 1e-3, schur_jacobi=True)
+    assert len(plain) == 6 and len(out) == 7
+    for name, a, b in zip(("Hcc", "Hpp_inv", "W_t", "bc", "bp"), out[:5], plain[:5]):
+        assert torch.equal(a, b), name
+    M, C, P = inv.cam_perm.numel(), prob.num_cameras, prob.num_points
+    packed, blocks = out[5], out[6]
+    assert packed.shape == (M, kb.NE_PCG_ROWS) and torch.equal(packed[:, :kb.NE_CAM_ROWS], plain[5])
+    assert not packed[:, -1].any()
+    _, Hpp_inv, W_t = out[:3]
+    k7 = (W_t, Hpp_inv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
+    assert blocks.shape == (C, 36)
+    assert torch.equal(blocks, kb.whw_cam_reduce_plain(*k7))
+    assert torch.equal(blocks, kb.whw_cam_reduce(*k7, inv.cam_inv_perm))
+    upper = kb.cam_segment_sum_plain(packed[:, kb.NE_CAM_ROWS:kb.NE_CAM_ROWS + 21].T.contiguous(), None,
+                                     inv.cam_bounds)
+    close(upper, blocks[:, kb._UPPER6], "packed entries by camera", tol=1e-6)
+    assert float(blocks[3:].abs().max()) > 0 and not blocks[:3].any()   # cameras 0-2 frozen
+    hinv_t = Hpp_inv.reshape(P, 9)[prob.obs_point.long()].T
+    ref = schur_spmv.whw_cam_reduce(jnp.asarray(W_t.numpy()), jnp.asarray(hinv_t.numpy()),
+                                    jnp.asarray(prob.obs_cam.numpy()), C, interpret=True)
+    close(blocks, np.asarray(ref), "blocks vs sfm_tpu whw_cam_reduce", tol=2e-5)
+
+
+def test_dense_solves_build_no_schur_jacobi_blocks(problem, monkeypatch):
+    """bundle_adjust asks K3 for the blocks on its PCG branch only, and that
+    branch's preconditioner takes them from K3 (K7 alone never runs)."""
+    _, prob = problem
+    flags = []
+    inner = core.fused_ne_payloads
+
+    def spy(*a, schur_jacobi=False, **k):
+        flags.append(schur_jacobi)
+        out = inner(*a, schur_jacobi=schur_jacobi, **k)
+        assert len(out) == 6 + schur_jacobi
+        return out
+
+    def refused(*a, **k):
+        raise AssertionError("K7 launched on its own")
+
+    monkeypatch.setattr(core, "fused_ne_payloads", spy)
+    monkeypatch.setattr(kb, "whw_cam_reduce", refused)
+    dense = BAConfig(max_iterations=2)
+    assert core.uses_dense_solver(prob, dense)
+    core.bundle_adjust(prob, dense)
+    assert flags and not any(flags)
+    flags.clear()
+    pcg = BAConfig(dense_schur_max_cameras=0, max_iterations=2)
+    assert not core.uses_dense_solver(prob, pcg)
+    _, stats = core.bundle_adjust(prob, pcg)
+    assert len(flags) == stats.iterations and all(flags)
+
+
+@pytest.mark.parametrize("schur_jacobi", [False, True])
+def test_k3_signature_takes_what_the_wrapper_passes(problem, monkeypatch, schur_jacobi):
+    """The C entry's argument count is what fused_ne_payloads passes plus
+    the stream (a mismatch would be silent memory corruption): 12 pointers
+    in, O, P, C, loss, scale, grid, camera warps, 7 pointers out (the blocks
+    last, null without them), stream."""
+    _, prob = problem
+    inv = core.solve_invariants(prob)
+    passed = []
+    monkeypatch.setattr(kb, "on_cuda", lambda t: True)
+    monkeypatch.setattr(kb, "check", lambda *a: None)
+    monkeypatch.setattr(kb, "launch", lambda entry, name, *a: passed.append((entry, name, a)))
+    out = _k3(prob, inv, 1e-3, plan=kb.pcg_plan(inv.point_bounds, 4), schur_jacobi=schur_jacobi)
+    (entry, name, a), = passed
+    assert entry == "sfm_fused_ne_payloads" and name == "fused_ne_payloads"
+    assert len(_SIGNATURES[entry]) == len(a) + 1 == 27
+    assert (a[-1] is None) == (not schur_jacobi)
+    assert len(out) == 6 + schur_jacobi
+    assert out[5].shape[1] == (kb.NE_PCG_ROWS if schur_jacobi else kb.NE_CAM_ROWS)

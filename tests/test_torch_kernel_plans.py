@@ -117,6 +117,34 @@ def test_camera_tables_list_the_weighted_observations():
     assert int(inv.cam_bounds[-1]) == weighted.numel()
 
 
+def test_k7_k10_signatures_take_what_the_wrappers_pass(monkeypatch):
+    """The C entries of the standalone K7 (W, Hpp^-1, point ids, inverse
+    camera permutation, camera bounds, O, N, C, warps, packed, out) and K10
+    (W, Hpp^-1, point bounds, v per observation, O, P, N, lanes, y) take
+    what their wrappers pass, plus the stream."""
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    O, P, C = 64, 8, 4
+    obs_point = (torch.arange(O) // 8).to(torch.int32)
+    obs_cam = (torch.arange(O) % C).to(torch.int32)
+    perm = torch.argsort(obs_cam, stable=True).to(torch.int32)
+    passed = []
+    monkeypatch.setattr(kb, "on_cuda", lambda t: True)
+    monkeypatch.setattr(kb, "check", lambda *a: None)
+    monkeypatch.setattr(kb, "launch", lambda entry, name, *a: passed.append((entry, name, a)))
+    kb.whw_cam_reduce(torch.zeros(18, O), torch.zeros(P, 3, 3), obs_point, perm,
+                      segment_bounds(obs_cam[perm.long()], C), kb.invert_permutation(perm, O))
+    kb.schur_coupling_payloads_big(torch.zeros(18, O), torch.zeros(P, 3, 3), obs_point,
+                                   segment_bounds(obs_point, P), O, torch.zeros(6, O))
+    assert [(e, n) for e, n, _ in passed] == [("sfm_whw_cam_reduce", "whw_cam_reduce"),
+                                              ("sfm_schur_coupling_payloads_big",
+                                               "schur_coupling_payloads_big")]
+    for entry, _, a in passed:
+        assert len(_SIGNATURES[entry]) == len(a) + 1, entry
+    assert len(_SIGNATURES["sfm_whw_cam_reduce"]) == 12
+    assert len(_SIGNATURES["sfm_schur_coupling_payloads_big"]) == 10
+
+
 def test_segment_sum_signatures_carry_the_scratch():
     """The C entry points take what the wrappers pass (a mismatch would be
     silent memory corruption): K9 values, inv_perm, bounds, O, K, S, N,

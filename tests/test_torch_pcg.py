@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import schur_matvec_step
 from sfm_tpu.ba import core as jcore
 from sfm_tpu.config import BAConfig as JBAConfig
 from sfm_tpu_torch.ba import core
@@ -76,7 +77,7 @@ def test_core_pcg_takes_the_fused_solve_up_to_max_cams(pcg_case, monkeypatch):
     _, prob, _, ne_j = _jax_pcg_setup()
     inv = core.solve_invariants(prob)
     ne_t = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3),
-                                       core.BAConfig(dense_schur_max_cameras=0), inv)
+                                       core.BAConfig(dense_schur_max_cameras=0), inv, schur_jacobi=True)
     rhs = core._schur_rhs(ne_t, prob, inv)
     calls = []
     inner = core.pcg_solve
@@ -89,7 +90,7 @@ def test_core_pcg_takes_the_fused_solve_up_to_max_cams(pcg_case, monkeypatch):
     x = core._pcg(ne_t, prob, rhs, core.BAConfig(dense_schur_max_cameras=0), inv)
     assert len(calls) == 1
     M_inv, d = core.pcg_preconditioner(ne_t, prob, inv)
-    ref = kb.pcg_loop(lambda v: core._schur_matvec_pcg(ne_t, prob, v, inv), M_inv, d, rhs, 64, 1e-6)
+    ref = kb.pcg_loop(lambda v: schur_matvec_step(ne_t, prob, v, inv), M_inv, d, rhs, 64, 1e-6)
     assert torch.equal(x, ref)
 
 
@@ -119,16 +120,17 @@ def test_bundle_adjust_makes_the_launch_plan_once(monkeypatch):
 
 
 def test_solve_invariants_plans_only_the_fused_route(monkeypatch):
-    """solve_invariants makes pcg_solve's launch plan on the card up to
-    MAX_CAMS cameras only: none on the CPU, none past MAX_CAMS (the loop over
-    K10 and K9)."""
+    """solve_invariants makes pcg_solve's launch plan on the card only (none
+    on the CPU, where pcg_solve is its plain version), at any camera count:
+    past MAX_CAMS every CG solve is one pcg_solve launch too."""
     _, prob, _, _ = _jax_pcg_setup()
     assert core.solve_invariants(prob).pcg_plan is None
     monkeypatch.setattr(core, "on_cuda", lambda t: True)
     monkeypatch.setattr(core, "pcg_launch_plan", lambda point_bounds: kb.pcg_plan(point_bounds, 4))
     assert core.solve_invariants(prob).pcg_plan.grid == 4
     monkeypatch.setattr(core, "MAX_CAMS", prob.num_cameras - 1)
-    assert core.solve_invariants(prob).pcg_plan is None
+    assert core.uses_big_kernels(prob)
+    assert core.solve_invariants(prob).pcg_plan.grid == 4
 
 
 # ---- the plan ---------------------------------------------------------------
@@ -160,12 +162,28 @@ def big_bounds():
     return _bounds(np.full(10000, 100))
 
 
+def polish_bounds(points=16000, slots=16128):
+    """The merged polish's layout (chip_smoke.arc_ring_reconstruction at
+    POLISH_*): 16,000 points in tracks of 40-150 views (~1.52 M
+    observations), the capacity padding's empty slots after them."""
+    lengths = np.random.default_rng(3).integers(40, 151, points)
+    return _bounds(np.concatenate([lengths, np.zeros(slots - points, np.int64)]))
+
+
+def small_polish_bounds():
+    """The same long tracks, 600 points (~57,000 observations)."""
+    return polish_bounds(600, 640)
+
+
 @pytest.mark.parametrize("make, sms, per_sm, streaming, lanes", [
     (slice_bounds, 132, 1, False, 4),     # tracks of 3.5: groups of 4 lanes
     (slice_bounds, 132, 2, False, 4),
     (orbit_bounds, 132, 1, False, 32),    # tracks of ~100: a warp per point
     (big_bounds, 132, 1, True, 32),
     (big_bounds, 132, 2, True, 32),
+    (polish_bounds, 132, 1, True, 32),      # ~11,500 observations a block: 920 KB staged
+    (small_polish_bounds, 8, 1, True, 32),  # ~7,100 a block
+    (small_polish_bounds, 132, 1, False, 32),
 ])
 def test_plan_cuts_balanced_point_ranges(make, sms, per_sm, streaming, lanes):
     pb = make()
@@ -182,6 +200,9 @@ def test_plan_cuts_balanced_point_ranges(make, sms, per_sm, streaming, lanes):
     assert int(counts.sum()) == N and int(counts.max()) == plan.max_slice
     longest = int((pb[1:] - pb[:-1]).max())
     assert float((counts - N / G).abs().max()) <= longest + 1
+    # Streaming exactly where the largest slice's staged rows pass the budget.
+    words = -(-(plan.max_slice + 3) // 4) * 4
+    assert streaming == (kb.PCG_STAGED_ROWS * 4 * words > kb.PCG_SMEM_BUDGET)
     if streaming:
         assert plan.smem_bytes == 0 and plan.stride == 0
     else:

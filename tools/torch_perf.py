@@ -5,7 +5,7 @@
         reconstruct rendered rings of N 1024^2 views of the blob scene
         (chip_smoke.py's incremental slice) and report observations,
         accuracy, the bundle adjustments' sizes and solvers, and the stages;
-    python3 tools/torch_perf.py slice [--runs 2]
+    python3 tools/torch_perf.py slice [--runs 2] [--root DIR]
         chip_smoke.py's incremental slice several times in one process
         (cold, then warm): stage and engine-phase seconds; then the last
         run's final global BA once more under torch.profiler: device busy
@@ -25,12 +25,13 @@
     python3 tools/torch_perf.py crossover
         dense Cholesky vs PCG reduced solve on the same problems, seconds
         per LM iteration across padded (C, O);
-    python3 tools/torch_perf.py polish [--iterations 5]
+    python3 tools/torch_perf.py polish [--iterations 5] [--root DIR]
         chip_smoke.py's merged-model polish at full width (10,240 cameras,
         about 1.5 M observations): the seconds of its steps (build_problem,
         each solve, the filter), then the first solve's first LM iterations
         once more under torch.profiler: device busy time, idle share, device
-        launches per LM iteration, kernel time by name, seconds per PCG solve;
+        launches per LM iteration, kernel time by name, seconds per PCG solve
+        (--root DIR as for lm, here and for slice);
     python3 tools/torch_perf.py partition [--variants default no_straighten] [--dump DIR]
         chip_smoke.py's divide-and-conquer slice with one feature and match
         stage shared by the variants: each cluster's accuracy, then mean
@@ -43,12 +44,35 @@
         engine_mode="global" on the first N views of that ring: accuracy
         and stage seconds;
     python3 tools/torch_perf.py kernels [--pairs 32] [--keypoints 4096]
-        K2 match_topk2 and K9 cam_segment_sum alone, held against their plain
-        versions and timed beside them and their library yardsticks
-        (chip_smoke.py's checks, without the reconstructions): K2 on one pair
-        and on a block of pairs; K9 on the segment tables of an orbit problem
-        (C = 128) and of the merged model (C = 10,240), camera side K = 6, 36
-        and 42, point side K = 3 and 9.
+        the kernels alone, held against their plain versions and timed
+        beside them and their library yardsticks, each row with its device
+        time per call from torch.profiler (chip_smoke.py's checks, without
+        the reconstructions): K1 on a 1024^2 octave; K2 on one pair and on a
+        block of pairs; K3, K5, K7 (standalone and inside K3), K9 and K11 on
+        an orbit problem (C = 128, tracks of ~100 views: not the final
+        global BA's shapes); K4, K6, K8, K10 and K9 on the merged model
+        (C = 10,240), K9's camera side K = 6, 36 and 42, point side K = 3
+        and 9;
+    python3 tools/torch_perf.py pcg [--cameras 100] [--points 500] [--blocks N] [--root DIR]
+        pcg_solve alone on an orbit problem (chip_smoke.check_pcg, resident
+        and streaming, and on N blocks), then its device time per solve and
+        that of the loop over K11 it replaced; --root DIR as for lm;
+    python3 tools/torch_perf.py phases
+        pcg_solve's device time by phase of a CG step: a copy of
+        csrc/schur_kernels.cu with %globaltimer marks around its four phases
+        and grid barriers (thread 0 of every block adds up each phase),
+        built beside the package's library, on the C = 128 orbit, the
+        1,024-camera wide orbit and the merged model (C = 10,240, streaming):
+        microseconds per step, mean and max over the blocks;
+    python3 tools/torch_perf.py profiler [--calls 10] [--sessions 3]
+        does torch.profiler record every launch? K3 with the Schur-Jacobi
+        blocks, K5, pcg_solve on the orbit problem and K6 on the merged
+        model, `calls` calls a session: one-step sessions whose calls start
+        at once or after a 20 ms idle lead-in, and one session of
+        chip_smoke.traced (a discarded first step of the same calls; it
+        merges three such sessions): the wrapper's own launches
+        per call (kernels.LAUNCHES) beside the launches and device ms per
+        call the profiler recorded.
 
 Every line names the card and its power limit. Needs a CUDA device.
 """
@@ -166,28 +190,25 @@ def lm_cmd(device, path: str):
 
 def _profile_solve(prob, cfg, what: str):
     """One bundle_adjust(prob, cfg) under torch.profiler after a warm-up
-    run: wall, device busy time, idle share, device launches per LM
+    run (chip_smoke.traced): wall, device busy time, idle share, device launches per LM
     iteration, the top kernels; then one more run with every PCG solve
     (core._pcg) synchronised on both sides: seconds per PCG solve."""
     import torch
 
     from sfm_tpu_torch.ba import bundle_adjust, core
 
-    bundle_adjust(prob, cfg)                                   # warm
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        _, stats = bundle_adjust(prob, cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top = cs.device_time_ms(prof)
+    rows, wall_ms, (_, stats) = cs.traced(lambda: bundle_adjust(prob, cfg))   # after a warm run
+    busy_ms, top = cs.device_time_ms(rows)
     print(f"[profile] {card()} {what} C={prob.num_cameras} O={prob.obs_w.shape[0]} "
           f"{stats.iterations} LM iterations: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}, device launches per LM iteration "
-          f"{cs.device_launches(prof) / max(stats.iterations, 1):.1f}", flush=True)
+          f"{cs.device_launches(rows) / max(stats.iterations, 1):.1f}", flush=True)
     for name, count, ms in top:
         print(f"[profile]   {ms:9.3f} ms  {count:6d}x  {name}", flush=True)
+    its = max(stats.iterations, 1)
+    by_count = sorted(rows, key=lambda r: -r[1])
+    print(f"[profile] {card()} {what}: device rows by launches per LM iteration: " + json.dumps(
+        [(name[:50], round(n / its, 2)) for name, n, _ in by_count[:30]]), flush=True)
     inner, solves = core._pcg, []
 
     def timed(*a, **k):
@@ -234,7 +255,7 @@ def pcg_cmd(device, cameras: int, points: int, blocks: int | None):
           f"{plan.smem_bytes} B staged per block", flush=True)
     _profile_calls("pcg_solve (fused)", lambda: kb.pcg_solve(*args, plan=plan))
     _profile_calls("PCG loop over K11", lambda: kb.pcg_loop(
-        lambda v: core._schur_matvec_pcg(ne, prob, v, inv), M_inv, d, rhs, cfg.cg_iterations,
+        lambda v: cs.schur_matvec_step(ne, prob, v, inv), M_inv, d, rhs, cfg.cg_iterations,
         cfg.cg_tolerance))
 
 
@@ -383,23 +404,122 @@ def global_cmd(device, sizes):
 
 
 def _profile_calls(what: str, fn, calls: int = 10):
-    """Device time by kernel name of `calls` calls of fn() after a warm-up."""
+    """Device time per call and by kernel name of `calls` calls of fn()
+    after a warm-up (chip_smoke.traced, per_call)."""
+    fn()
+    rows, wall_ms, _ = cs.traced(fn, calls)
+    launches, ms, top = cs.per_call(rows, calls)
+    print(f"[profile] {card()} {what}, {calls} calls: wall {wall_ms:.3f} ms, per call: {launches:g} "
+          f"launches, device {ms:.4f} ms", flush=True)
+    for name, n, row_ms in top[:6]:
+        print(f"[profile]   {row_ms:9.4f} ms  {n:5.2f}x  {name}", flush=True)
+
+
+# Where phases_cmd marks pcg_solve_kernel: (text in the loop, mark before, mark after).
+_PHASE_MARKS = (
+    ("        coupling_point(gobs, io, a.hinv, has ? pt : -1, lo, hi, sub, a.lanes);\n    }\n    grid.sync();\n",
+     "A", "sync1"),
+    ("      __syncthreads();\n    }\n    acc_a = 0.0f;\n    acc_b = 0.0f;\n", "B teams", None),
+    ("      a.part[G + b] = acc_b;\n    }\n    grid.sync();\n", "B Ap", "sync2"),
+    ("    if (threadIdx.x == 0) a.part[2 * G + b] = acc_a;\n    grid.sync();\n", "C", "sync3"),
+    ("    rz = rz_new;\n    grid.sync();\n", "D", "sync4"),
+)
+
+
+def _phase_source(src: str) -> tuple[str, list]:
+    """schur_kernels.cu with the phase marks of phases_cmd, and the phases' names."""
+    names = []
+    for anchor, before, after in _PHASE_MARKS:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"phases: pcg_solve_kernel changed, no single place for {before}")
+        sync = anchor.rfind("    grid.sync();\n")
+        names.append(before)
+        if after is None:
+            marked = anchor.replace("    acc_a = 0.0f;", f"    MARK({len(names) - 1});\n    acc_a = 0.0f;", 1)
+        else:
+            names.append(after)
+            marked = (anchor[:sync] + f"    MARK({len(names) - 2});\n    grid.sync();\n    MARK({len(names) - 1});\n")
+        src = src.replace(anchor, marked)
+    loop = "  for (int it = 0; it < a.iterations; ++it) {\n"
+    src = src.replace(loop, "  unsigned long long t_last = 0;\n  if (threadIdx.x == 0) asm volatile(\"mov.u64 %0, "
+                      "%%globaltimer;\" : \"=l\"(t_last));\n" + loop, 1)
+    marks = (f"__device__ unsigned long long g_phase[4096][{len(names)}];\n"
+             "#define MARK(i) do { if (threadIdx.x == 0) { unsigned long long t_; asm volatile(\"mov.u64 %0, "
+             "%%globaltimer;\" : \"=l\"(t_)); g_phase[blockIdx.x][i] += t_ - t_last; t_last = t_; } } while (0)\n")
+    src = src.replace('#include "segment_sum.cuh"\n', '#include "segment_sum.cuh"\n' + marks, 1)
+    src += ("extern \"C\" int sfm_phase_read(unsigned long long* out) {\n"
+            "  return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));\n}\n"
+            "extern \"C\" int sfm_phase_reset() {\n  void* p;\n  cudaGetSymbolAddress(&p, g_phase);\n"
+            "  return (int)cudaMemset(p, 0, sizeof(g_phase));\n}\n")
+    return src, names
+
+
+def phases_cmd(device):
+    """pcg_solve's device time by phase (see the module docstring): the
+    marked copy's sfm_pcg_solve stands in for the library's while the
+    wrapper runs, on first-iteration inputs made by the library."""
+    import ctypes
+    import tempfile
+
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+    from sfm_tpu_torch import kernels
+    from sfm_tpu_torch.ba import build_problem, core
+    from sfm_tpu_torch.config import BAConfig
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    src, names = _phase_source((kernels.CSRC / "schur_kernels.cu").read_text())
+    real = kernels.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, so = os.path.join(tmp, "phases.cu"), os.path.join(tmp, "libphases.so")
+        with open(cu, "w") as f:
+            f.write(src)
+        proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-shared", "-o", so,
+                               cu], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"phases: nvcc failed:\n{proc.stderr}")
+        marked_lib = ctypes.CDLL(so)
+    for name in ("sfm_pcg_solve", "sfm_pcg_blocks_per_sm"):
+        getattr(marked_lib, name).argtypes = list(kernels._SIGNATURES[name])
+        getattr(marked_lib, name).restype = ctypes.c_int
+    marked_lib.sfm_phase_read.argtypes = [ctypes.c_void_p]
+
+    def run(prob, what, reps=5):
+        cfg = BAConfig()
+        inv, ne = cs.first_iteration_inputs(prob, cfg)
+        M_inv, d = core.pcg_preconditioner(ne, prob, inv)
+        rhs = core._schur_rhs(ne, prob, inv).contiguous()
+        args = (ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
+                inv.cam_bounds, inv.cam_inv_perm, ne.Hcc, M_inv, d, rhs, cfg.cg_iterations, cfg.cg_tolerance)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top = cs.device_time_ms(prof)
-    print(f"[profile] {card()} {what}, {calls} calls: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms", flush=True)
-    for name, count, ms in top[:6]:
-        print(f"[profile]   {ms:9.3f} ms  {count:6d}x  {name}", flush=True)
+        kernels._lib = marked_lib
+        try:
+            plan = kb.pcg_launch_plan(inv.point_bounds)
+            kb.pcg_solve(*args, plan=plan)
+            torch.cuda.synchronize()
+            marked_lib.sfm_phase_reset()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                kb.pcg_solve(*args, plan=plan)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
+            buf = (ctypes.c_ulonglong * (4096 * len(names)))()
+            marked_lib.sfm_phase_read(buf)
+        finally:
+            kernels._lib = real
+        t = torch.tensor(list(buf), dtype=torch.float64).reshape(4096, len(names))[:plan.grid]
+        t = t / (reps * cfg.cg_iterations) / 1e3     # microseconds per step
+        row = {n: [round(float(t[:, i].mean()), 2), round(float(t[:, i].max()), 2)] for i, n in enumerate(names)}
+        print(f"[phases] {card()} {what}: C={prob.num_cameras} O={prob.obs_w.shape[0]} grid {plan.grid} "
+              f"{'streaming' if plan.streaming else 'resident'}, largest slice {plan.max_slice}; {wall * 1e3:.3f} "
+              f"ms a solve (marked); us per CG step, mean and max over blocks: {json.dumps(row)}; step "
+              f"{float(t.sum(1).mean()):.2f}", flush=True)
+
+    run(cs.schur_problem(device), "orbit")
+    run(cs.schur_problem(device, cs.WIDE_CAMERAS, cs.WIDE_POINTS), "wide orbit")
+    rec, _ = cs.arc_ring_reconstruction(cs.POLISH_CAMERAS, cs.POLISH_POINTS, cs.POLISH_TRACKS, seed=3,
+                                        centre_noise=cs.POLISH_CENTRE_NOISE)
+    run(build_problem(rec, tight=True, device=device)[0], "merged model")
 
 
 def kernels_cmd(device, pairs: int, keypoints: int):
@@ -407,6 +527,7 @@ def kernels_cmd(device, pairs: int, keypoints: int):
 
     from sfm_tpu_torch.ba import build_problem
     from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.config import BAConfig
     from sfm_tpu_torch.kernels.ba_kernels import cam_segment_sum
     from sfm_tpu_torch.kernels.match_topk import match_topk2
 
@@ -415,6 +536,8 @@ def kernels_cmd(device, pairs: int, keypoints: int):
             print(f"[kernels] {card()} {what} " + json.dumps({f: r[f] for f in cs.SHAPE_FIELDS}),
                   flush=True)
 
+    print(f"[kernels] {card()} dog_extrema_scores " + json.dumps(cs.check_dog(device, cs.SLICE_IMAGE)),
+          flush=True)
     rows("match_topk2", cs.check_match(device, keypoints, pairs)[1])
     # The wrapper on fp32 descriptors, as the matcher hands them over: the
     # kernel's own share beside the bf16 conversions.
@@ -431,6 +554,12 @@ def kernels_cmd(device, pairs: int, keypoints: int):
               f"weighted={inv.cam_perm.numel()} C={C}: camera segments mean {float(lengths.mean()):.1f} "
               f"max {int(lengths.max())}", flush=True)
         rows("cam_segment_sum", cs.check_segment_sum(inv, O, C, prob.num_points, device))
+        cfg = BAConfig()
+        checked = (cs.check_big(prob, cfg, device)[0] if core.uses_big_kernels(prob) else
+                   {**cs.check_ba(prob, cfg, device, "orbit"), **cs.check_schur(prob, cfg, device)})
+        for k, r in checked.items():
+            print(f"[kernels] {card()} {k} C={C} " + json.dumps(
+                {f: r[f] for f in cs.SHAPE_FIELDS[1:] + ("k3_ms", "k3_device_ms") if f in r}), flush=True)
         for K in (6, cs.NE_CAM_ROWS):
             values = torch.randn((K, O), device=device)
             _profile_calls(f"cam_segment_sum camera side [{K}, {O}] -> [{C}, {K}]",
@@ -438,6 +567,75 @@ def kernels_cmd(device, pairs: int, keypoints: int):
         values = torch.randn((9, O), device=device)
         _profile_calls(f"cam_segment_sum point side [9, {O}] -> [{prob.num_points}, 9]",
                        lambda: cam_segment_sum(values, None, inv.point_bounds))
+
+
+def _session(fn, calls: int, lead_in_s: float) -> list:
+    """One plain torch.profiler session over `calls` calls of fn(), started
+    on an idle card, the calls lead_in_s after its start: its device rows
+    as chip_smoke.traced gives them."""
+    import torch
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(lead_in_s)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in cs.device_rows(prof)]
+
+
+def profiler_cmd(device, calls: int, sessions: int):
+    import torch
+
+    from sfm_tpu_torch.ba import build_problem, core
+    from sfm_tpu_torch.config import BAConfig
+    from sfm_tpu_torch.kernels import LAUNCHES
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    prob = cs.schur_problem(device)
+    cfg = BAConfig()
+    inv, ne = cs.first_iteration_inputs(prob, cfg)
+    lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
+    step = cs.lm_step(prob, cfg, inv, ne)
+    M_inv, d = core.pcg_preconditioner(ne, prob, inv)
+    rhs = core._schur_rhs(ne, prob, inv).contiguous()
+    base = (prob.obs_cam, prob.obs_point, prob.points, inv.static_t, prob.cam_params.contiguous(),
+            prob.intrinsics)
+    rec, _ = cs.arc_ring_reconstruction(cs.POLISH_CAMERAS, cs.POLISH_POINTS, cs.POLISH_TRACKS, seed=3,
+                                        centre_noise=cs.POLISH_CENTRE_NOISE)
+    big = build_problem(rec, tight=True, device=device)[0]
+    big_inv = core.solve_invariants(big, core.near_plane_floor(big))
+    big_args = (core._pts_t(big, big.points), big_inv.static_t, core._rows_t(big.cam_params, big.obs_cam),
+                big_inv.intr_t, big_inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
+    fns = {
+        "fused_ne_payloads": lambda: kb.fused_ne_payloads(
+            *base, inv.point_bounds, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm, lam, inv.z_floor,
+            cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan, schur_jacobi=True),
+        "fused_cost_sums": lambda: kb.fused_cost_sums(
+            *base, inv.point_bounds, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px, step=step,
+            plan=inv.pcg_plan),
+        "pcg_solve": lambda: kb.pcg_solve(
+            ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
+            inv.cam_bounds, inv.cam_inv_perm, ne.Hcc, M_inv, d, rhs, cfg.cg_iterations, cfg.cg_tolerance,
+            plan=inv.pcg_plan),
+        "fused_cost_sums_big": lambda: kb.fused_cost_sums_big(*big_args),
+    }
+    methods = {"session, no lead-in": lambda fn: _session(fn, calls, 0.0),
+               "session, 20 ms lead-in": lambda fn: _session(fn, calls, 0.02),
+               "chip_smoke.traced, one session": lambda fn: cs.traced(fn, calls, sessions=1)[0]}
+    for name, fn in fns.items():
+        fn()
+        for method, run in methods.items():
+            for session in range(sessions):
+                before = LAUNCHES[name]
+                rows = run(fn)
+                # traced runs the calls twice, the first step discarded.
+                own = (LAUNCHES[name] - before) / calls / (2 if method.startswith("chip_smoke") else 1)
+                launches, ms, top = cs.per_call(rows, calls)
+                print(f"[profiler] {card()} {name}, {method}, session {session}: wrapper {own:g} "
+                      f"launches a call; recorded {launches:g} launches, device {ms:.4f} ms a call; rows "
+                      + json.dumps([[n, c] for n, c, _ in top]), flush=True)
 
 
 def per_iteration(prob, solver: str) -> dict:
@@ -495,12 +693,14 @@ def main() -> int:
     p = sub.add_parser("slice")
     p.add_argument("--runs", type=int, default=2)
     p.add_argument("--save-problem", metavar="PATH")
+    p.add_argument("--root", metavar="DIR", help="import sfm_tpu_torch from this tree")
     p = sub.add_parser("lm")
     p.add_argument("problem", metavar="PATH")
     p.add_argument("--root", metavar="DIR", help="import sfm_tpu_torch from this tree")
     sub.add_parser("crossover")
     p = sub.add_parser("polish")
     p.add_argument("--iterations", type=int, default=5)
+    p.add_argument("--root", metavar="DIR", help="import sfm_tpu_torch from this tree")
     p = sub.add_parser("partition")
     p.add_argument("--variants", nargs="+", default=["default", "no_straighten"],
                    choices=list(PARTITION_VARIANTS))
@@ -511,6 +711,11 @@ def main() -> int:
     p.add_argument("--cameras", type=int, default=100)
     p.add_argument("--points", type=int, default=500)
     p.add_argument("--blocks", type=int, help="also check on a grid of this many blocks")
+    p.add_argument("--root", metavar="DIR", help="import sfm_tpu_torch from this tree")
+    sub.add_parser("phases")
+    p = sub.add_parser("profiler")
+    p.add_argument("--calls", type=int, default=10)
+    p.add_argument("--sessions", type=int, default=3)
     p = sub.add_parser("kernels")
     p.add_argument("--pairs", type=int, default=32)
     p.add_argument("--keypoints", type=int, default=4096)
@@ -529,6 +734,10 @@ def main() -> int:
         lm_cmd(device, args.problem)
     elif args.cmd == "kernels":
         kernels_cmd(device, args.pairs, args.keypoints)
+    elif args.cmd == "profiler":
+        profiler_cmd(device, args.calls, args.sessions)
+    elif args.cmd == "phases":
+        phases_cmd(device)
     elif args.cmd == "pcg":
         pcg_cmd(device, args.cameras, args.points, args.blocks)
     elif args.cmd == "polish":
