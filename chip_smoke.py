@@ -8,11 +8,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   2. build: compile the kernels in sfm_tpu_torch/csrc (one nvcc per source,
      all at once, sm_90a);
   3. features kernels: K1 and K2 against their plain PyTorch versions on
-     the card at the slices' shapes (K2 on one pair and on a block of 32
+     the card at the slices' shapes (K1 bit-exact on a [1, 6, 1024, 1024]
+     octave, and untimed on a ragged [3, 6, 200, 328], an L = 4 stack, W % 4
+     != 0, an offset view and 8 x 8; K2 on one pair and on a block of 32
      pairs of 4096 x 4096, on ragged shapes, on a batch whose pairs differ
      in validity, one of them without a valid column, and on fewer columns
-     than one tile; once more, after the incremental slice, at the shapes
-     that run handed it);
+     than one tile; both once more, after the incremental slice, at the
+     shapes that run handed them, K1 on the stacks it was handed);
   4. two-view slice: sfm_tpu_torch.reconstruct on two rendered 1024x1024
      images with the default config; 2 images registered, >= 100 points,
      mean reprojection error < 1 px, pose against the ground truth, and
@@ -34,7 +36,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      time per call, launches per LM iteration: the "[lm]" line); pcg_solve
      on both problems, on the orbit problem once more in its streaming mode,
      and on a wide orbit of 1024 cameras (more cameras than blocks: resident,
-     streaming, and on a grid of 8 blocks);
+     streaming, and on a grid of 8 blocks); extract_features on the ring's
+     first chunk of 8 views with use_pallas True and False (every Features
+     tensor identical), and where that chunk's device time goes (the
+     "[features]" line: device ms and launches by part, idle share, and the
+     run's features stage seconds);
   6. divide-and-conquer slice: the same views through reconstruct with
      partition.enabled (clusters of 40 + 10 of overlap, the incremental
      engine inside, every other field default): >= 95% registered, < 1 px,
@@ -77,7 +83,7 @@ on each path (`launches` is the largest of them; K11's row counts the
 launches of pcg_solve and K10's those of pcg_solve_big, which run their
 code; K7's counts K3's launches that build the Schur-Jacobi blocks), K7's
 K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
-K2, K9 and pcg_solve a row per timed shape under `shapes`.
+K1, K2, K9 and pcg_solve a row per timed shape under `shapes`.
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -177,9 +183,10 @@ WIDE_BLOCKS = 8
 PCG_X_STEPS = 8
 # kernels/ba_kernels.NE_CAM_ROWS: rows of the camera payload K3/K4 hand to K9.
 NE_CAM_ROWS = 42
-# Per-shape rows of a kernel that is timed at several shapes (K2, K9).
+# Per-shape rows of a kernel that is timed at several shapes (K1, K2, K9;
+# K1's carry the calls the incremental slice made at that shape).
 SHAPE_FIELDS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "device_ms")
+                "device_ms", "calls")
 PCG_FIELDS = ("loop_ms", "loop_device_ms")
 # Shared memory of one H100 SXM: 132 SMs of 227 KB a block. What a CG step
 # reads beyond it comes from device memory again every step (check_pcg's
@@ -219,19 +226,15 @@ def time_ms(fn, device, runs: int = 21) -> float:
 TRACE_SESSIONS = {"short": 0, "all": 0}
 
 
-def traced(fn, calls: int = 1, sessions: int = 3, pad_s: float = 0.1):
+def profiled_sessions(fn, calls: int = 1, sessions: int = 3, pad_s: float = 0.1):
     """torch.profiler over `calls` calls of fn(), `sessions` times: each
     session runs the calls twice, the first step (device tracing already
-    on) discarded, the kept one between pad_s of idle card on each side. A
-    trace can miss launches near its ends, up to half of a session's in a
-    process that has run many kernels (PERF.md section 7). So each device
-    row counts the most launches any session recorded, at its mean time per
-    launch over all sessions. Returns (rows (name, launches, ms) by ms, the
-    median wall ms of the kept calls, fn()'s last result)."""
+    on) discarded, the kept one between pad_s of idle card on each side.
+    Yields (the profiler, the kept calls' wall ms, fn()'s last result) for
+    each session."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    seen, walls, totals = {}, [], []
     for _ in range(sessions):
         steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
         with torch.profiler.profile(activities=acts, schedule=steps) as prof:
@@ -245,6 +248,18 @@ def traced(fn, calls: int = 1, sessions: int = 3, pad_s: float = 0.1):
                 wall = (time.perf_counter() - t0) * 1e3
                 time.sleep(pad_s * step)
                 prof.step()
+        yield prof, wall, out
+
+
+def traced(fn, calls: int = 1, sessions: int = 3, pad_s: float = 0.1):
+    """Device rows of profiled_sessions. A trace can miss launches near its
+    ends, up to half of a session's in a process that has run many kernels
+    (PERF.md section 7). So each device row counts the most launches any
+    session recorded, at its mean time per launch over all sessions.
+    Returns (rows (name, launches, ms) by ms, the median wall ms of the kept
+    calls, fn()'s last result)."""
+    seen, walls, totals = {}, [], []
+    for prof, wall, out in profiled_sessions(fn, calls, sessions, pad_s):
         walls.append(wall)
         rows = device_rows(prof)
         totals.append(sum(e.count for e in rows))
@@ -308,14 +323,41 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
 # ---- phase 3: kernels against their plain versions -------------------------
 
 
+def check_dog_shape(device, gauss, pre: float, what: str, timed: bool = True) -> dict:
+    """K1 on one Gaussian stack: bit-exact (torch.equal) against its plain
+    version; timed, its ms, device ms, plain ms and bound."""
+    import torch
+
+    from sfm_tpu_torch.kernels import dog_extrema as k1
+
+    out = k1.dog_extrema_scores(gauss, pre)
+    ref = k1.dog_extrema_scores_plain(gauss, pre)
+    n_ext = int((ref > 0).sum())
+    if not torch.equal(out, ref):
+        raise AssertionError(f"dog_extrema_scores {what}: not bit-exact ({int((out != ref).sum())} "
+                             f"voxels differ, {n_ext} extrema)")
+    row = dict(shape=what, max_abs_err=float((out - ref).abs().max()), extrema=n_ext)
+    if timed:
+        # Operations: the L-1 DoG differences per pixel, then for the L-3
+        # scored levels 26 neighbour compares for the maximum, 26 for the
+        # minimum and the threshold.
+        B, L, H, W = gauss.shape
+        ops = B * H * W * ((L - 1) + (L - 3) * 53)
+        row.update(ms=time_ms(lambda: k1.dog_extrema_scores(gauss, pre), device),
+                   plain_ms=time_ms(lambda: k1.dog_extrema_scores_plain(gauss, pre), device),
+                   library_ms=None, **bound(nbytes(gauss, out), ops, FP32_OPS_PER_S),
+                   device_ms=device_ms(lambda: k1.dog_extrema_scores(gauss, pre), device))
+    return row
+
+
 def check_dog(device, size: int):
     """K1 on the [1, 6, size, size] first octave of a uniform-noise image
-    (dense in extrema): bit-exact."""
+    (dense in extrema): bit-exact; then, untimed, on stacks whose shapes
+    the kernel's routes make interesting (dog_edge_stacks)."""
     import numpy as np
     import torch
 
     from sfm_tpu_torch.config import SiftConfig
-    from sfm_tpu_torch.kernels import dog_extrema as k1
     from sfm_tpu_torch.ops.detect import pre_threshold
     from sfm_tpu_torch.ops.pyramid import build_pyramid
 
@@ -323,23 +365,201 @@ def check_dog(device, size: int):
     img = np.random.default_rng(0).uniform(0, 1, (1, size, size)).astype(np.float32)
     gauss = build_pyramid(torch.from_numpy(img).to(device), cfg)[0].contiguous()
     pre = pre_threshold(cfg)
-    out = k1.dog_extrema_scores(gauss, pre)
-    ref = k1.dog_extrema_scores_plain(gauss, pre)
-    n_ext = int((ref > 0).sum())
-    if not torch.equal(out, ref) or n_ext == 0:
-        raise AssertionError(f"dog_extrema_scores: not bit-exact ({int((out != ref).sum())} "
-                             f"voxels differ, {n_ext} extrema)")
-    B, L, H, W = gauss.shape
-    # Operations: the L-1 DoG differences per pixel, then for the L-3 scored
-    # levels 26 neighbour compares for the maximum, 26 for the minimum and
-    # the threshold.
-    ops = B * H * W * ((L - 1) + (L - 3) * 53)
-    return dict(max_abs_err=float((out - ref).abs().max()),
-                ms=time_ms(lambda: k1.dog_extrema_scores(gauss, pre), device),
-                plain_ms=time_ms(lambda: k1.dog_extrema_scores_plain(gauss, pre), device),
-                library_ms=None, **bound(nbytes(gauss, out), ops, FP32_OPS_PER_S),
-                device_ms=device_ms(lambda: k1.dog_extrema_scores(gauss, pre), device),
-                note=f"exact, {n_ext} extrema")
+    row = check_dog_shape(device, gauss, pre, "x".join(map(str, gauss.shape)))
+    if row["extrema"] == 0:
+        raise AssertionError("dog_extrema_scores: no extremum in a noise octave")
+    edges = [check_dog_shape(device, g, pre, what, timed=False) for what, g in dog_edge_stacks(device)]
+    row["note"] = (f"exact, {row['extrema']} extrema; exact untimed on " +
+                   ", ".join(f"{r['shape']} ({r['extrema']} extrema)" for r in edges))
+    return row
+
+
+def dog_edge_stacks(device):
+    """(what, stack) for K1's untimed checks: a ragged [3, 6, 200, 328]
+    (partial tiles), L = 4 (one scored level), W % 4 != 0 and an offset view
+    (the 4-byte route), and 8 x 8 (no interior pixel: all zeros). Smoothed
+    noise whose levels drift apart like a Gaussian stack's."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+
+    def stack(shape):
+        g = 0.1 * np.cumsum(rng.uniform(0, 1, shape), axis=1) + 0.05 * rng.normal(size=shape)
+        return torch.from_numpy(g.astype(np.float32)).to(device)
+
+    flat = stack((2, 6, 136, 200)).reshape(-1)
+    offset = torch.empty(flat.numel() + 1, device=device)
+    offset[1:] = flat
+    return [("ragged 3x6x200x328", stack((3, 6, 200, 328))), ("L=4 2x4x256x256", stack((2, 4, 256, 256))),
+            ("W%4=3 2x6x136x203", stack((2, 6, 136, 203))),
+            ("offset view 2x6x136x200", offset[1:].view(2, 6, 136, 200)),
+            ("8x8 2x6x8x8", stack((2, 6, 8, 8)))]
+
+
+@contextlib.contextmanager
+def record_dog_stacks():
+    """Record every [B, L, H, W] the feature stage hands K1, with a copy of
+    the first stack of each shape and the number of calls, by wrapping the
+    extractor's kernel entry for the duration."""
+    from sfm_tpu_torch.ops import sift
+
+    seen, inner = {}, sift.dog_extrema_scores
+
+    def wrapped(gauss, pre):
+        key = tuple(gauss.shape)
+        if key not in seen:
+            seen[key] = dict(stack=gauss.clone(), pre=pre, calls=0)
+        seen[key]["calls"] += 1
+        return inner(gauss, pre)
+
+    sift.dog_extrema_scores = wrapped
+    try:
+        yield seen
+    finally:
+        sift.dog_extrema_scores = inner
+
+
+def check_dog_path(device, seen) -> list:
+    """K1 at every shape the feature stage handed it, on the first stack it
+    was handed there: bit-exact and timed."""
+    rows = []
+    for key in sorted(seen, key=lambda k: (-k[2], -k[0])):
+        rec = seen[key]
+        rows.append({**check_dog_shape(device, rec["stack"], rec["pre"], "x".join(map(str, key))),
+                     "calls": rec["calls"]})
+    return rows
+
+
+def ring_chunk(device, ring):
+    """The first feature chunk of the ring as the feature stage hands it to
+    extract_features: canvases [8, H, W] and valid_hw, on the device, and the
+    default SiftConfig."""
+    import torch
+
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.pipeline import ingest, stages
+
+    cfg = PipelineConfig().sift
+    batch = ingest.load_images(list(ring[:stages._FEATURE_CHUNK]), cfg)
+    return (torch.from_numpy(batch.canvases).to(device), cfg,
+            torch.from_numpy(batch.valid_hw).to(device))
+
+
+def check_features_route(images, cfg, valid_hw) -> int:
+    """extract_features on one chunk with use_pallas True (K1) and False
+    (the plain score map): every Features tensor identical. Returns the
+    valid keypoints."""
+    import dataclasses
+
+    import torch
+
+    from sfm_tpu_torch.ops.sift import extract_features
+
+    a = extract_features(images, cfg, valid_hw)
+    b = extract_features(images, dataclasses.replace(cfg, use_pallas=False), valid_hw)
+    differ = [name for name, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+    if differ:
+        raise AssertionError(f"extract_features: use_pallas True and False differ in {differ}")
+    return int(a.valid.sum())
+
+
+# The feature stage's parts for the breakdown: part -> (module, function)
+# wrapped while it runs. Device time outside them is "rest".
+FEATURE_PARTS = {
+    "pyramid": (("sfm_tpu_torch.ops.pyramid", "build_pyramid"),),
+    "gradients": (("sfm_tpu_torch.ops.pyramid", "pyramid_gradients"),),
+    "K1": (("sfm_tpu_torch.ops.sift", "dog_extrema_scores"),),
+    "sort": (("sfm_tpu_torch.ops.sift", "select_candidates"), ("sfm_tpu_torch.ops.sift", "top_k_stable")),
+    "refine": (("sfm_tpu_torch.ops.sift", "refine_candidates"),),
+    "orientation": (("sfm_tpu_torch.ops.sift", "assign_orientation"),),
+    "descriptors": (("sfm_tpu_torch.ops.sift", "compute_descriptors"),),
+}
+PART_TAG = "part:"
+
+
+@contextlib.contextmanager
+def labelled_parts(parts=FEATURE_PARTS):
+    """Run each part's functions inside torch.profiler.record_function(
+    PART_TAG + part), the card synchronised on entry and before leaving, so
+    that every kernel a part launches runs inside its range."""
+    import importlib
+
+    import torch
+
+    saved = []
+
+    def wrap(part, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(PART_TAG + part):
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            return out
+        return run
+
+    for part, targets in parts.items():
+        for module, name in targets:
+            m = importlib.import_module(module)
+            saved.append((m, name, getattr(m, name)))
+            setattr(m, name, wrap(part, getattr(m, name)))
+    try:
+        yield
+    finally:
+        for m, name, fn in reversed(saved):
+            setattr(m, name, fn)
+
+
+def part_rows(prof) -> dict:
+    """Device launches, ms and ms by kernel name for each part of one traced
+    step: each device event goes to the part whose range holds its
+    midpoint, else to "rest"."""
+    import torch
+
+    events = prof.events()
+    ranges = [(e.name[len(PART_TAG):], e.time_range.start, e.time_range.end) for e in events
+              if e.name.startswith(PART_TAG) and e.device_type == torch.autograd.DeviceType.CPU]
+    out = {}
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith(PART_TAG)
+                or e.name.startswith("ProfilerStep")):
+            continue
+        mid = 0.5 * (e.time_range.start + e.time_range.end)
+        part = next((p for p, t0, t1 in ranges if t0 <= mid <= t1), "rest")
+        n, ms, names = out.get(part, (0, 0.0, {}))
+        names[e.name[:60]] = names.get(e.name[:60], 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        out[part] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3, names)
+    return out
+
+
+def feature_breakdown(images, cfg, valid_hw, sessions: int = 3) -> dict:
+    """Where one warm extract_features call on a chunk spends the card:
+    device ms, launches, wall ms and idle share of the call as the pipeline
+    runs it (chip_smoke.traced); then device launches and ms by part
+    (FEATURE_PARTS, each synchronised at its ends: `sessions` sessions of a
+    discarded and a kept call, each part at the most launches a session
+    recorded and its mean time per launch, as traced merges rows, and the
+    part's three longest kernels by device ms in the last session)."""
+    from sfm_tpu_torch.ops.sift import extract_features
+
+    def run():
+        return extract_features(images, cfg, valid_hw)
+
+    run()
+    rows, wall_ms, _ = traced(run)
+    launches, busy_ms, _ = per_call(rows, 1)
+    merged, top = {}, {}
+    with labelled_parts():
+        for prof, synced_ms, _ in profiled_sessions(run, sessions=sessions):
+            for part, (n, ms, names) in part_rows(prof).items():
+                tn, tms, most = merged.get(part, (0, 0.0, 0))
+                merged[part] = (tn + n, tms + ms, max(most, n))
+                top[part] = sorted(names.items(), key=lambda kv: -kv[1])[:3]
+    parts = {p: dict(launches=most, device_ms=most * ms / n, top=top[p])
+             for p, (n, ms, most) in sorted(merged.items(), key=lambda kv: -kv[1][1])}
+    return dict(shape=list(images.shape), device_ms=busy_ms, launches=launches, wall_ms=wall_ms,
+                idle_share=1.0 - busy_ms / wall_ms, synced_wall_ms=synced_ms,
+                parts_device_ms=sum(r["device_ms"] for r in parts.values()), parts=parts)
 
 
 def _planted_descriptors(device, n1: int, n2: int, seed: int, pairs: int = 1, invalid=None):
@@ -1903,7 +2123,7 @@ def main() -> int:
     ring, scene = render_ring(INC_IMAGES, INC_BLOBS, INC_ARC)
     log(f"[incremental] rendered {INC_IMAGES} x {SLICE_IMAGE}^2 images with {INC_BLOBS} blobs "
         f"(ring arc {INC_ARC}, focal {INC_FOCAL}, radius {INC_RADIUS}) in {time.perf_counter() - t0:.2f}s")
-    with record_match_shapes() as match_shapes:
+    with record_match_shapes() as match_shapes, record_dog_stacks() as dog_stacks:
         rec, launches, ba_log, _, wall = run_reconstruct(device, ring)
     log(f"[incremental] reconstruct wall {wall:.2f}s | stages " +
         ", ".join(f"{k} {v:.3f}s" for k, v in rec.stage_seconds.items()))
@@ -1955,6 +2175,22 @@ def main() -> int:
     log(f"[incremental] match_topk2 was handed {sorted(set(match_shapes))} (pairs, n1, n2)")
     log_shapes("match_topk2", path_k2)
     k2_shapes += path_k2
+    # K1 at every shape the feature stage handed it (each octave of full and
+    # last chunks), on the stacks it was handed; the feature stage with and
+    # without K1 on one chunk, and where that chunk's device time goes.
+    log("[incremental] dog_extrema_scores was handed " + json.dumps(
+        {"x".join(map(str, k)): v["calls"] for k, v in dog_stacks.items()}) + " (shape: calls)")
+    path_k1 = check_dog_path(device, dog_stacks)
+    del dog_stacks
+    log_shapes("dog_extrema_scores", path_k1)
+    results["dog_extrema_scores"]["shapes"] = [dict(results["dog_extrema_scores"])] + path_k1
+    images, sift_cfg, valid_hw = ring_chunk(device, ring)
+    n_kp = check_features_route(images, sift_cfg, valid_hw)
+    log(f"[features] {SLICE_IMAGE}^2 chunk of {images.shape[0]}: identical Features with use_pallas "
+        f"True and False ({n_kp} valid keypoints)")
+    log("[features] " + json.dumps({**feature_breakdown(images, sift_cfg, valid_hw),
+                                    "incremental_features_stage_s": rec.stage_seconds["features"]}))
+    del images, valid_hw
     paths = {"two_view": two_view_launches, "incremental": launches}
     del ba_log, final
 

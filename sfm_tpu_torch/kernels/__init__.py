@@ -65,7 +65,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream are c_void_p).
 _SIGNATURES = {
-    "sfm_dog_extrema": (_P, _P, _I, _I, _I, _I, _F, _P),
+    "sfm_dog_extrema": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "sfm_match_topk2": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "sfm_fused_ne_payloads": (_P,) * 12 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 8,
     "sfm_fused_cost_sums": (_P,) * 15 + (_I, _I, _I, _I, _F, _I) + (_P,) * 6,

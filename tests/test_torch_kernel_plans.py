@@ -279,3 +279,61 @@ def test_topk2_takes_fewer_columns_than_a_tile():
     ref = d.sort(dim=1).values.numpy()
     np.testing.assert_allclose(t1[0], ref[:, 0], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(t2[0], ref[:, 1], rtol=1e-4, atol=1e-5)
+
+
+# ---- K1: the tile plan --------------------------------------------------------
+
+
+# Shared memory of one SM of an H100 (228 KB; a block may take 227 KB) and
+# the 1 KB the card reserves for each resident block.
+_SM_SMEM = 233472
+_BLOCK_SMEM = 232448
+_SMEM_RESERVED = 1024
+_SMS = 132
+
+
+def _k1_shapes():
+    """(B, H, W) of every octave of a chunk of 8 and a last chunk of 4 on
+    1024^2 and 2048^2 canvases, and the ragged shapes K1 is checked on."""
+    shapes = [(b, s >> o, s >> o) for s in (1024, 2048) for o in range(4) for b in (8, 4)]
+    return shapes + [(3, 200, 328), (2, 136, 200), (2, 136, 203), (1, 8, 8), (1, 1024, 1024)]
+
+
+@pytest.mark.parametrize("B, H, W", _k1_shapes())
+def test_dog_tiles_cover_every_pixel_once(B, H, W):
+    """Block (bx, by)'s thread (tx, ty) owns rows by*TH + 2*ty + {0, 1} and
+    columns bx*TW + 4*tx + {0..3} (csrc/dog_extrema.cu): every pixel of the
+    image is owned exactly once, and the plan fills the card."""
+    from sfm_tpu_torch.kernels import dog_extrema as k1
+
+    tile = k1.dog_launch_plan(B, H, W)
+    th, tw = tile
+    assert tile in k1.TILES
+    gx, gy = k1.tile_grid(tile, H, W)
+    tx = np.arange(tw // 4)
+    ty = np.arange(th // k1.ROWS_PER_THREAD)
+    assert len(tx) * len(ty) == k1.tile_threads(tile)
+    rows = (np.arange(gy)[:, None, None] * th + k1.ROWS_PER_THREAD * ty[None, :, None]
+            + np.arange(k1.ROWS_PER_THREAD)[None, None, :]).reshape(-1)
+    cols = (np.arange(gx)[:, None, None] * tw + 4 * tx[None, :, None]
+            + np.arange(4)[None, None, :]).reshape(-1)
+    count = np.zeros((H, W), np.int64)
+    np.add.at(count, np.ix_(rows[rows < H], cols[cols < W]), 1)
+    assert (count == 1).all()
+    blocks = B * gx * gy
+    if blocks < k1.FILL_BLOCKS:           # only the smallest tile may leave SMs short
+        assert tile == k1.TILES[-1]
+    if B == 8:                             # a full chunk spreads over every SM
+        assert blocks >= _SMS
+
+
+@pytest.mark.parametrize("tile", [(16, 64), (16, 32)])
+def test_dog_tiles_fit_two_blocks_an_sm(tile):
+    from sfm_tpu_torch.kernels import dog_extrema as k1
+
+    assert tile in k1.TILES
+    smem = k1.tile_smem_bytes(tile)
+    assert smem == (k1.STAGES + 1) * (tile[0] + 2) * (tile[1] + 8) * 4
+    assert smem <= 48 * 1024 <= _BLOCK_SMEM          # no opt-in needed
+    assert 2 * (smem + _SMEM_RESERVED) <= _SM_SMEM
+    assert k1.tile_threads(tile) % 32 == 0 and k1.tile_threads(tile) <= 1024

@@ -64,6 +64,24 @@
         built beside the package's library, on the C = 128 orbit, the
         1,024-camera wide orbit and the merged model (C = 10,240, streaming):
         microseconds per step, mean and max over the blocks;
+    python3 tools/torch_perf.py features [--images 100] [--root DIR]
+        the feature stage alone on chip_smoke.py's incremental ring
+        (stages.extract_stage, cold then warm: seconds), recording every
+        stack it hands K1; K1 at each of those shapes on the stacks it was
+        handed (bit-exact, event and device time, bound); then, on the first
+        chunk of 8 views, extract_features with use_pallas True and False
+        (identical) and where the chunk's device time goes
+        (chip_smoke.feature_breakdown: device ms and launches by part, idle
+        share): the first thing to run after touching csrc/dog_extrema.cu
+        (--root DIR as for lm);
+    python3 tools/torch_perf.py dogsweep
+        K1's design choices: copies of csrc/dog_extrema.cu with a ring of
+        3, 4 or 6 stages and the tiles (16, 64), (16, 32), (32, 64), (8, 64)
+        and (8, 32) (those within 48 KB of shared memory), built beside the
+        package's library, each held bit-exact against the plain version and
+        its device time taken (chip_smoke.device_ms) at every octave of a
+        chunk of 8 and of a last chunk of 4 noise images on 1024^2 canvases,
+        and at [1, 6, 1024, 1024];
     python3 tools/torch_perf.py profiler [--calls 10] [--sessions 3]
         does torch.profiler record every launch? K3 with the Schur-Jacobi
         blocks, K5, pcg_solve on the orbit problem and K6 on the merged
@@ -569,6 +587,111 @@ def kernels_cmd(device, pairs: int, keypoints: int):
                        lambda: cam_segment_sum(values, None, inv.point_bounds))
 
 
+def features_cmd(device, images: int):
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.pipeline import ingest, stages
+
+    ring, _ = cs.render_ring(images, cs.INC_BLOBS, cs.INC_ARC)
+    cfg = PipelineConfig()
+    batch = ingest.load_images(list(ring), cfg.sift)
+    with cs.record_dog_stacks() as seen:
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            stages.extract_stage(batch, cfg, device)
+            print(f"[features] {card()} extract_stage of {images} x {cs.SLICE_IMAGE}^2 views ({run}): "
+                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+    for row in cs.check_dog_path(device, seen):
+        row["calls"] //= 2     # per run of the stage
+        print(f"[features] {card()} dog_extrema_scores " + json.dumps(
+            {f: row[f] for f in cs.SHAPE_FIELDS + ("extrema",)}), flush=True)
+    del seen
+    chunk, sift_cfg, valid_hw = cs.ring_chunk(device, ring)
+    n_kp = cs.check_features_route(chunk, sift_cfg, valid_hw)
+    print(f"[features] {card()} use_pallas True and False identical on the first chunk "
+          f"({n_kp} valid keypoints)", flush=True)
+    print(f"[features] {card()} " + json.dumps(cs.feature_breakdown(chunk, sift_cfg, valid_hw)), flush=True)
+
+
+# dogsweep's variants of csrc/dog_extrema.cu: ring depths, and the tiles
+# dispatched beside the plan's own.
+_DOG_STAGES = (3, 4, 6)
+_DOG_TILES = ((16, 64), (16, 32), (32, 64), (8, 64), (8, 32))
+
+
+def _dog_source(src: str, stages: int) -> tuple[str, list]:
+    """dog_extrema.cu with a ring of `stages` and every _DOG_TILES tile
+    whose shared memory fits 48 KB dispatched; and those tiles."""
+    from sfm_tpu_torch.kernels import dog_extrema as k1
+
+    ring, anchor = "constexpr int kStages = 3;", "  return (int)cudaErrorInvalidValue;\n}\n\n}  // namespace"
+    if ring not in src or anchor not in src:
+        raise RuntimeError("dogsweep: csrc/dog_extrema.cu no longer has the lines it edits")
+    tiles = [t for t in _DOG_TILES if (stages + 1) * (t[0] + 2) * (t[1] + 8) * 4 <= 48 * 1024]
+    extra = "".join(f"  if (tile_h == {h} && tile_w == {w})\n    return launch_tiles<{h}, {w}, VEC>("
+                    "gauss, out, B, L, H, W, pre, stream);\n" for h, w in tiles if (h, w) not in k1.TILES)
+    return src.replace(ring, f"constexpr int kStages = {stages};").replace(anchor, extra + anchor), tiles
+
+
+def dogsweep_cmd(device):
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch import kernels
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.kernels import dog_extrema as k1
+    from sfm_tpu_torch.ops.detect import pre_threshold
+    from sfm_tpu_torch.ops.pyramid import build_pyramid
+
+    src = (kernels.CSRC / "dog_extrema.cu").read_text()
+    variants = []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for stages in _DOG_STAGES:
+            text, tiles = _dog_source(src, stages)
+            cu, so = os.path.join(tmp, f"dog{stages}.cu"), os.path.join(tmp, f"libdog{stages}.so")
+            with open(cu, "w") as f:
+                f.write(text)
+            procs.append((stages, tiles, so, subprocess.Popen(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", so, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for stages, tiles, so, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"dogsweep: nvcc failed:\n{err}")
+            fn = ctypes.CDLL(so).sfm_dog_extrema
+            fn.argtypes = list(kernels._SIGNATURES["sfm_dog_extrema"])
+            fn.restype = ctypes.c_int
+            variants.append((stages, tiles, fn))
+    cfg = SiftConfig()
+    pre = pre_threshold(cfg)
+    img = np.random.default_rng(0).uniform(0, 1, (8, cs.SLICE_IMAGE, cs.SLICE_IMAGE)).astype(np.float32)
+    octaves = [o.contiguous() for o in build_pyramid(torch.from_numpy(img).to(device), cfg)]
+    stacks = ([octaves[0][:1].contiguous()] + octaves + [o[:4].contiguous() for o in octaves])
+    for gauss in stacks:
+        B, L, H, W = gauss.shape
+        ref = k1.dog_extrema_scores_plain(gauss, pre)
+        out = torch.empty_like(ref)
+        stream = torch.cuda.current_stream().cuda_stream
+        row = {}
+        for stages, tiles, fn in variants:
+            for tile in tiles:
+                def go(fn=fn, tile=tile):
+                    if fn(gauss.data_ptr(), out.data_ptr(), B, L, H, W, pre, *tile, 1, stream) != 0:
+                        raise RuntimeError(f"dogsweep: launch failed ({stages} stages, tile {tile})")
+                out.zero_()
+                go()
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"dogsweep: {stages} stages, tile {tile} not bit-exact")
+                ms = cs.device_ms(go, device)
+                row[f"{stages} {tile[0]}x{tile[1]}"] = None if ms is None else round(ms * 1e3, 2)
+        bound_us = cs.nbytes(gauss, ref) / cs.HBM_BYTES_PER_S * 1e6
+        print(f"[dogsweep] {card()} {B}x{L}x{H}x{W}: plan {k1.dog_launch_plan(B, H, W)}, bound "
+              f"{bound_us:.2f} us; device us by (stages, tile): {json.dumps(row)}", flush=True)
+
+
 def _session(fn, calls: int, lead_in_s: float) -> list:
     """One plain torch.profiler session over `calls` calls of fn(), started
     on an idle card, the calls lead_in_s after its start: its device rows
@@ -716,6 +839,10 @@ def main() -> int:
     p = sub.add_parser("profiler")
     p.add_argument("--calls", type=int, default=10)
     p.add_argument("--sessions", type=int, default=3)
+    sub.add_parser("dogsweep")
+    p = sub.add_parser("features")
+    p.add_argument("--images", type=int, default=cs.INC_IMAGES)
+    p.add_argument("--root", metavar="DIR", help="import sfm_tpu_torch from this tree")
     p = sub.add_parser("kernels")
     p.add_argument("--pairs", type=int, default=32)
     p.add_argument("--keypoints", type=int, default=4096)
@@ -732,6 +859,10 @@ def main() -> int:
         slice_cmd(device, args.runs, args.save_problem)
     elif args.cmd == "lm":
         lm_cmd(device, args.problem)
+    elif args.cmd == "dogsweep":
+        dogsweep_cmd(device)
+    elif args.cmd == "features":
+        features_cmd(device, args.images)
     elif args.cmd == "kernels":
         kernels_cmd(device, args.pairs, args.keypoints)
     elif args.cmd == "profiler":
