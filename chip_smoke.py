@@ -64,7 +64,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      on the same problem as check_pcg holds pcg_solve (x after PCG_X_STEPS
      steps) beside the loop over K10 and K9 it replaced, and the polish's
      LM iteration (device launches and device time per LM iteration: the
-     "[lm] merged polish" line).
+     "[lm] merged polish" line);
+  9. config #3 from image files: the incremental ring's scene at its
+     spacing with 128 views (arc fraction 0.64), each written as an 8-bit
+     binary PGM into a temporary directory, through
+     sfm_tpu_torch.cli.main(["reconstruct", DIR, "--out", OUT,
+     'pair_mode="vocab_tree"']) in this process, every other field default:
+     streaming decode, K1, the vocab tree, K2 on the vocab pairs, densify
+     (K2 on the ladder pairs), the incremental engine, COLMAP text + bin +
+     PLY; >= 95% registered, < 1 px, camera RMSE < 1% of the radius, fewer
+     candidate pairs than exhaustive, the final global BA on PCG, the
+     engine's kernels launched, and read_colmap_bin(OUT/sparse) equal to
+     the Reconstruction's cameras, images and points; then the same command
+     again on the same OUT: no stage may run (the streamed feature stage,
+     the match stage and the incremental engine raise if called) and the
+     model and PLY must come out byte-identical; the idle share of the
+     path's vocab retrieval and of one match block (the "[vocab]" line);
+ 10. the off-by-default paths: the two-view slice's views through
+     reconstruct with sift.upsample_first_octave, match.guided and
+     ransac.model="fundamental": the two-view bars and kernels, then K1 on
+     every stack that run handed it (the [2, 6, 2048, 2048] upsampled octave
+     among them), bit-exact and timed ("options" rows of K1's shapes), and
+     bit-exact on the upsampled octave of two noise images (dense extrema).
 Each kernel check holds the kernel against its plain version with the
 tolerance stated and takes the median time of the kernel, the plain version
 and (where one PyTorch call computes the same function) that call (CUDA
@@ -79,7 +100,8 @@ pcg_solve_big). Every row also carries its device time per call
 (`device_ms`, torch.profiler). The record (thirteen rows) reports K1-K3,
 K5, K7, K9, K11 and pcg_solve at the incremental slice's shapes, K4, K6,
 K8, K10 and pcg_solve_big at the merged polish's, every kernel's launches
-on each path (`launches` is the largest of them; K11's row counts the
+on each path (two_view, incremental, partition, global, vocab, options,
+merged_polish; `launches` is the largest of them; K11's row counts the
 launches of pcg_solve and K10's those of pcg_solve_big, which run their
 code; K7's counts K3's launches that build the Schur-Jacobi blocks), K7's
 K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
@@ -93,9 +115,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Kernel name -> (source, the TPU kernel it replaces: file:line of pallas_call).
@@ -2082,6 +2106,295 @@ def check_global(rec, launches, scene, radius: float):
     return rmse
 
 
+# ---- phase 9: config #3 from image files through the CLI --------------------
+
+VOCAB_IMAGES = 128   # South Building's image count (BASELINE.json config #3)
+VOCAB_ARC = 0.64     # 1.8 degrees between views: the incremental ring's spacing
+VOCAB_EXHAUSTIVE = VOCAB_IMAGES * (VOCAB_IMAGES - 1) // 2
+
+
+def write_pgm_views(imgs, directory: str) -> str:
+    """Each view as an 8-bit binary PGM (P5): the format the port decodes
+    without OpenCV. Returns the directory."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(directory, exist_ok=True)
+    for i, img in enumerate(imgs):
+        h, w = img.shape
+        with open(os.path.join(directory, f"view_{i:04d}.pgm"), "wb") as f:
+            f.write(b"P5\n%d %d\n255\n" % (w, h))
+            f.write(np.round(np.clip(img, 0, 1) * 255).astype(np.uint8).tobytes())
+    return directory
+
+
+@contextlib.contextmanager
+def record_vocab_run():
+    """Record what the path-input pipeline did, by wrapping its entry points
+    for the duration: the vocab tree's build seconds and the retrieval's
+    (build, quantize and score), the candidate pairs, the verified edges
+    before and after densify, the ladder candidates, the seconds spent
+    saving each stage's artifact (inside the stage times), and the
+    Reconstruction run_pipeline returned."""
+    import torch
+
+    from sfm_tpu_torch.ops import vocab
+    from sfm_tpu_torch.pipeline import run, stages
+    from sfm_tpu_torch.scene.artifacts import ArtifactStore
+
+    rec = {"artifact_save_s": {}}
+    inner = dict(build=vocab.build_vocab_tree, pairs=vocab.vocab_tree_pairs, densify=stages.densify_graph,
+                 cand=stages.densify_candidate_pairs, run=run.run_pipeline, save=ArtifactStore.save)
+
+    def timed(key, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        rec[key] = time.perf_counter() - t0
+        return out
+
+    def pairs(*a, **k):
+        out = timed("vocab_s", inner["pairs"], *a, **k)
+        rec["candidate_pairs"] = len(out)
+        return out
+
+    def densify(feats, graph, *a, **k):
+        rec["verified_before_densify"] = int(graph.ok.sum())
+        out = inner["densify"](feats, graph, *a, **k)
+        rec["ladder_pairs_added"] = len(out.pairs) - len(graph.pairs)
+        rec["verified_edges"] = int(out.ok.sum())
+        return out
+
+    def cand(*a, **k):
+        out = inner["cand"](*a, **k)
+        rec["ladder_candidates"] = len(out)
+        return out
+
+    def run_pipeline(*a, **k):
+        rec["rec"] = inner["run"](*a, **k)
+        return rec["rec"]
+
+    def save(store, stage, key, arrays):
+        t0 = time.perf_counter()
+        inner["save"](store, stage, key, arrays)
+        saved = rec["artifact_save_s"]
+        saved[stage] = saved.get(stage, 0.0) + time.perf_counter() - t0
+
+    vocab.build_vocab_tree = lambda *a, **k: timed("build_s", inner["build"], *a, **k)
+    vocab.vocab_tree_pairs, stages.densify_graph, stages.densify_candidate_pairs = pairs, densify, cand
+    run.run_pipeline, ArtifactStore.save = run_pipeline, save
+    try:
+        yield rec
+    finally:
+        vocab.build_vocab_tree, vocab.vocab_tree_pairs = inner["build"], inner["pairs"]
+        stages.densify_graph, stages.densify_candidate_pairs = inner["densify"], inner["cand"]
+        run.run_pipeline, ArtifactStore.save = inner["run"], inner["save"]
+
+
+def output_files(out: str) -> dict:
+    """The bytes of the COLMAP model (sparse/) and the PLY a reconstruct wrote."""
+    import os
+
+    sparse = os.path.join(out, "sparse")
+    paths = [os.path.join(sparse, n) for n in sorted(os.listdir(sparse))] + [os.path.join(out, "cloud.ply")]
+    files = {}
+    for path in paths:
+        with open(path, "rb") as f:
+            files[os.path.relpath(path, out)] = f.read()
+    return files
+
+
+def run_vocab(workdir: str, images: int = VOCAB_IMAGES, extra: tuple = ()):
+    """`images` rendered views of the incremental ring's scene at its
+    spacing, written as PGM files and reconstructed through
+    sfm_tpu_torch.cli.main(["reconstruct", DIR, "--out", OUT, *extra,
+    'pair_mode="vocab_tree"']) in this process (so that launches
+    count): streaming decode, K1, the vocab tree, K2 on the vocab pairs,
+    densify, the incremental engine, COLMAP text + bin + PLY. Returns the
+    run's record."""
+    import os
+
+    from sfm_tpu_torch import cli, kernels
+
+    t0 = time.perf_counter()
+    imgs, scene = render_ring(images, INC_BLOBS, VOCAB_ARC * images / VOCAB_IMAGES)
+    image_dir = write_pgm_views(imgs, os.path.join(workdir, "images"))
+    log(f"[vocab] rendered {images} x {imgs.shape[1]}x{imgs.shape[2]} views and wrote them as PGM files "
+        f"in {time.perf_counter() - t0:.2f}s")
+    del imgs
+    argv = ["reconstruct", image_dir, "--out", os.path.join(workdir, "out"), *extra, 'pair_mode="vocab_tree"']
+    with record_bundle_adjustments() as ba_log, record_vocab_run() as record:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"vocab: cli.main({argv}) failed")
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    return dict(record, launches=launches, ba_log=ba_log, wall=wall, scene=scene, argv=argv,
+                out=argv[3], images=images)
+
+
+def check_colmap_round_trip(rec, out: str):
+    """read_colmap_bin(out/sparse) holds the Reconstruction's cameras, its
+    registered images (pose, name, observations) and its valid points."""
+    import os
+
+    import numpy as np
+
+    from sfm_tpu_torch.scene.export import _quat, read_colmap_bin
+
+    cams, images, points = read_colmap_bin(os.path.join(out, "sparse"))
+    if sorted(cams) != list(range(1, len(rec.intrinsics) + 1)):
+        raise AssertionError(f"vocab: {len(cams)} cameras read back, {len(rec.intrinsics)} written")
+    for i, c in cams.items():
+        if not np.array_equal(np.asarray(c["params"]), rec.intrinsics[i - 1, :len(c["params"])].astype(np.float64)) \
+                or (c["width"], c["height"]) != tuple(int(v) for v in rec.image_sizes[i - 1]):
+            raise AssertionError(f"vocab: camera {i} read back differs")
+    reg = np.where(rec.registered)[0]
+    if sorted(images) != list(reg + 1):
+        raise AssertionError("vocab: the images read back are not the registered ones")
+    for i in reg:
+        im, rows = images[i + 1], rec.obs_image == i
+        if not (im["name"] == rec.image_names[i] and np.array_equal(im["tvec"], rec.tvecs[i].astype(np.float64))
+                and np.array_equal(im["qvec"], _quat(rec.rvecs[i]).astype(np.float64))
+                and np.array_equal(im["xys"], rec.obs_uv[rows].astype(np.float64))
+                and np.array_equal(im["point3D_ids"], rec.obs_point[rows] + 1)):
+            raise AssertionError(f"vocab: image {i} read back differs")
+    valid = np.where(rec.point_valid)[0]
+    if sorted(points) != list(valid + 1):
+        raise AssertionError("vocab: the points read back are not the valid ones")
+    xyz = np.stack([points[p + 1]["xyz"] for p in valid])
+    if not np.array_equal(xyz, rec.points[valid].astype(np.float64)):
+        raise AssertionError("vocab: point positions read back differ")
+    return len(cams), len(images), len(points)
+
+
+def check_vocab(run):
+    """The incremental ring's bars on config #3 from files: >= 95% of the
+    views registered, < 1.0 px, camera RMSE < 1% of the radius, fewer
+    candidate pairs than exhaustive matching, the final global BA on the PCG
+    branch and the engine's kernels launched; the COLMAP model read back."""
+    rec = run["rec"]
+    s = rec.summary()
+    n = len(rec.registered)
+    if s["num_registered"] < 0.95 * n:
+        raise AssertionError(f"vocab: {s['num_registered']}/{n} images registered")
+    if not s["mean_reproj_error_px"] < 1.0:
+        raise AssertionError(f"vocab: mean reprojection error {s['mean_reproj_error_px']} px")
+    rmse = camera_rmse(rec, run["scene"])
+    if not rmse < 0.01 * INC_RADIUS:
+        raise AssertionError(f"vocab: camera RMSE {rmse} >= 1% of the orbit radius")
+    if not 0 < run["candidate_pairs"] < n * (n - 1) // 2:
+        raise AssertionError(f"vocab: {run['candidate_pairs']} candidate pairs of {n * (n - 1) // 2}")
+    ba_log, launches = run["ba_log"], run["launches"]
+    if not ba_log or ba_log[-1]["solver"] != "pcg":
+        raise AssertionError(f"vocab: the final global BA did not take PCG: {ba_log[-1:]}")
+    missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
+    if missing or launches.get("schur_coupling_matvec", 0):
+        raise AssertionError(f"vocab: kernels never launched by the path: {missing}; "
+                             f"coupling-only K11 launches {launches.get('schur_coupling_matvec', 0)}")
+    return rmse, check_colmap_round_trip(rec, run["out"])
+
+
+def rerun_vocab(run) -> float:
+    """The same command on the same --out: the features, matches and
+    reconstruction artifacts load (the streamed feature stage, the match
+    stage and the incremental engine raise if called) and the COLMAP model
+    and the PLY come out byte-identical. Returns the wall seconds."""
+    from sfm_tpu_torch import cli
+    from sfm_tpu_torch.pipeline import engine, stages
+
+    first = output_files(run["out"])
+    names = ((stages, "extract_stage_streaming"), (stages, "match_and_verify_stage"),
+             (engine, "incremental_reconstruct"))
+    saved = [getattr(m, n) for m, n in names]
+
+    def refuse(name):
+        def fn(*a, **k):
+            raise AssertionError(f"vocab resume: {name} ran despite its completed artifact")
+        return fn
+
+    for m, n in names:
+        setattr(m, n, refuse(n))
+    try:
+        t0 = time.perf_counter()
+        if cli.main(run["argv"]) != 0:
+            raise AssertionError("vocab resume: cli.main failed")
+        wall = time.perf_counter() - t0
+    finally:
+        for (m, n), fn in zip(names, saved):
+            setattr(m, n, fn)
+    again = output_files(run["out"])
+    if again.keys() != first.keys() or any(again[k] != first[k] for k in first):
+        raise AssertionError("vocab resume: the written model differs from the first run's: " +
+                             str([k for k in first if again.get(k) != first[k]]))
+    return wall
+
+
+def vocab_idle(device, out: str) -> dict:
+    """Device ms, launches, wall ms and idle share (chip_smoke.traced) of the
+    path's two new device parts, on the run's own features from its
+    artifacts: the vocab retrieval (tree build, quantize, score) and the
+    match stage on one block of its candidate pairs."""
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.ops.vocab import vocab_tree_pairs
+    from sfm_tpu_torch.pipeline import stages
+    from sfm_tpu_torch.scene.artifacts import ArtifactStore
+
+    store = ArtifactStore(out)
+    feats, intrinsics = store.load_features(), store.load("meta")["intrinsics"]
+    cfg = PipelineConfig()
+    pairs = vocab_tree_pairs(feats, cfg.vocab, device)
+    block = pairs[:cfg.match.block_pairs]
+    parts = {}
+    for name, fn in (("vocab_tree_pairs", lambda: vocab_tree_pairs(feats, cfg.vocab, device)),
+                     (f"match_and_verify {len(block)} pairs",
+                      lambda: stages.match_and_verify_stage(feats, block, intrinsics, cfg, device))):
+        rows, wall_ms, _ = traced(fn)
+        launches, busy_ms, _ = per_call(rows, 1)
+        parts[name] = dict(device_ms=busy_ms, launches=launches, wall_ms=wall_ms,
+                           idle_share=1.0 - busy_ms / wall_ms)
+    return parts
+
+
+# ---- phase 10: the off-by-default paths at full width ------------------------
+
+OPTIONS = {"sift.upsample_first_octave": True, "match.guided": True, "ransac.model": "fundamental"}
+
+
+def run_options(device, size: int = SLICE_IMAGE):
+    """The two-view slice's views through reconstruct with first-octave
+    upsampling, guided matching and F-RANSAC: the two-view bars, then K1 on
+    every stack the feature stage handed it (the 2 x size upsampled octave
+    among them), bit-exact and timed, and once more, untimed, on the
+    upsampled octave of two uniform-noise images (the rendered views'
+    upsampled octave holds few or no extrema; noise is dense in them)."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops.detect import pre_threshold
+    from sfm_tpu_torch.ops.pyramid import build_pyramid
+
+    with record_dog_stacks() as stacks:
+        rec, launches, _, wall, scene = run_slice(device, size, SLICE_BLOBS, **OPTIONS)
+    check_slice(rec, launches, scene)
+    if not any(k[2] == 2 * size for k in stacks):
+        raise AssertionError(f"options: no upsampled octave handed to K1: {sorted(stacks)}")
+    rows = check_dog_path(device, stacks)
+    del stacks
+    cfg = SiftConfig(num_octaves=1, image_max_dim=size, upsample_first_octave=True)
+    img = np.random.default_rng(1).uniform(0, 1, (2, size, size)).astype(np.float32)
+    gauss = build_pyramid(torch.from_numpy(img).to(device), cfg)[0].contiguous()
+    noise = check_dog_shape(device, gauss, pre_threshold(cfg), "noise " + "x".join(map(str, gauss.shape)),
+                            timed=False)
+    if noise["extrema"] == 0:
+        raise AssertionError("options: no extremum in the upsampled noise octave")
+    return rec, launches, wall, scene, rows, noise
+
+
 def main() -> int:
     import torch
 
@@ -2230,6 +2543,53 @@ def main() -> int:
     paths["global"] = launches
     del ba_log, ring
 
+    # Config #3 from files: the incremental ring's scene at 128 views as PGM
+    # files through the CLI with vocab-tree pairs and densify; then the same
+    # command again, which must resume every stage from the artifacts.
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_vocab_")
+    try:
+        run = run_vocab(workdir)
+        rec = run["rec"]
+        log(f"[vocab] reconstruct (cli) wall {run['wall']:.2f}s | stages " +
+            ", ".join(f"{k} {v:.3f}s" for k, v in rec.stage_seconds.items()))
+        log_bundle_adjustments("vocab", run["ba_log"][-1:])
+        rmse, read_back = check_vocab(run)
+        resume_wall = rerun_vocab(run)
+        idle = vocab_idle(device, run["out"])
+        s = rec.summary()
+        log("[vocab] " + json.dumps({
+            "images": run["images"], "stage_s": rec.stage_seconds,
+            "vocab_build_s": run["build_s"], "vocab_quantize_score_s": run["vocab_s"] - run["build_s"],
+            "candidate_pairs": run["candidate_pairs"], "exhaustive_pairs": VOCAB_EXHAUSTIVE,
+            "verified_before_densify": run["verified_before_densify"],
+            "ladder_candidates": run.get("ladder_candidates", 0), "ladder_pairs_added": run["ladder_pairs_added"],
+            "verified_edges": run["verified_edges"], "artifact_save_s": run["artifact_save_s"],
+            "registered": s["num_registered"],
+            "points": s["num_points"], "mean_reproj_px": s["mean_reproj_error_px"],
+            "camera_rmse": rmse, "camera_rmse_pct_radius": 100 * rmse / INC_RADIUS,
+            "colmap_bin_read_back": dict(zip(("cameras", "images", "points"), read_back)),
+            "wall_s": run["wall"], "resume_wall_s": resume_wall, "idle": idle,
+            "launches": run["launches"]}))
+        paths["vocab"] = run["launches"]
+        del run, rec
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # The off-by-default paths on the two-view slice's views: first-octave
+    # upsampling (K1 on the 2048^2 octave), guided matching, F-RANSAC.
+    rec, launches, wall, scene, k1_options, k1_noise = run_options(device)
+    log(f"[options] reconstruct wall {wall:.2f}s | stages " +
+        ", ".join(f"{k} {v:.3f}s" for k, v in rec.stage_seconds.items()))
+    log(f"[options] {json.dumps(OPTIONS)} summary {json.dumps(rec.summary())}")
+    log(f"[options] launches {json.dumps(launches)}")
+    log("[options] relative pose error vs ground truth: %.4f deg rotation, %.4f deg translation"
+        % pose_errors_deg(rec, scene))
+    log_shapes("dog_extrema_scores", k1_options)
+    log(f"[options] dog_extrema_scores bit-exact on the upsampled {k1_noise['shape']} octave "
+        f"({k1_noise['extrema']} extrema)")
+    results["dog_extrema_scores"]["shapes"] += [{**r, "shape": "options " + r["shape"]} for r in k1_options]
+    paths["options"] = launches
+
     # The merged-model polish at full width, then the large-camera-count
     # kernels on its first solve's problem, each beside its small-C twin.
     polish = run_polish(device)
@@ -2254,7 +2614,8 @@ def main() -> int:
     log(f"[kernel] twins on the merged polish's problem (ms): {json.dumps(twins)}")
     log("[lm] launches by path: " + json.dumps(
         {k: {name: p.get(k, 0) for name, p in paths.items()}
-         for k in ("fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce", "pcg_solve", "pcg_solve_big")}))
+         for k in ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce",
+                   "pcg_solve", "pcg_solve_big")}))
 
     # K10's and K11's rows count the launches that run their code (INSIDE).
     by_path = {k: {name: p.get(INSIDE.get(k, k), 0) for name, p in paths.items()} for k in KERNELS}

@@ -9,6 +9,15 @@ import torch
 from sfm_tpu_torch.config import PipelineConfig
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device for the device stages; "cuda" without a visible GPU
+    raises: nothing moves to the CPU silently."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device is available")
+    return device
+
+
 def reconstruct(images: Sequence, config: PipelineConfig | None = None, device="cuda", **overrides):
     """Run the SfM pipeline (the port of sfm_tpu.reconstruct).
 
@@ -27,9 +36,7 @@ def reconstruct(images: Sequence, config: PipelineConfig | None = None, device="
     from sfm_tpu_torch.config import apply_overrides
     from sfm_tpu_torch.pipeline.run import run_pipeline
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device is available")
+    device = resolve_device(device)
     cfg = config or PipelineConfig()
     if overrides:
         cfg = apply_overrides(cfg, overrides)

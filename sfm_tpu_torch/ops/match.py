@@ -11,6 +11,12 @@ Two paths: ``match_pair`` materializes the [P, N1, N2] distance matrix
 (the reference); ``match_pair_kernel`` runs kernel K2 (top-2 per row, no
 distance matrix) twice, the second time with the operands swapped for the
 mutual check. cfg.use_pallas selects the kernel path.
+
+``guided_match_pair`` re-matches a verified pair inside the epipolar band
+of its E (materialized matrices, as in the JAX package, which runs no
+kernel there either); ``guided_match_block`` takes its pairs in slices of
+at most _GUIDED_SLICE_BYTES per [P, N1, N2] fp32 matrix (32 pairs of 4096
+keypoints would be 2.1 GB each, and the gate holds several).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from sfm_tpu_torch.config import MatchConfig
+from sfm_tpu_torch.geometry.cameras import pixel_to_camera
 from sfm_tpu_torch.kernels.match_topk import BIG, match_topk2
 from sfm_tpu_torch.ops.detect import top_k_stable
 
@@ -83,6 +90,50 @@ def match_pair_kernel(da, va, db, vb, cfg: MatchConfig):
         ar = torch.arange(da.shape[1], device=da.device)
         ok = ok & (torch.gather(nn_back.long(), 1, nn) == ar)
     return _compact(d1, nn, ok, cfg.max_matches)
+
+
+def guided_match_pair(da, va, xy_a, db, vb, xy_b, E, intr_a, intr_b, cfg: MatchConfig):
+    """Guided matching: candidates restricted to pairs whose Sampson error
+    under the verified E [P, 3, 3] is inside cfg.guided_band_px, a relaxed
+    ratio test (unambiguous singles accepted) and the mutual check.
+    xy [P, N, 2] pixels, intr [P, 6] -> (idx_a, idx_b, valid) [P, M]."""
+    x1 = pixel_to_camera(xy_a, intr_a[:, None, :])
+    x2 = pixel_to_camera(xy_b, intr_b[:, None, :])
+    x1h = torch.cat([x1, torch.ones_like(x1[..., :1])], -1)     # [P, N1, 3]
+    x2h = torch.cat([x2, torch.ones_like(x2[..., :1])], -1)     # [P, N2, 3]
+    l1 = x1h @ E.transpose(1, 2)                                # E x1   [P, N1, 3]
+    l2 = x2h @ E                                                # E^T x2 [P, N2, 3]
+    num = (l1 @ x2h.transpose(1, 2)) ** 2                       # [P, N1, N2]
+    den = (l1[..., 0] ** 2 + l1[..., 1] ** 2)[:, :, None] + (l2[..., 0] ** 2 + l2[..., 1] ** 2)[:, None, :]
+    sampson = num / den.clamp_min(1e-12)
+    f = (intr_a[:, 0] + intr_a[:, 1] + intr_b[:, 0] + intr_b[:, 1]) * 0.25
+    gate = sampson < ((cfg.guided_band_px / f) ** 2)[:, None, None]
+
+    d = descriptor_distances(da, db, cfg.use_bf16_matmul)
+    d = torch.where(gate & va[:, :, None] & vb[:, None, :], d, torch.full((), BIG, device=d.device))
+    neg2, idx2 = top_k_stable(-d, 2)
+    d1, d2 = -neg2[..., 0], -neg2[..., 1]
+    nn = idx2[..., 0]
+    ok = (d1 < BIG / 2) & ((d1 < cfg.guided_ratio**2 * d2) | (d2 > BIG / 2)) & va
+    nn_back = torch.argmin(d, dim=1)
+    ar = torch.arange(d.shape[1], device=d.device)
+    ok = ok & (torch.gather(nn_back, 1, nn) == ar)
+    return _compact(d1, nn, ok, cfg.max_matches)
+
+
+_GUIDED_SLICE_BYTES = 512 << 20
+
+
+def guided_match_block(desc_i, valid_i, xy_i, desc_j, valid_j, xy_j, E, intr_i, intr_j,
+                       cfg: MatchConfig) -> PairMatches:
+    """guided_match_pair over a block of pairs, in slices of pairs."""
+    P, N1, N2 = desc_i.shape[0], desc_i.shape[1], desc_j.shape[1]
+    step = max(1, _GUIDED_SLICE_BYTES // (4 * N1 * N2))
+    outs = [guided_match_pair(desc_i[s:s + step], valid_i[s:s + step], xy_i[s:s + step],
+                              desc_j[s:s + step], valid_j[s:s + step], xy_j[s:s + step],
+                              E[s:s + step], intr_i[s:s + step], intr_j[s:s + step], cfg)
+            for s in range(0, P, step)]
+    return PairMatches(*(torch.cat(t) for t in zip(*outs)))
 
 
 def match_block(desc_i, valid_i, desc_j, valid_j, cfg: MatchConfig) -> PairMatches:

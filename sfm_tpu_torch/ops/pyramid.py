@@ -6,7 +6,10 @@ level of an octave is blurred directly from the octave base. The products
 are plain fp32 ``torch.matmul`` (TF32 is off package-wide).
 
 Octave o, level i has blur sigma0 * 2^(o + i/s); each next octave starts by
-2x-decimating level s of the previous one (Lowe).
+2x-decimating level s of the previous one (Lowe). With
+cfg.upsample_first_octave the first octave is the image upsampled 2x
+(bilinear, half-pixel centres, edges clamped: jax.image.resize's
+"bilinear" at a factor of 2), carrying twice the assumed blur.
 """
 
 from __future__ import annotations
@@ -65,9 +68,6 @@ def downsample2(images: torch.Tensor) -> torch.Tensor:
 def build_pyramid(images: torch.Tensor, cfg: SiftConfig) -> list[torch.Tensor]:
     """images [B, H, W] float32 in [0, 1] -> per octave [B, L, H_o, W_o]
     Gaussian stacks, L = scales_per_octave + 3."""
-    if cfg.upsample_first_octave:
-        raise NotImplementedError(
-            "sift.upsample_first_octave is not ported yet (ROADMAP.md queue 1 item 4)")
     s = cfg.scales_per_octave
     num_levels = s + 3
     k = 2.0 ** (1.0 / s)
@@ -76,9 +76,13 @@ def build_pyramid(images: torch.Tensor, cfg: SiftConfig) -> list[torch.Tensor]:
         return tuple(math.sqrt(max((cfg.sigma0 * k**i) ** 2 - from_sigma**2, 0.0))
                      for i in range(num_levels))
 
-    octaves = []
     current = images
     current_sigma = cfg.assumed_blur
+    if cfg.upsample_first_octave:
+        current = torch.nn.functional.interpolate(images[:, None], scale_factor=2.0, mode="bilinear",
+                                                  align_corners=False)[:, 0]
+        current_sigma = cfg.assumed_blur * 2.0
+    octaves = []
     for _ in range(cfg.num_octaves):
         stack = _blur_levels(current, deltas(current_sigma))
         octaves.append(stack)

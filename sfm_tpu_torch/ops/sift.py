@@ -47,6 +47,7 @@ def extract_features(images: torch.Tensor, cfg: SiftConfig,
     [B, 2] (height, width) of the un-padded content of each canvas."""
     B = images.shape[0]
     octaves = pyr.build_pyramid(images, cfg)
+    factor0 = 0.5 if cfg.upsample_first_octave else 1.0   # octave 0 pixels -> canvas pixels
     k_budget = max(cfg.max_candidates // cfg.num_octaves, 32)
     per_oct = []
     for o, stack in enumerate(octaves):
@@ -69,7 +70,7 @@ def extract_features(images: torch.Tensor, cfg: SiftConfig,
                 torch.cat([a.reshape(B, -1), b.reshape(B, -1)], 1).reshape(-1)
                 for a, b in zip(kps, second)))
         desc = compute_descriptors(kps, dx, dy, cfg)
-        scale = 2.0**o
+        scale = factor0 * 2.0**o
         per_oct.append(dict(
             xy=torch.stack([kps.x, kps.y], -1).reshape(B, -1, 2) * scale,
             sigma=(kps.sigma * scale).reshape(B, -1),

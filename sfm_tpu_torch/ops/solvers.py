@@ -118,6 +118,13 @@ def svd3_twoview(M: torch.Tensor):
     return U, torch.stack([s0, s1, s2], dim=-1), V
 
 
+def project_essential(E: torch.Tensor) -> torch.Tensor:
+    """Nearest essential matrix: singular values -> (s, s, 0), s = mean."""
+    U, s, V = svd3_twoview(E)
+    sm = (s[..., 0] + s[..., 1]) * 0.5
+    return sm[..., None, None] * (_outer(U[..., 0], V[..., 0]) + _outer(U[..., 1], V[..., 1]))
+
+
 def _inv3(M: torch.Tensor) -> torch.Tensor:
     """Closed-form 3x3 inverse (adjugate / det)."""
     m = [[M[..., i, j] for j in range(3)] for i in range(3)]
@@ -161,6 +168,21 @@ def _epipolar_rows(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     u2, v2 = x2[..., 0], x2[..., 1]
     one = torch.ones_like(u1)
     return torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, one], dim=-1)
+
+
+def fundamental_8pt(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
+    """Hartley-normalized 8-point fundamental matrix from [..., N>=8, 2]
+    pixel pairs, rank 2 by removing the component along the analytic left
+    and right null directions, scaled to |F[2, 2]| = 1 with its sign."""
+    x1n, T1 = hartley_normalize(x1, w)
+    x2n, T2 = hartley_normalize(x2, w)
+    F = _nullvec9(_epipolar_rows(x1n, x2n), w).reshape(*x1.shape[:-2], 3, 3)
+    u2 = _smallest_eigvec3(F @ F.transpose(-1, -2))
+    v2 = _smallest_eigvec3(F.transpose(-1, -2) @ F)
+    F = F - _outer(u2, v2) * _dot(u2, _mv(F, v2))[..., None, None]
+    F = T2.transpose(-1, -2) @ F @ T1
+    f22 = F[..., 2, 2]
+    return F / f22.abs().clamp_min(1e-12)[..., None, None] * torch.sign(f22 + 1e-30)[..., None, None]
 
 
 def essential_8pt(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:

@@ -1,11 +1,13 @@
 """Two-view geometric verification (port of sfm_tpu/ops/verify.py).
 
 For a block of pairs (leading axis P): essential-matrix RANSAC on
-normalized coordinates with LO refits, homography RANSAC on pixels (the H/E
-planar-degeneracy statistic), the degeneracy gate (planar pairs take the
-pose from the homography decomposition; pure rotations keep their
-correspondences with pose_ok=False), and the relative pose from the
-cheirality vote otherwise. Minimal sets come in as indices (see
+normalized coordinates with LO refits (or, with ransac.model="fundamental",
+the uncalibrated path: 8-point F-RANSAC on pixels, upgraded to E through
+the prior intrinsics and refit on normalized coordinates), homography
+RANSAC on pixels (the H/E planar-degeneracy statistic), the degeneracy
+gate (planar pairs take the pose from the homography decomposition; pure
+rotations keep their correspondences with pose_ok=False), and the relative
+pose from the cheirality vote otherwise. Minimal sets come in as indices (see
 ops/ransac.draw_minimal_sets).
 """
 
@@ -68,9 +70,6 @@ def verify_pair(idx_e: torch.Tensor, idx_h: torch.Tensor, uv1: torch.Tensor, uv2
                 cfg: RansacConfig) -> TwoViewGeometry:
     """Verify P pairs: minimal sets idx_e [P, B, 8] and idx_h [P, B//2, 4],
     matched pixels uv1/uv2 [P, M, 2], mask [P, M], intrinsics [P, 6]."""
-    if cfg.model != "essential":
-        raise NotImplementedError(
-            "ransac.model='fundamental' is not ported yet (ROADMAP.md queue 1 item 4: the F-RANSAC uncalibrated path)")
     x1 = pixel_to_camera(uv1, intr1[:, None, :])
     x2 = pixel_to_camera(uv2, intr2[:, None, :])
     f1 = (intr1[:, 0] + intr1[:, 1]) * 0.5
@@ -78,14 +77,30 @@ def verify_pair(idx_e: torch.Tensor, idx_h: torch.Tensor, uv1: torch.Tensor, uv2
     thr_norm = (cfg.error_threshold_px / f1) * (cfg.error_threshold_px / f2)
     thr_px = cfg.error_threshold_px ** 2
 
-    res_e = ransac_ops.ransac(idx_e, x1, x2, mask,
-                   solver=lambda a, b: solvers.essential_minimal(a, b, gn_iters=4),
-                   error_fn=solvers.sampson_error,
-                   threshold_sq=thr_norm, min_inliers=cfg.min_inliers)
-    E, inl = ransac_ops.irls_refit(res_e.model, x1, x2, mask,
-                        fit_fn=lambda a, b, w: solvers.essential_minimal(a, b, w),
-                        error_fn=solvers.sampson_error,
-                        threshold_sq=thr_norm, iters=cfg.refine_iters)
+    if cfg.model == "fundamental":
+        # 8-point F-RANSAC on raw pixels, upgraded to E = K2^T F K1 through
+        # the prior intrinsics; the consensus set is re-collected on
+        # normalized coordinates.
+        res_f = ransac_ops.ransac(idx_e, uv1, uv2, mask, solver=solvers.fundamental_8pt,
+                                  error_fn=solvers.sampson_error,
+                                  threshold_sq=thr_px, min_inliers=cfg.min_inliers)
+        F, _ = ransac_ops.irls_refit(res_f.model, uv1, uv2, mask, fit_fn=solvers.fundamental_8pt,
+                                     error_fn=solvers.sampson_error,
+                                     threshold_sq=thr_px, iters=cfg.refine_iters)
+        E0 = solvers.project_essential(_kmat(intr2).transpose(-1, -2) @ F @ _kmat(intr1))
+        E, inl = ransac_ops.irls_refit(E0, x1, x2, mask,
+                                       fit_fn=lambda a, b, w: solvers.essential_minimal(a, b, w),
+                                       error_fn=solvers.sampson_error,
+                                       threshold_sq=thr_norm, iters=2)
+    else:
+        res_e = ransac_ops.ransac(idx_e, x1, x2, mask,
+                                  solver=lambda a, b: solvers.essential_minimal(a, b, gn_iters=4),
+                                  error_fn=solvers.sampson_error,
+                                  threshold_sq=thr_norm, min_inliers=cfg.min_inliers)
+        E, inl = ransac_ops.irls_refit(res_e.model, x1, x2, mask,
+                                       fit_fn=lambda a, b, w: solvers.essential_minimal(a, b, w),
+                                       error_fn=solvers.sampson_error,
+                                       threshold_sq=thr_norm, iters=cfg.refine_iters)
     n_e = inl.sum(-1)
 
     res_h = ransac_ops.ransac(idx_h, uv1, uv2, mask,

@@ -1,5 +1,6 @@
 """Image ingest (copy of sfm_tpu/pipeline/ingest.py; numpy only): load,
-grayscale, resize cap, canvas pad, EXIF-prior intrinsics.
+grayscale, resize cap, canvas pad, EXIF-prior intrinsics, and the streamed
+chunks of a path list (a decode thread feeding a bounded queue).
 
 Host-side (IO is irregular); emits fixed-shape [B, S, S] canvases + per-image
 valid (h, w), so every image of a run has the same canvas shape. The focal prior
@@ -40,9 +41,49 @@ def _to_gray_f32(img: np.ndarray) -> np.ndarray:
     return img
 
 
-def _load_file(path: str) -> np.ndarray:
-    import cv2  # host-side IO only (SURVEY.md §2.2)
+def _read_pgm_p5(path: str) -> np.ndarray | None:
+    """Binary 8-bit Netpbm graymap (P5, maxval <= 255, '#' comments in the
+    header) decoded with numpy: the same bytes cv2.imread gives (pixels are
+    not rescaled by maxval). None for any other file."""
+    with open(path, "rb") as f:
+        if f.read(2) != b"P5":
+            return None
+        data = b"P5" + f.read()
+    pos, fields = 2, []
+    while len(fields) < 3:
+        while pos < len(data) and (data[pos:pos + 1].isspace() or data[pos:pos + 1] == b"#"):
+            if data[pos:pos + 1] == b"#":
+                end = data.find(b"\n", pos)
+                pos = len(data) if end < 0 else end + 1
+            else:
+                pos += 1
+        start = pos
+        while pos < len(data) and data[pos:pos + 1].isdigit():
+            pos += 1
+        if pos == start:
+            raise ValueError(f"malformed PGM header: {path}")
+        fields.append(int(data[start:pos]))
+    width, height, maxval = fields
+    if not 0 < maxval <= 255:
+        return None
+    pos += 1  # the single whitespace byte that ends the header
+    if len(data) - pos < width * height:
+        raise ValueError(f"truncated PGM raster: {path}")
+    return np.frombuffer(data, np.uint8, count=width * height, offset=pos).reshape(height, width).copy()
 
+
+def _load_file(path: str) -> np.ndarray:
+    """uint8 grayscale [H, W]: binary 8-bit PGM by numpy, any other format
+    through OpenCV."""
+    img = _read_pgm_p5(path)
+    if img is not None:
+        return img
+    try:
+        import cv2  # host-side IO only (SURVEY.md §2.2)
+    except ImportError as e:
+        raise ImportError(
+            f"cannot decode {path}: OpenCV (cv2) is not installed; without it only "
+            "binary 8-bit PGM (P5, maxval <= 255) decodes") from e
     img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
     if img is None:
         raise FileNotFoundError(f"could not read image: {path}")
@@ -153,6 +194,52 @@ def resolve_paths(images: Sequence) -> list[str] | None:
     if len(images) and all(isinstance(im, (str, os.PathLike)) for im in images):
         return [str(p) for p in images]
     return None
+
+
+def iter_image_chunks(paths: list[str], cfg: SiftConfig, chunk: int, prefetch: int = 2):
+    """Stream decoded chunks of `chunk` images (the last one shorter, not
+    padded) while the caller works on the previous one: a decode thread
+    fills a queue of `prefetch` chunks. A decode error is raised in the
+    consumer; when the consumer stops early the thread is stopped and
+    joined."""
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        try:
+            for s in range(0, len(paths), chunk):
+                if not put(load_images(paths[s:s + chunk], cfg)):
+                    return
+        except BaseException as e:  # surface decode errors to the consumer
+            put(e)
+            return
+        put(None)
+
+    t = threading.Thread(target=producer, name="sfm-decode", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
 
 
 def _resize_bilinear(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:

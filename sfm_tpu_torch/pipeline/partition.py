@@ -15,10 +15,9 @@ Divergences from the JAX package:
   the windowed sweep runs only above _POLISH_MAX_CAMERAS cameras;
 - a cluster that cannot reconstruct is skipped on the engines' own
   ReconstructionError only, so that no CUDA or build error is swallowed;
-- the checkpoint arguments (store, key) raise NotImplementedError until
-  scene/artifacts.py is ported, and the capacities threaded between polishes
-  (which kept one compiled program alive) are kept only because they fix the
-  problem's padded shapes, as in the JAX package;
+- the capacities threaded between polishes (which kept one compiled program
+  alive) are kept only because they fix the problem's padded shapes, as in
+  the JAX package;
 - the rescue's PnP minimal sets come from ops/ransac.draw_minimal_sets keyed
   by (seed + 77, attempt, "pnp"), as the engine's do;
 - the phases' wall seconds land on Reconstruction.stage_seconds as
@@ -119,16 +118,28 @@ def partitioned_reconstruct(
 ) -> Reconstruction:
     """Cluster -> reconstruct -> merge -> global BA (config ladder #5), device
     steps on `device`. The result's stage_seconds holds the phases' wall
-    seconds under partition.* keys."""
+    seconds under partition.* keys.
+
+    store/key: optional ArtifactStore checkpoint slots. The cluster
+    reconstructions are saved as stage 'clusters', and the merged and
+    rescued model as 'merged_prepolish' before the polish, so a rerun with
+    the same key resumes past the clusters, or straight into the polish.
+    """
     from sfm_tpu_torch.pipeline.engine import incremental_reconstruct
     from sfm_tpu_torch.pipeline.merge import merge_reconstructions
 
-    if store is not None or key is not None:
-        raise NotImplementedError(
-            "cluster and pre-polish checkpoints (store=, key=) are not ported yet "
-            "(ROADMAP.md queue 1 item 3: scene/artifacts.py)")
     device = torch.device(device)
     timer = StageTimer(verbose=False, device=device)
+    checkpoints = store is not None and key is not None
+    if checkpoints and store.is_complete("merged_prepolish", key):
+        merged = store.load_reconstruction(stage="merged_prepolish")
+        if cfg.verbose:
+            print("[sfm_tpu_torch] resuming from merged_prepolish artifact "
+                  f"({merged.num_registered} cams, {merged.num_points} pts)")
+        with timer.stage("partition.polish"):
+            _polish_phase(merged, feats, graph, intrinsics, cfg, device)
+        merged.stage_seconds = dict(timer.durations)
+        return merged
 
     B = len(feats.xy)
     clusters = partition_images(
@@ -171,13 +182,20 @@ def partitioned_reconstruct(
     workers = max(1, cfg.partition.parallel_clusters)
     work = list(enumerate(clusters))
     with timer.stage("partition.clusters"):
-        if workers > 1:
-            from concurrent.futures import ThreadPoolExecutor
-
-            with ThreadPoolExecutor(max_workers=workers) as ex:
-                recs = [r for r in ex.map(run_cluster, work) if r is not None]
+        if checkpoints and store.is_complete("clusters", key):
+            recs = _load_cluster_recs(store)
+            if cfg.verbose:
+                print(f"[sfm_tpu_torch] resuming from {len(recs)} cluster artifacts")
         else:
-            recs = [r for r in map(run_cluster, work) if r is not None]
+            if workers > 1:
+                from concurrent.futures import ThreadPoolExecutor
+
+                with ThreadPoolExecutor(max_workers=workers) as ex:
+                    recs = [r for r in ex.map(run_cluster, work) if r is not None]
+            else:
+                recs = [r for r in map(run_cluster, work) if r is not None]
+            if checkpoints and recs:
+                _save_cluster_recs(store, key, recs)
     if not recs:
         raise ReconstructionError("no cluster produced a reconstruction")
 
@@ -236,11 +254,35 @@ def partitioned_reconstruct(
     # map is more accurate).
     with timer.stage("partition.rescue"):
         _rescue_unregistered(merged, feats, graph, intrinsics, cfg, device)
+    if checkpoints:
+        store.save_reconstruction(key, merged, stage="merged_prepolish")
 
     with timer.stage("partition.polish"):
         _polish_phase(merged, feats, graph, intrinsics, cfg, device)
     merged.stage_seconds = dict(timer.durations)
     return merged
+
+
+_REC_FIELDS = ("intrinsics", "rvecs", "tvecs", "registered", "points",
+               "point_errors", "point_valid", "obs_point", "obs_image",
+               "obs_kp", "obs_uv")
+
+
+def _save_cluster_recs(store, key: str, recs) -> None:
+    """The cluster reconstructions as one stage artifact ('clusters'), in
+    sfm_tpu's layout: the cluster phase dominates at scale while merge and
+    polish run in minutes, so merge-logic iteration resumes here."""
+    arrays = {"n": np.asarray(len(recs))}
+    for ci, r in enumerate(recs):
+        for f in _REC_FIELDS:
+            arrays[f"c{ci}_{f}"] = getattr(r, f)
+    store.save("clusters", key, arrays)
+
+
+def _load_cluster_recs(store):
+    data = store.load("clusters")
+    n = int(data["n"])
+    return [Reconstruction(**{f: data[f"c{ci}_{f}"] for f in _REC_FIELDS}) for ci in range(n)]
 
 
 def _merge_via_pose_graph(recs, feats, graph, intrinsics, cfg, device):

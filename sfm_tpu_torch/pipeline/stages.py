@@ -1,11 +1,15 @@
-"""Stage drivers (port of sfm_tpu/pipeline/stages.py, single device,
-unguided): feature extraction over image chunks, exhaustive pairs, and
-match + verification over pair blocks. Stages return plain numpy for the
-host bookkeeping between them.
+"""Stage drivers (port of sfm_tpu/pipeline/stages.py, single device):
+feature extraction over image chunks (eager, or streamed from a path list
+while a decode thread prepares the next chunk), exhaustive pairs, match +
+verification over pair blocks (with the guided re-match under the verified
+E), and the graph-distance-ladder densification of pruned pair graphs.
+Stages return plain numpy for the host bookkeeping between them.
 
 Divergences from the JAX package: the last image chunk and the last pair
 block are not padded to a fixed size (that padding only fixed jit shapes);
-outputs are the same per image and per pair.
+outputs are the same per image and per pair. The guided re-match runs its
+[P, N1, N2] matrices in slices of pairs (ops/match.guided_match_block);
+each pair's result is its own.
 """
 
 from __future__ import annotations
@@ -16,10 +20,10 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch.config import PipelineConfig
-from sfm_tpu_torch.ops.match import match_block
+from sfm_tpu_torch.ops.match import guided_match_block, match_block
 from sfm_tpu_torch.ops.sift import extract_features
 from sfm_tpu_torch.ops.verify import verify_block
-from sfm_tpu_torch.pipeline.ingest import ImageBatch
+from sfm_tpu_torch.pipeline.ingest import ImageBatch, iter_image_chunks
 
 _FEATURE_CHUNK = 8  # images per device batch in the feature stage
 # The match stage keeps the descriptors and keypoints of every image on the
@@ -56,16 +60,36 @@ class MatchGraph:
     pose_ok: np.ndarray | None = None  # [E] bool; False = correspondence-only edge
 
 
+def _extract_chunk(canvases: np.ndarray, valid_hw: np.ndarray, cfg: PipelineConfig,
+                   device: torch.device) -> list:
+    f = extract_features(torch.from_numpy(canvases).to(device), cfg.sift,
+                         torch.from_numpy(valid_hw).to(device))
+    return [a.cpu().numpy() for a in f]
+
+
+def _feature_set(outs: list) -> FeatureSet:
+    return FeatureSet(*(np.concatenate([o[k] for o in outs]) for k in range(6)))
+
+
 def extract_stage(batch: ImageBatch, cfg: PipelineConfig, device: torch.device) -> FeatureSet:
     B = batch.canvases.shape[0]
-    outs = []
-    for s in range(0, B, _FEATURE_CHUNK):
-        e = min(s + _FEATURE_CHUNK, B)
-        f = extract_features(torch.from_numpy(batch.canvases[s:e]).to(device), cfg.sift,
-                             torch.from_numpy(batch.valid_hw[s:e]).to(device))
-        outs.append([a.cpu().numpy() for a in f])
-    cat = [np.concatenate([o[k] for o in outs]) for k in range(6)]
-    return FeatureSet(*cat)
+    return _feature_set([
+        _extract_chunk(batch.canvases[s:s + _FEATURE_CHUNK], batch.valid_hw[s:s + _FEATURE_CHUNK],
+                       cfg, device)
+        for s in range(0, B, _FEATURE_CHUNK)])
+
+
+def extract_stage_streaming(paths: list, cfg: PipelineConfig, device: torch.device):
+    """Feature extraction over a path list without holding every canvas:
+    the decode thread prepares the next chunk while the device extracts
+    this one. Returns (FeatureSet, intrinsics [B, 6], valid_hw [B, 2], names)."""
+    outs, intr, hw, names = [], [], [], []
+    for batch in iter_image_chunks(paths, cfg.sift, _FEATURE_CHUNK):
+        outs.append(_extract_chunk(batch.canvases, batch.valid_hw, cfg, device))
+        intr.append(batch.intrinsics)
+        hw.append(batch.valid_hw)
+        names.extend(batch.names)
+    return _feature_set(outs), np.concatenate(intr), np.concatenate(hw), names
 
 
 def _bucket_keypoints(n: int, cap: int) -> int:
@@ -86,10 +110,9 @@ def match_and_verify_stage(feats: FeatureSet, pairs: np.ndarray, intrinsics: np.
                            cfg: PipelineConfig, device: torch.device, seed: int = 0) -> MatchGraph:
     """Match + geometric verification over pair blocks. Each pair's RANSAC
     draws are keyed by its global pair index, so results do not depend on
-    the block size."""
-    if cfg.match.guided:
-        raise NotImplementedError(
-            "match.guided is not ported yet (ROADMAP.md queue 1 item 4: guided matching)")
+    the block size. With cfg.match.guided, each verified pair with a usable
+    pose is re-matched inside the epipolar band of its E; those matches are
+    its inliers."""
     E = len(pairs)
     P = cfg.match.block_pairs
     M = cfg.match.max_matches
@@ -133,11 +156,20 @@ def match_and_verify_stage(feats: FeatureSet, pairs: np.ndarray, intrinsics: np.
         uv_i = torch.gather(xy_i, 1, pm.idx_i.long()[..., None].expand(-1, -1, 2))
         uv_j = torch.gather(xy_j, 1, pm.idx_j.long()[..., None].expand(-1, -1, 2))
         geom = verify_block(s, uv_i, uv_j, pm.valid, intr_i, intr_j, cfg.ransac, seed)
+        idx_i, idx_j, inliers, ninl = pm.idx_i, pm.idx_j, geom.inliers, geom.num_inliers
+        if cfg.match.guided:
+            pm_g = guided_match_block(di, vi, xy_i, dj, vj, xy_j, geom.E, intr_i, intr_j, cfg.match)
+            # Rotation-degenerate edges (pose_ok False) carry a meaningless E.
+            use = geom.ok & geom.pose_ok
+            idx_i = torch.where(use[:, None], pm_g.idx_i, idx_i)
+            idx_j = torch.where(use[:, None], pm_g.idx_j, idx_j)
+            inliers = torch.where(use[:, None], pm_g.valid, inliers)
+            ninl = torch.where(use, pm_g.valid.sum(-1).to(ninl.dtype), ninl)
 
-        out_idx_i[s:e] = pm.idx_i.cpu().numpy()
-        out_idx_j[s:e] = pm.idx_j.cpu().numpy()
-        out_inlier[s:e] = geom.inliers.cpu().numpy()
-        out_ninl[s:e] = geom.num_inliers.cpu().numpy()
+        out_idx_i[s:e] = idx_i.cpu().numpy()
+        out_idx_j[s:e] = idx_j.cpu().numpy()
+        out_inlier[s:e] = inliers.cpu().numpy()
+        out_ninl[s:e] = ninl.cpu().numpy()
         out_nh[s:e] = geom.num_h_inliers.cpu().numpy()
         out_rvec[s:e] = geom.rvec.cpu().numpy()
         out_tvec[s:e] = geom.tvec.cpu().numpy()
@@ -151,3 +183,116 @@ def match_and_verify_stage(feats: FeatureSet, pairs: np.ndarray, intrinsics: np.
         rvec=out_rvec, tvec=out_tvec, ok=out_ok & enough,
         pose_ok=out_pose_ok & enough,
     )
+
+
+_DENSIFY_REACH_BUDGET = 50_000_000  # nnz cap on the reachability matrix
+
+
+def densify_candidate_pairs(
+    pairs_ok: np.ndarray, num_images: int, max_scale: int = 8, per_node: int = 2,
+) -> np.ndarray:
+    """Candidate pairs along a power-of-2 graph-distance ladder (copy of
+    sfm_tpu's; scipy.sparse on the host).
+
+    Top-k retrieval (vocab tree) spends its whole candidate budget on an
+    image's nearest appearance neighbours, so a sequential or orbit capture
+    gets a narrow band graph whose drift no downstream solver can see. For
+    scale s = 1..max_scale each node proposes its frontier extremes at graph
+    distance (2^(s-1), 2^s] of the VERIFIED graph (for a band graph, the two
+    ring directions); verification keeps what the matcher can certify.
+    Capture-order-free: only graph structure is used.
+
+    Returns deduped [K, 2] (i < j) candidates excluding existing pairs.
+    """
+    import scipy.sparse as sp
+
+    if len(pairs_ok) == 0 or max_scale <= 0:
+        return np.zeros((0, 2), np.int64)
+    n = num_images
+    A = sp.csr_matrix(
+        (np.ones(len(pairs_ok) * 2, np.bool_),
+         (np.concatenate([pairs_ok[:, 0], pairs_ok[:, 1]]),
+          np.concatenate([pairs_ok[:, 1], pairs_ok[:, 0]]))),
+        shape=(n, n), dtype=np.bool_)
+    reach = (A + sp.identity(n, dtype=np.bool_, format="csr")).astype(np.bool_)
+    out = []
+    for _ in range(max_scale):
+        new = (reach @ reach).astype(np.bool_)
+        # Frontier = reachable at <= 2^s hops but not <= 2^(s-1) (new is a
+        # superset of reach because reach includes the identity).
+        fr = (new.astype(np.int8) - reach.astype(np.int8)).tocsr()
+        fr.eliminate_zeros()
+        ptr, cols = fr.indptr, fr.indices
+        counts = np.diff(ptr)
+        rows = np.where(counts > 0)[0]
+        if len(rows) == 0:
+            break
+        first = cols[ptr[rows]]
+        out.append(np.stack([rows, first], 1))
+        if per_node >= 2:
+            last = cols[ptr[rows + 1] - 1]
+            out.append(np.stack([rows, last], 1))
+        reach = new
+        if reach.nnz > _DENSIFY_REACH_BUDGET:
+            break
+    if not out:
+        return np.zeros((0, 2), np.int64)
+    cand = np.concatenate(out).astype(np.int64)
+    cand = cand[cand[:, 0] != cand[:, 1]]
+    cand = np.unique(np.stack([cand.min(1), cand.max(1)], 1), axis=0)
+    have = (pairs_ok.astype(np.int64).min(1) << 32) | pairs_ok.astype(np.int64).max(1)
+    key = (cand[:, 0] << 32) | cand[:, 1]
+    return cand[~np.isin(key, have)]
+
+
+def append_match_graph(g: MatchGraph, g_new: MatchGraph) -> tuple[MatchGraph, int]:
+    """Append g_new's verified edges to g, conforming the correspondence
+    width (columns beyond g's budget are truncated; narrower blocks are
+    zero-padded with inlier=False)."""
+    keep = g_new.ok
+    if not keep.any():
+        return g, 0
+
+    def cat(a, b):
+        b = b[keep]
+        if a.ndim == 2 and b.shape[1] != a.shape[1]:
+            if b.shape[1] > a.shape[1]:
+                b = b[:, :a.shape[1]]
+            else:
+                out = np.zeros((b.shape[0], a.shape[1]), b.dtype)
+                out[:, :b.shape[1]] = b
+                b = out
+        return np.concatenate([a, b], axis=0)
+
+    pose_ok = g.pose_ok if g.pose_ok is not None else np.ones(len(g.pairs), bool)
+    new_pose_ok = (g_new.pose_ok if g_new.pose_ok is not None
+                   else np.ones(len(g_new.pairs), bool))
+    merged = MatchGraph(
+        pairs=cat(g.pairs, g_new.pairs), idx_i=cat(g.idx_i, g_new.idx_i),
+        idx_j=cat(g.idx_j, g_new.idx_j), inlier=cat(g.inlier, g_new.inlier),
+        num_inliers=cat(g.num_inliers, g_new.num_inliers),
+        num_h_inliers=cat(g.num_h_inliers, g_new.num_h_inliers),
+        rvec=cat(g.rvec, g_new.rvec), tvec=cat(g.tvec, g_new.tvec),
+        ok=cat(g.ok, g_new.ok), pose_ok=cat(pose_ok, new_pose_ok),
+    )
+    return merged, int(keep.sum())
+
+
+def densify_graph(
+    feats: FeatureSet, graph: MatchGraph, intrinsics: np.ndarray,
+    cfg: PipelineConfig, num_images: int, device: torch.device, seed: int = 1,
+) -> MatchGraph:
+    """Graph-distance-ladder densification pass: propose, verify, append.
+    See densify_candidate_pairs for why pruned pair modes need this."""
+    cand = densify_candidate_pairs(
+        graph.pairs[graph.ok], num_images,
+        max_scale=cfg.match.densify_scales, per_node=cfg.match.densify_per_node,
+    )
+    if len(cand) == 0:
+        return graph
+    g_new = match_and_verify_stage(feats, cand, intrinsics, cfg, device, seed=seed)
+    graph, added = append_match_graph(graph, g_new)
+    if cfg.verbose:
+        print(f"[sfm_tpu_torch] densify: {added}/{len(cand)} ladder pairs verified "
+              f"-> {int(graph.ok.sum())} edges")
+    return graph

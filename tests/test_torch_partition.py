@@ -167,11 +167,28 @@ def test_windowed_polish_matches_jax(ring24, monkeypatch):
     assert camera_rmse(tm, scene) < 0.08
 
 
-def test_checkpoint_arguments_are_refused(ring24):
-    scene, feats, graph, cfg, _, _ = ring24
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partition.partitioned_reconstruct(from_numpy_feature_set(feats), from_numpy_graph(graph),
-                                          scene.intrinsics, tcfg(cfg), "cpu", store=object(), key="k")
+def test_checkpoint_arguments_are_refused(ring24, tmp_path, monkeypatch):
+    """The checkpoint arguments, refused before scene/artifacts.py was
+    ported, now resume: with a complete 'merged_prepolish' slot (here the
+    ring's merged model) no cluster is partitioned or reconstructed, and the
+    saved model goes straight to the polish."""
+    from sfm_tpu_torch.scene.artifacts import ArtifactStore
+
+    scene, feats, graph, cfg, _, rec = ring24
+    store = ArtifactStore(str(tmp_path))
+    store.save_reconstruction("k", rec, stage="merged_prepolish")
+
+    def refuse(*a, **k):
+        raise AssertionError("clusters re-ran despite a complete merged_prepolish slot")
+
+    polished = []
+    monkeypatch.setattr(partition, "partition_images", refuse)
+    monkeypatch.setattr(partition, "_polish_phase", lambda merged, *a: polished.append(merged))
+    out = partition.partitioned_reconstruct(from_numpy_feature_set(feats), from_numpy_graph(graph),
+                                            scene.intrinsics, tcfg(cfg), "cpu", store=store, key="k")
+    assert polished == [out]
+    for f in ("rvecs", "tvecs", "registered", "points", "point_valid", "obs_point", "obs_uv"):
+        np.testing.assert_array_equal(getattr(out, f), getattr(rec, f))
 
 
 def test_cluster_failures(monkeypatch):

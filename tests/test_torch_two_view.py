@@ -122,14 +122,26 @@ def test_bootstrap_from_jax_stage_outputs(fixture):
     assert rec.mean_reprojection_error() == pytest.approx(ref.mean_reprojection_error(), rel=0.01)
 
 
-def test_unported_branches_raise(fixture, tmp_path):
+def test_unported_branches_raise(fixture, tmp_path, monkeypatch):
+    """Multi-device execution (shard.*) is the one pipeline branch still
+    refused; artifact_dir and pair_mode="vocab_tree", refused before they
+    were ported, now reach the feature stage."""
+    from sfm_tpu_torch.pipeline import stages
+
     imgs = fixture[0]
     three = [imgs[0], imgs[1], imgs[0]]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sfm_tpu_torch.reconstruct(three, device="cpu", verbose=False, **{"shard.num_devices": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pair_mode"):
+        sfm_tpu_torch.reconstruct(three, device="cpu", pair_mode="nearest", verbose=False)
+
+    def reached(*a, **k):
+        raise KeyboardInterrupt("feature stage reached")
+
+    monkeypatch.setattr(stages, "extract_stage", reached)
+    with pytest.raises(KeyboardInterrupt, match="feature stage reached"):
         sfm_tpu_torch.reconstruct(three, device="cpu", artifact_dir=str(tmp_path), verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyboardInterrupt, match="feature stage reached"):
         sfm_tpu_torch.reconstruct(list(imgs), device="cpu", pair_mode="vocab_tree", verbose=False)
 
 
