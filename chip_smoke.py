@@ -85,7 +85,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      ransac.model="fundamental": the two-view bars and kernels, then K1 on
      every stack that run handed it (the [2, 6, 2048, 2048] upsampled octave
      among them), bit-exact and timed ("options" rows of K1's shapes), and
-     bit-exact on the upsampled octave of two noise images (dense extrema).
+     bit-exact on the upsampled octave of two noise images (dense extrema);
+ 11. intrinsics refinement at full width, the only path of 8-wide camera
+     blocks (rvec, tvec, log focal scale, dk1): (a) phase 5's
+     reconstruction through build_problem(refine_intrinsics=True) (C = 128,
+     O = 65,536 padded, the PCG branch), where the 8-wide builds of K3
+     (without and with the Schur-Jacobi blocks), K5 (cost, step, and the
+     step under each freeze setting: the candidate points bit-identical
+     across them, the frozen columns unmoved), K7 and K11 standalone,
+     pcg_solve and K9 at 8, 72 and 108 rows are held and timed as check_ba,
+     check_schur, check_pcg and check_segment_sum hold the 6-wide ones;
+     (b) that problem, and the orbit problem without outliers (C = 128,
+     O = 65,536), with every focal at 0.96 x the rendered one and k1 = 0
+     through bundle_adjust with focal and k1 refined: < 1 px, the 8-wide
+     K3, K5 and pcg_solve launched and no plain version handed a CUDA
+     tensor (forbid_plain); on the orbit the non-gauge focals within 1.5%
+     of the rendered 1200 and |k1| < 0.01 (the ring's shallow, narrow view
+     leaves them nearly unobservable: reported); each BA 6 and 8 wide at
+     the rendered focal, timed; (c) 46 views of phase 5's blobs (arc 0.23)
+     rendered at 1.04 x the 1228.8 the ingest assumes, through reconstruct
+     with ba.refine_focal and ba.refine_distortion: >= 95% registered,
+     < 1 px, camera RMSE < 3% of the radius, the mean refined focal nearer
+     the rendered one than the prior, the global BAs 8 wide and the local
+     ones 6 wide, no plain version on the card.
 Each kernel check holds the kernel against its plain version with the
 tolerance stated and takes the median time of the kernel, the plain version
 and (where one PyTorch call computes the same function) that call (CUDA
@@ -97,13 +119,16 @@ camera side (a permutation) for K = 6, 36 and 42 rows, the point side
 against its plain version in float64 and timed beside `loop_ms`, the same
 solve as Python steps over the coupling-only K11 (K10 then K9 for
 pcg_solve_big). Every row also carries its device time per call
-(`device_ms`, torch.profiler). The record (thirteen rows) reports K1-K3,
+(`device_ms`, torch.profiler). The record (eighteen rows) reports K1-K3,
 K5, K7, K9, K11 and pcg_solve at the incremental slice's shapes, K4, K6,
-K8, K10 and pcg_solve_big at the merged polish's, every kernel's launches
-on each path (two_view, incremental, partition, global, vocab, options,
-merged_polish; `launches` is the largest of them; K11's row counts the
-launches of pcg_solve and K10's those of pcg_solve_big, which run their
-code; K7's counts K3's launches that build the Schur-Jacobi blocks), K7's
+K8, K10 and pcg_solve_big at the merged polish's, the 8-wide K3, K5, K7,
+K11 and pcg_solve (`*_w8`) at phase 11's, every kernel's launches on each
+path (two_view, incremental, partition, global, vocab, options,
+merged_polish, refined_ba, refined_orbit_ba, refined; `launches` is the
+largest of them;
+K11's rows count the launches of pcg_solve and K10's those of
+pcg_solve_big, which run their code; K7's count K3's launches that build
+the Schur-Jacobi blocks), K7's
 K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
 K1, K2, K9 and pcg_solve a row per timed shape under `shapes`.
 The line before the last two is the kernels' JSON record, then the card's
@@ -143,17 +168,27 @@ KERNELS = {
     "pcg_solve_big": ("sfm_tpu_torch/csrc/schur_kernels.cu",
                       "sfm_tpu/kernels/schur_spmv.py:935 + sfm_tpu/ba/core.py:858"),
 }
+# The 8-wide builds of K3, K5, K7, K11 and pcg_solve (intrinsics
+# refinement: the same sources, each a C entry of its own, counted under
+# `<name>_w8`), which only phase 11 runs.
+WIDE_KERNELS = tuple(f"{k}_w8" for k in ("fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce",
+                                         "schur_coupling_matvec", "pcg_solve"))
+KERNELS.update({k: KERNELS[k.removesuffix("_w8")] for k in WIDE_KERNELS})
 # The large-camera-count BA set (more than 4096 cameras) and the set that
 # serves the engines' problems; K9 cam_segment_sum reduces for both.
 BIG_KERNELS = ("fused_ne_payloads_big", "fused_cost_sums_big", "whw_payloads_big",
                "schur_coupling_payloads_big", "pcg_solve_big")
-SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS)
+SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS + WIDE_KERNELS)
 # Kernels whose device code runs inside another launch on the main path, by
 # the count of that launch: K11's coupling inside pcg_solve, K10's inside
 # pcg_solve_big. Their coupling-only entries launch on no path. (K7's code
 # runs inside K3's launches for a PCG solve, and fused_ne_payloads counts
 # those launches for whw_cam_reduce itself.)
-INSIDE = {"schur_coupling_matvec": "pcg_solve", "schur_coupling_payloads_big": "pcg_solve_big"}
+INSIDE = {"schur_coupling_matvec": "pcg_solve", "schur_coupling_payloads_big": "pcg_solve_big",
+          "schur_coupling_matvec_w8": "pcg_solve_w8"}
+# An 8-wide global BA on the PCG branch: K3 with the blocks (counted for
+# K7 too), K5 and pcg_solve at width 8.
+REFINED_PCG_KERNELS = ("fused_ne_payloads_w8", "fused_cost_sums_w8", "whw_cam_reduce_w8", "pcg_solve_w8")
 # The engines' PCG solves launch pcg_solve and K3 with the Schur-Jacobi
 # blocks (counted for K7).
 ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k not in INSIDE)
@@ -207,6 +242,28 @@ WIDE_BLOCKS = 8
 PCG_X_STEPS = 8
 # kernels/ba_kernels.NE_CAM_ROWS: rows of the camera payload K3/K4 hand to K9.
 NE_CAM_ROWS = 42
+# Phase 11, intrinsics refinement: the final global BA's problem of phase 5,
+# and the orbit problem without outliers (REFINED_ORBIT: C = 128, O =
+# 65,536, every point in ~100 views), each with every focal set to
+# REFINED_BA_FOCAL of the rendered one and k1 = 0 (the orbit must recover
+# both, within REFINED_FOCAL_BAR and 0.01); then a ring of REFINED_IMAGES
+# views (config #2's Temple Ring count) at phase 5's spacing, rendered at
+# (1 + REFINED_FOCAL_OFFSET) x the focal the ingest assumes (1.2 x 1024 =
+# INC_FOCAL), so that its prior is that far off: its camera RMSE within
+# REFINED_RMSE_BAR of the radius and its refined focal nearer the truth
+# than the prior. Phase 5's blob ring, a narrow field of view over a shallow
+# scene, leaves the per-camera focal and k1 nearly unobservable (refined
+# from a correct prior they drift ~4%; on synthetic features of that
+# geometry the port's engine matches sfm_tpu's, tools/refine_parity.py:
+# PERF.md), so the recovery bars sit on the orbit.
+REFINED_BA_FOCAL = 0.96
+REFINED_ORBIT = (100, 500)
+REFINED_IMAGES = 46
+REFINED_ARC = 0.23
+REFINED_FOCAL_OFFSET = 0.04
+REFINED_FOCAL_BAR = 0.015
+REFINED_RMSE_BAR = 0.03
+REFINED_OVERRIDES = {"ba.refine_focal": True, "ba.refine_distortion": True}
 # Per-shape rows of a kernel that is timed at several shapes (K1, K2, K9;
 # K1's carry the calls the incremental slice made at that shape).
 SHAPE_FIELDS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -798,6 +855,7 @@ def rhs_scales(prob, inv, points, z_floor, loss):
     w = kb._gate(st[2], depth, None if z_floor is None else z_floor.double())
     sw = torch.sqrt((robust_weight((r * r).sum(-1), *loss) * w).clamp_min(0.0))
     pr = kb.projection(cams, intr, pts, st[:2].T)
+    intr = pr["intr"]   # refined by an 8-wide camera
     mag = torch.stack([(intr[:, 0] * pr["x"] * pr["s"]).abs() + intr[:, 2].abs() + st[0].abs(),
                        (intr[:, 1] * pr["y"] * pr["s"]).abs() + intr[:, 3].abs() + st[1].abs()], -1)
     mag = mag * sw[:, None]
@@ -815,9 +873,9 @@ def dp_scale(step64, prob, inv):
 
     from sfm_tpu_torch.kernels import ba_kernels as kb
 
-    N = inv.cam_inv_perm.numel()
+    N, D = inv.cam_inv_perm.numel(), step64.dc.shape[-1]
     dc = torch.where(step64.cam_fixed[:, None], 0.0, step64.dc).abs()
-    u_t = torch.einsum("iko,io->ko", step64.W_t[:, :N].abs().reshape(6, 3, N),
+    u_t = torch.einsum("iko,io->ko", step64.W_t[:, :N].abs().reshape(D, 3, N),
                        dc[prob.obs_cam[:N].long()].T)
     g = step64.bp.abs() + kb.cam_segment_sum_plain(u_t, None, inv.point_bounds)
     return torch.einsum("pij,pj->pi", step64.Hpp_inv.abs(), g)
@@ -910,42 +968,47 @@ def schur_matvec_step(ne, prob, v, inv):
 
 
 def lm_step(prob, cfg, inv, ne):
-    """That step as K5's candidate mode takes it."""
+    """That step as K5's candidate mode takes it (with 8-wide cameras the
+    config's frozen intrinsic columns, as core.lm_candidate passes them)."""
+    from sfm_tpu_torch.ba import core
     from sfm_tpu_torch.kernels import ba_kernels as kb
 
     return kb.LMStep(lm_dc(prob, cfg, inv, ne).contiguous(), ne.W_t, ne.Hpp_inv, ne.bp,
-                     prob.cam_fixed, prob.point_fixed)
+                     prob.cam_fixed, prob.point_fixed, **core.frozen_columns(cfg, prob.cam_params.shape[-1]))
 
 
 def ne_bytes_ops(prob, inv) -> tuple[int, int]:
-    """What K3 must move and compute on this problem: the N observations'
-    camera and point ids, statics (5 rows) and places, the points, cameras,
-    intrinsics, segment tables and lam read once; W [18, O] (its zero tail
-    too), the M packed camera rows, Hpp^-1, bp, Hcc and bc written once.
-    Operations: ~300 per observation (projection, Jacobian, payloads), ~80
-    per point (sums, damping, inversion), 42 per packed row (camera sums)."""
-    O, C, P = prob.obs_w.shape[0], prob.num_cameras, prob.num_points
+    """What K3 must move and compute on this problem for camera blocks of
+    width D: the N observations' camera and point ids, statics (5 rows) and
+    places, the points, cameras, intrinsics, segment tables and lam read
+    once; W [3D, O] (its zero tail too), the M packed camera rows (D^2 + D),
+    Hpp^-1, bp, Hcc and bc written once. Operations: ~300 per observation
+    at D = 6 (projection, Jacobian, payloads), ~420 at D = 8 (the payloads
+    grow as D^2), ~80 per point (sums, damping, inversion), D^2 + D per
+    packed row (camera sums)."""
+    O, C, P, D = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, prob.cam_params.shape[-1]
     N, M = inv.cam_inv_perm.numel(), inv.cam_perm.numel()
-    moved = 4 * (2 * N + 5 * N + N + 3 * P + 12 * C + P + 1 + C + 1 + 1
-                 + 18 * O + 42 * M + 9 * P + 3 * P + 36 * C + 6 * C)
-    return moved, 300 * N + 80 * P + 42 * M
+    rows = D * D + D
+    moved = 4 * (2 * N + 5 * N + N + 3 * P + (D + 6) * C + P + 1 + C + 1 + 1
+                 + 3 * D * O + rows * M + 9 * P + 3 * P + rows * C)
+    return moved, (300 if D == 6 else 420) * N + 80 * P + rows * M
 
 
 def cost_bytes_ops(prob, inv, step: bool) -> tuple[int, int]:
-    """What K5 must move and compute: the N observations' camera and point
-    ids and u, v, weight, the points, cameras, intrinsics and point segments read
-    once, three sums written; with a step also W (18 rows of the N
-    observations), dc, Hpp^-1, bp and the freeze masks read and the
-    candidate points and cameras written. Operations: ~70 per observation
-    for the projection and robust cost, with a step 36 more for W^T dc and
-    ~20 per point for dp."""
-    O, C, P = prob.obs_w.shape[0], prob.num_cameras, prob.num_points
+    """What K5 must move and compute for camera blocks of width D: the N
+    observations' camera and point ids and u, v, weight, the points,
+    cameras, intrinsics and point segments read once, three sums written;
+    with a step also W (3D rows of the N observations), dc, Hpp^-1, bp and
+    the freeze masks read and the candidate points and cameras written.
+    Operations: ~70 per observation for the projection and robust cost,
+    with a step 6D more for W^T dc and ~20 per point for dp."""
+    O, C, P, D = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, prob.cam_params.shape[-1]
     N = inv.cam_inv_perm.numel()
-    moved = 4 * (2 * N + 3 * N + 3 * P + 12 * C + P + 1 + 3)
+    moved = 4 * (2 * N + 3 * N + 3 * P + (D + 6) * C + P + 1 + 3)
     ops = 70 * N
     if step:
-        moved += 4 * (18 * N + 6 * C + 9 * P + 3 * P + 3 * P + 6 * C) + C + P
-        ops += 36 * N + 20 * P
+        moved += 4 * (3 * D * N + D * C + 9 * P + 3 * P + 3 * P + D * C) + C + P
+        ops += 6 * D * N + 20 * P
     return moved, ops
 
 
@@ -981,7 +1044,8 @@ def check_ba(prob, cfg, device, what: str):
     - identical bits on a rerun, for both kernels.
     Every error is logged beside the plain fp32 version's. Times (at the
     main path's inputs): K3 and K5 with the step beside their plain
-    versions in fp32 and their bounds."""
+    versions in fp32 and their bounds. An 8-wide problem runs the 8-wide
+    builds, under their names (`_w8`)."""
     import dataclasses
 
     import torch
@@ -998,6 +1062,7 @@ def check_ba(prob, cfg, device, what: str):
     f64 = lambda t: None if t is None else t.double()
     ulp = 2.0 ** -23
     results = {}
+    suffix = "" if prob.cam_params.shape[-1] == 6 else "_w8"
 
     def ne_args(pts, z, dt=lambda t: t):
         return (prob.obs_cam, prob.obs_point, dt(pts), dt(inv.static_t), dt(prob.cam_params.contiguous()),
@@ -1044,7 +1109,7 @@ def check_ba(prob, cfg, device, what: str):
                else kb.fused_ne_payloads(*ne_args(pts, z), plan=inv.pcg_plan, schur_jacobi=True)[6])
         ne = core.NormalEq(*out[:5], whw=whw)
         step = lm_step(dataclasses.replace(prob, points=pts), cfg, inv, ne)
-        step64 = kb.LMStep(*(f64(t) for t in step[:4]), step.cam_fixed, step.point_fixed)
+        step64 = kb.LMStep(*(f64(t) for t in step[:4]), *step[4:])
         cand = kb.fused_cost_sums(*cost_args(pts, z), step=step, plan=inv.pcg_plan)
         cand64 = kb.fused_cost_sums_plain(*cost_args(pts, z, f64), step=step64)
         cand32 = kb.fused_cost_sums_plain(*cost_args(pts, z), step=step)
@@ -1074,7 +1139,7 @@ def check_ba(prob, cfg, device, what: str):
                              f"scale {seen_dp:.2e})")
     args, cargs = ne_args(prob.points, inv.z_floor), cost_args(prob.points, inv.z_floor)
     ne_moved, ne_ops = ne_bytes_ops(prob, inv)
-    results["fused_ne_payloads"] = dict(
+    results["fused_ne_payloads" + suffix] = dict(
         max_abs_err=float(max((a.double() - b).abs().max() for a, b in zip(out, ref))),
         ms=time_ms(lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), device),
         plain_ms=time_ms(lambda: kb.fused_ne_payloads_plain(*args), device),
@@ -1082,7 +1147,7 @@ def check_ba(prob, cfg, device, what: str):
         device_ms=device_ms(lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), device),
         note=f"{shape}: errors vs float64 (ne_errors) " + "; ".join(notes["ne"]) + "; deterministic")
     c_moved, c_ops = cost_bytes_ops(prob, inv, step=True)
-    results["fused_cost_sums"] = dict(
+    results["fused_cost_sums" + suffix] = dict(
         max_abs_err=max(float((a.double() - b).abs().max()) for a, b in zip(cand, cand64)),
         ms=time_ms(lambda: kb.fused_cost_sums(*cargs, step=step, plan=inv.pcg_plan), device),
         plain_ms=time_ms(lambda: kb.fused_cost_sums_plain(*cargs, step=step), device),
@@ -1107,11 +1172,20 @@ def check_k9(prob, cfg, device):
                                     shapes=k9)}
 
 
-def check_segment_sum(inv, O: int, C: int, P: int, device):
+# K9 at the rows an 8-wide solve gives it: y (8), the camera payload (72)
+# and the payload with the Schur-Jacobi entries (108), the widths that
+# ne_cams_kernel sums in one and two 64-column tiles.
+WIDE_K9_SIDES = (("camera", 8), ("camera", 72), ("camera", 108))
+
+
+def check_segment_sum(inv, O: int, C: int, P: int, device,
+                      sides=(("camera", 6), ("camera", 36), ("camera", NE_CAM_ROWS), ("point", 3),
+                             ("point", 9))):
     """K9 at the row counts the solver hands it, on a solve's own segment
-    tables: the camera side (a permutation) for K = 6 (K10's y), 36 (K8's
-    payload) and 42 (the camera payload), the point side (sorted) for K = 3
-    (K10's u) and 9 (the point payload), on standard-normal values. Each is
+    tables: by default the camera side (a permutation) for K = 6 (K10's y),
+    36 (K8's payload) and 42 (the camera payload), the point side (sorted)
+    for K = 3 (K10's u) and 9 (the point payload); an 8-wide solve's rows
+    with WIDE_K9_SIDES. On standard-normal values. Each is
     held to 2e-6 of the output's max against the plain version in float64 on
     the same values (the fp32 plain version on a GPU adds with atomics in an
     order that changes from run to run; the kernel's own fp32 sums of up to a
@@ -1128,7 +1202,7 @@ def check_segment_sum(inv, O: int, C: int, P: int, device):
     gen = torch.Generator(device=device).manual_seed(9)
     perm_long = inv.cam_perm.long()
     rows = []
-    for side, K in (("camera", 6), ("camera", 36), ("camera", NE_CAM_ROWS), ("point", 3), ("point", 9)):
+    for side, K in sides:
         values = torch.randn((K, O), generator=gen, device=device)
         if side == "camera":
             args, S = (values, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), C
@@ -1170,9 +1244,17 @@ def schur_problem(device, num_cameras: int = 100, num_points: int = 500):
     padding, every point in ~100 views (long point segments, which the
     incremental slice's short tracks do not exercise). tools/torch_perf.py
     crossover sweeps its sizes."""
+    from sfm_tpu_torch.ba.problem import build_problem
+
+    prob, _, _ = build_problem(orbit_reconstruction(num_cameras, num_points), device=device)
+    return prob
+
+
+def orbit_reconstruction(num_cameras: int, num_points: int, outliers: float = 0.05):
+    """schur_problem's model as a Reconstruction (that share of the
+    observations moved by 20 px)."""
     import numpy as np
 
-    from sfm_tpu_torch.ba.problem import build_problem
     from sfm_tpu_torch.scene.state import Reconstruction
     from sfm_tpu_torch.utils.synthetic import make_orbit_scene
 
@@ -1181,10 +1263,10 @@ def schur_problem(device, num_cameras: int = 100, num_points: int = 500):
     rng = np.random.default_rng(6)
     obs = np.argwhere(scene.visible)
     uv = scene.pixels[obs[:, 0], obs[:, 1]].copy()
-    out = rng.random(len(uv)) < 0.05
+    out = rng.random(len(uv)) < outliers
     uv[out] += rng.normal(0, 20, (int(out.sum()), 2)).astype(np.float32)
     K = num_cameras
-    rec = Reconstruction(
+    return Reconstruction(
         intrinsics=scene.intrinsics.copy(),
         rvecs=scene.rvecs + rng.normal(0, 0.01, (K, 3)).astype(np.float32),
         tvecs=scene.tvecs + rng.normal(0, 0.01, (K, 3)).astype(np.float32),
@@ -1194,8 +1276,6 @@ def schur_problem(device, num_cameras: int = 100, num_points: int = 500):
         obs_point=obs[:, 1].astype(np.int32), obs_image=obs[:, 0].astype(np.int32),
         obs_kp=obs[:, 1].astype(np.int32), obs_uv=uv.astype(np.float32),
     )
-    prob, _, _ = build_problem(rec, device=device)
-    return prob
 
 
 def check_big(prob, cfg, device):
@@ -1467,7 +1547,8 @@ def check_schur(prob, cfg, device):
     builds with the normal equations for a PCG solve (the path's K7: the
     same bar and rerun; its other outputs bit-identical to K3 without the
     blocks; within 1e-6 of the standalone entry, which runs the same device
-    code), with K3's time without and with the blocks."""
+    code), with K3's time without and with the blocks. An 8-wide problem
+    runs the 8-wide builds, under their names (`_w8`)."""
     import torch
 
     from sfm_tpu_torch.ba import core
@@ -1475,6 +1556,8 @@ def check_schur(prob, cfg, device):
 
     inv, ne = first_iteration_inputs(prob, cfg)
     O, C, P, N = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, inv.cam_perm.numel()
+    D = prob.cam_params.shape[-1]
+    suffix = "" if D == 6 else "_w8"
     if core.uses_dense_solver(prob, cfg):
         raise AssertionError(f"schur check: C={C}, O={O} takes the dense solver, not PCG")
     W_t, Hinv = ne.W_t, ne.Hpp_inv
@@ -1498,7 +1581,7 @@ def check_schur(prob, cfg, device):
     with_blocks = kb.fused_ne_payloads(*k3, plan=inv.pcg_plan, schur_jacobi=True)
     without = kb.fused_ne_payloads(*k3, plan=inv.pcg_plan)
     if not (all(torch.equal(a, b) for a, b in zip(with_blocks[:5], without[:5]))
-            and torch.equal(with_blocks[5][:, :NE_CAM_ROWS], without[5])):
+            and torch.equal(with_blocks[5][:, :kb.ne_cam_rows(D)], without[5])):
         raise AssertionError(f"fused_ne_payloads: the Schur-Jacobi blocks changed the normal equations ({shape})")
     blocks = with_blocks[6]
     err3, rel3 = max_rel(blocks, kb.whw_cam_reduce_plain(with_blocks[2].double(), with_blocks[1].double(),
@@ -1512,17 +1595,18 @@ def check_schur(prob, cfg, device):
     if twin > 1e-6:
         raise AssertionError(f"fused_ne_payloads' Schur-Jacobi blocks vs whw_cam_reduce: {twin}")
     # Bytes: the N weighted observations' W and ids, each point's H^-1, the
-    # camera segments, the output. Operations: the 6x6 product per observation.
-    moved = 4 * (18 * N + 9 * P + 2 * N + C + 1 + 36 * C)
+    # camera segments, the output. Operations: the D x D product per
+    # observation (324 at D = 6).
+    moved = 4 * (3 * D * N + 9 * P + 2 * N + C + 1 + D * D * C)
     k3_ms = [time_ms(lambda: kb.fused_ne_payloads(*k3, plan=inv.pcg_plan, schur_jacobi=sj), device)
              for sj in (False, True)]
     k3_dev = [device_ms(lambda: kb.fused_ne_payloads(*k3, plan=inv.pcg_plan, schur_jacobi=sj), device)
               for sj in (False, True)]
-    results["whw_cam_reduce"] = dict(
+    results["whw_cam_reduce" + suffix] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.whw_cam_reduce(*k7, inv.cam_inv_perm), device),
         plain_ms=time_ms(lambda: kb.whw_cam_reduce_plain(*k7), device),
-        library_ms=None, **bound(moved, 324 * N, FP32_OPS_PER_S),
+        library_ms=None, **bound(moved, 9 * D * D * N, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.whw_cam_reduce(*k7, inv.cam_inv_perm), device),
         k3_ms=k3_ms, k3_device_ms=k3_dev,
         note=f"{shape}, standalone entry: rel err {rel:.2e} vs the plain version in float64, "
@@ -1531,7 +1615,7 @@ def check_schur(prob, cfg, device):
              f"without / with the blocks {k3_ms[0]:.4f} / {k3_ms[1]:.4f} ms"
              + ("" if k3_dev[0] is None else f", device {k3_dev[0] * 1e3:.2f} / {k3_dev[1] * 1e3:.2f} us"))
 
-    v = torch.randn((C, 6), generator=torch.Generator(device=device).manual_seed(7),
+    v = torch.randn((C, D), generator=torch.Generator(device=device).manual_seed(7),
                     device=device)
     k11 = (W_t, Hinv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
            inv.cam_bounds, v, inv.cam_inv_perm)
@@ -1545,13 +1629,13 @@ def check_schur(prob, cfg, device):
     # Bytes: the N weighted observations' W and camera ids, each point's
     # H^-1 and bounds, the camera segments, v and the output (obs_point is
     # not needed: the point segments come from point_bounds). Operations: u
-    # and y (36 multiply-adds each) and the sums per observation, h per point.
-    moved = 4 * (18 * N + N + 9 * P + P + 1 + N + C + 1 + 6 * C + 6 * C)
-    results["schur_coupling_matvec"] = dict(
+    # and y (6D multiply-adds each) and the sums per observation, h per point.
+    moved = 4 * (3 * D * N + N + 9 * P + P + 1 + N + C + 1 + D * C + D * C)
+    results["schur_coupling_matvec" + suffix] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.schur_coupling_matvec(*k11), device),
         plain_ms=time_ms(lambda: kb.schur_coupling_matvec_plain(*k11[:8]), device),
-        library_ms=None, **bound(moved, 81 * N + 18 * P, FP32_OPS_PER_S),
+        library_ms=None, **bound(moved, (12 * D + 9) * N + 18 * P, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.schur_coupling_matvec(*k11), device),
         note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic")
     return results
@@ -1587,7 +1671,7 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     steps: it is a cache that W streams through, not storage a kernel fills
     (an L2 access-policy window that pinned part of W could go below this
     bound; not tried). The per-step scratch (packed y rows, camera
-    vectors) is not charged."""
+    vectors) is not charged. An 8-wide problem runs the 8-wide build."""
     import torch
 
     from sfm_tpu_torch.ba import core
@@ -1595,15 +1679,15 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
 
     inv, ne = first_iteration_inputs(prob, cfg)
     O, C, P, M = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, inv.cam_perm.numel()
-    N = inv.cam_inv_perm.numel()
+    N, D = inv.cam_inv_perm.numel(), prob.cam_params.shape[-1]
     if core.uses_dense_solver(prob, cfg):
         raise AssertionError(f"pcg check: C={C}, O={O} takes the dense solver, not PCG")
     M_inv, d = core.pcg_preconditioner(ne, prob, inv)
     rhs = core._schur_rhs(ne, prob, inv).contiguous()
     if device.type == "cuda" and blocks is None:
-        plan = kb.pcg_launch_plan(inv.point_bounds, streaming)
+        plan = kb.pcg_launch_plan(inv.point_bounds, streaming, cam_dim=D)
     else:  # on the CPU pcg_solve takes its plain version: the plan only labels the row
-        plan = kb.pcg_plan(inv.point_bounds, blocks or 4, streaming=streaming)
+        plan = kb.pcg_plan(inv.point_bounds, blocks or 4, streaming=streaming, cam_dim=D)
         plan = plan._replace(block_points=plan.block_points.to(device))
     its, tol = cfg.cg_iterations, cfg.cg_tolerance
     tables = (prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm, inv.cam_bounds)
@@ -1626,7 +1710,8 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     def loop():
         return kb.pcg_loop(lambda v: schur_matvec_step(ne, prob, v, inv), M_inv, d, rhs, its, tol)
 
-    shape = (f"{what}: O={O} ({M} weighted) C={C} P={P}, {'streaming' if plan.streaming else 'resident'}"
+    shape = (f"{what}: O={O} ({M} weighted) C={C} P={P}" + (f" D={D}" if D != 6 else "")
+             + f", {'streaming' if plan.streaming else 'resident'}"
              + (f", {blocks} blocks" if blocks else ""))
     x, ref = fused(its), plain64(its)
     x_its = x_steps or its
@@ -1650,18 +1735,18 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     # How far fp32 alone drifts from float64 here (not a bar): the plain version in fp32.
     err32 = float((plain32().double() - ref).abs().max())
     # A step reads each weighted row's W, camera and camera-sorted place (80
-    # B), each point's Hpp^-1 and bound (40 B), each camera's Hcc, M^-1 and
-    # d (312 B); rhs is read and x written once.
-    step_bytes = 80 * M + 40 * P + 312 * C
+    # B; 104 at D = 8), each point's Hpp^-1 and bound (40 B), each camera's
+    # Hcc, M^-1 and d (312 B; 544); rhs is read and x written once.
+    step_bytes = 4 * (3 * D + 2) * M + 40 * P + 4 * (2 * D * D + D) * C
     rereads = max(0, step_bytes - SMEM_BYTES)
-    moved = step_bytes + (its - 1) * rereads + 48 * C
+    moved = step_bytes + (its - 1) * rereads + 8 * D * C
     return dict(
         shape=shape, max_abs_err=err,
         ms=time_ms(lambda: fused(its), device),
         loop_ms=time_ms(loop, device),
         plain_ms=time_ms(plain32, device),
         library_ms=None,
-        **bound(moved, its * (81 * M + 18 * P + 160 * C), FP32_OPS_PER_S),
+        **bound(moved, its * ((12 * D + 9) * M + 18 * P + (4 * D * D + 16) * C), FP32_OPS_PER_S),
         device_ms=device_ms(lambda: fused(its), device),
         loop_device_ms=device_ms(loop, device, calls=3),
         note=f"{shape}, grid {plan.grid}, {plan.smem_bytes} B staged per block, a step's "
@@ -1847,7 +1932,7 @@ def record_bundle_adjustments():
         out, stats = inner(prob, cfg)
         if prob.cam_params.is_cuda:
             torch.cuda.synchronize()
-        log.append(dict(C=prob.num_cameras, O=int(prob.obs_w.shape[0]),
+        log.append(dict(C=prob.num_cameras, O=int(prob.obs_w.shape[0]), width=prob.cam_params.shape[-1],
                         solver="dense" if uses_dense_solver(prob, cfg) else "pcg",
                         iterations=int(stats.iterations), seconds=time.perf_counter() - t0,
                         initial_cost=float(stats.initial_cost), final_cost=float(stats.final_cost),
@@ -2395,6 +2480,233 @@ def run_options(device, size: int = SLICE_IMAGE):
     return rec, launches, wall, scene, rows, noise
 
 
+# ---- phase 11: intrinsics refinement at full width -------------------------
+
+
+@contextlib.contextmanager
+def forbid_plain():
+    """Record every call of a kernel's plain version (kernels.ba_kernels'
+    *_plain functions) that is handed a CUDA tensor, by wrapping them for
+    the duration: on the card every wrapper launches its kernel, so the
+    list must stay empty."""
+    import torch
+
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    calls, saved = [], {n: getattr(kb, n) for n in dir(kb) if n.endswith("_plain")}
+
+    def guard(name, fn):
+        def wrapped(*args, **kwargs):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in (*args, *kwargs.values())):
+                calls.append(name)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(kb, name, guard(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(kb, name, fn)
+
+
+def refine_config(cfg, focal: bool = True, distortion: bool = True):
+    import dataclasses
+
+    return dataclasses.replace(cfg, refine_focal=focal, refine_distortion=distortion)
+
+
+def check_column_freeze(prob, cfg, device) -> str:
+    """K5's 8-wide build with the first LM iteration's step under each
+    freeze setting (focal and k1 refined, either frozen, both): candidate
+    cameras, points and cost against the plain version in float64 at
+    check_ba's bars (1e-5 of max |value|, the cost rel 1e-5), the frozen
+    columns bit-identical to the given cameras, and the candidate points
+    bit-identical across the settings (the back-substitution reads the
+    whole step, as sfm_tpu's does). Returns the errors as a note."""
+    import torch
+
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    inv, ne = first_iteration_inputs(prob, cfg)
+    step = lm_step(prob, cfg, inv, ne)
+    cams = prob.cam_params.contiguous()
+
+    def args(dt=lambda t: t):
+        z = None if inv.z_floor is None else dt(inv.z_floor)
+        return (prob.obs_cam, prob.obs_point, dt(prob.points), dt(inv.static_t), dt(cams),
+                dt(prob.intrinsics), inv.point_bounds, z, cfg.robust_loss, cfg.robust_scale_px)
+
+    points, notes = None, []
+    for focal, dist in ((False, False), (True, False), (False, True), (True, True)):
+        s = step._replace(freeze_focal=focal, freeze_distortion=dist)
+        out = kb.fused_cost_sums(*args(), step=s, plan=inv.pcg_plan)
+        ref = kb.fused_cost_sums_plain(*args(lambda t: t.double()),
+                                       step=kb.LMStep(*(t.double() for t in s[:4]), *s[4:]))
+        errs = {k: float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for k, a, b in zip(("cams", "points"), out[:2], ref[:2])}
+        errs["cost"] = abs(float(out[2][2]) / float(ref[2][2]) - 1.0)
+        tag = f"focal {'frozen' if focal else 'refined'}, k1 {'frozen' if dist else 'refined'}"
+        if not (errs["cams"] <= 1e-5 and errs["points"] <= 1e-5 and errs["cost"] <= 1e-5):
+            raise AssertionError(f"fused_cost_sums_w8 ({tag}): errors {errs}")
+        for col, frozen in ((6, focal), (7, dist)):
+            if frozen and not torch.equal(out[0][:, col], cams[:, col]):
+                raise AssertionError(f"fused_cost_sums_w8 ({tag}): column {col} moved")
+        if points is None:
+            points = out[1]
+        elif not torch.equal(points, out[1]):
+            raise AssertionError(f"fused_cost_sums_w8 ({tag}): the freeze setting moved the points")
+        notes.append(f"{tag}: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    moved = float((step.dc[:, 6:8].abs().max()))
+    return ("freeze settings (points bit-identical across them; max |dc| of columns 6-7 "
+            f"{moved:.3e}): " + "; ".join(notes))
+
+
+def check_refined_kernels(rec, cfg, device) -> tuple[dict, list]:
+    """Phase 11 (a): build_problem(rec, refine_intrinsics=True) of phase 5's
+    reconstruction (the final global BA's problem, 8 wide: C = 128, O =
+    65,536 padded, the PCG branch), focal and k1 refined: the 8-wide K3
+    (without and with the Schur-Jacobi blocks), K5 (cost, step, each freeze
+    setting), K7 and K11 standalone and pcg_solve against their plain
+    versions at the bars check_ba / check_schur / check_pcg hold the 6-wide
+    builds to, and K9 at the 8-wide rows (WIDE_K9_SIDES); each timed.
+    Returns (rows by kernel, K9 rows)."""
+    from sfm_tpu_torch.ba import build_problem, core
+
+    prob, _, _ = build_problem(rec, refine_intrinsics=True, device=device)
+    cfg = refine_config(cfg)
+    if prob.cam_params.shape[-1] != 8 or core.uses_dense_solver(prob, cfg):
+        raise AssertionError(f"refined problem: width {prob.cam_params.shape[-1]}, "
+                             f"C={prob.num_cameras} O={prob.obs_w.shape[0]} not on the PCG branch")
+    results = {**check_ba(prob, cfg, device, "refined global BA"), **check_schur(prob, cfg, device)}
+    results["fused_cost_sums_w8"]["note"] += "; " + check_column_freeze(prob, cfg, device)
+    results["pcg_solve_w8"] = check_pcg(prob, cfg, device, "refined global BA")
+    inv = core.solve_invariants(prob, core.near_plane_floor(prob))
+    k9 = check_segment_sum(inv, prob.obs_w.shape[0], prob.num_cameras, prob.num_points, device,
+                           WIDE_K9_SIDES)
+    return results, k9
+
+
+def run_refined_ba(rec, cfg, device, focal: float, recover: bool) -> dict:
+    """Phase 11 (b): rec's global BA problem built 8-wide with every focal
+    at REFINED_BA_FOCAL of the rendered `focal` and k1 = 0, through
+    bundle_adjust with focal and k1 refined (the PCG branch), the launch
+    counts set to 0 just before and read just after, no plain version on a
+    CUDA tensor. Bars: < 1 px afterwards, the 8-wide K3, K5 and pcg_solve
+    launched; with `recover` also the non-gauge cameras' focal within
+    REFINED_FOCAL_BAR of `focal` and |k1| < 0.01 (the bars of
+    tests/unit/test_ba.py's refinement test). Also times the same BA 6 wide
+    and 8 wide at the rendered focal (seconds and LM iterations of each)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch import kernels
+    from sfm_tpu_torch.ba import build_problem, core, writeback
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def solve(r, wide, bcfg):
+        prob, cams, pids = build_problem(r, refine_intrinsics=wide, device=device)
+        sync()
+        t0 = time.perf_counter()
+        out, stats = core.bundle_adjust(prob, bcfg)
+        sync()
+        return prob, out, stats, cams, pids, time.perf_counter() - t0
+
+    timing = {}
+    for wide in (False, True):
+        prob, _, stats, _, _, sec = solve(rec, wide, refine_config(cfg, wide, wide))
+        timing[f"width_{prob.cam_params.shape[-1]}"] = dict(
+            seconds=sec, lm_iterations=int(stats.iterations), final_cost=float(stats.final_cost))
+    bad = copy.deepcopy(rec)
+    bad.intrinsics[:, :2] = REFINED_BA_FOCAL * focal
+    bad.intrinsics[:, 4] = 0.0
+    before = bad.mean_reprojection_error()
+    with forbid_plain() as plain:
+        kernels.reset_launches()
+        prob, out, stats, cams, pids, sec = solve(bad, True, refine_config(cfg))
+        launches = dict(kernels.LAUNCHES)
+    writeback(bad, out, cams, pids)
+    f, k1 = bad.intrinsics[cams[1:], 0], bad.intrinsics[cams[1:], 4]
+    r = dict(before_px=before, after_px=bad.mean_reprojection_error(), seconds=sec,
+             lm_iterations=int(stats.iterations), C=prob.num_cameras, O=int(prob.obs_w.shape[0]),
+             solver="dense" if core.uses_dense_solver(prob, cfg) else "pcg", rendered_focal=focal,
+             focal_mean=float(f.mean()), focal_worst_rel=float(np.abs(f / focal - 1).max()),
+             k1_worst=float(np.abs(k1).max()), launches=launches, plain_calls=plain, timing=timing)
+    recovered = r["focal_worst_rel"] < REFINED_FOCAL_BAR and r["k1_worst"] < 0.01
+    if not (r["after_px"] < 1.0 and (recovered or not recover)):
+        raise AssertionError(f"refined BA: {r}")
+    missing = [k for k in REFINED_PCG_KERNELS if launches.get(k, 0) == 0]
+    if r["solver"] != "pcg" or missing or plain:
+        raise AssertionError(f"refined BA: solver {r['solver']}, never launched {missing}, "
+                             f"plain versions on the card {sorted(set(plain))}")
+    return r
+
+
+def run_refined_reconstruct(device, offset: float = REFINED_FOCAL_OFFSET,
+                            overrides=REFINED_OVERRIDES) -> dict:
+    """Phase 11 (c): REFINED_IMAGES views of phase 5's blobs at its radius,
+    arc REFINED_ARC, rendered at (1 + offset) x INC_FOCAL, through
+    reconstruct with REFINED_OVERRIDES (focal and k1 refined in the global
+    BAs), no plain version on a CUDA tensor."""
+    t0 = time.perf_counter()
+    focal = (1.0 + offset) * INC_FOCAL
+    imgs, scene = render_ring(REFINED_IMAGES, INC_BLOBS, REFINED_ARC, focal)
+    render_s = time.perf_counter() - t0
+    with forbid_plain() as plain:
+        rec, launches, ba_log, _, wall = run_reconstruct(device, imgs, **overrides)
+    return dict(rec=rec, launches=launches, ba_log=ba_log, wall=wall, scene=scene, focal=focal,
+                offset=offset, plain_calls=plain, render_s=render_s)
+
+
+def check_refined_reconstruct(run) -> dict:
+    """Phase 11 (c)'s bars: >= 95% of the views registered, < 1 px, camera
+    RMSE < REFINED_RMSE_BAR of the radius (the divide-and-conquer and
+    global-engine phases' bar), the mean refined focal of the registered
+    views nearer the rendered one than the prior; the global BAs 8 wide
+    through the 8-wide K3 and K5 (the first registered view, the gauge,
+    keeps the prior), the local BAs 6 wide, no plain version on the card."""
+    import numpy as np
+
+    rec, launches, ba_log = run["rec"], run["launches"], run["ba_log"]
+    s = rec.summary()
+    reg = np.where(rec.registered)[0]
+    widths = [b["width"] for b in ba_log]
+    r = dict(offset=run["offset"], rendered_focal=run["focal"], prior_focal=INC_FOCAL,
+             registered=int(s["num_registered"]), views=len(rec.registered),
+             mean_reproj_px=s["mean_reproj_error_px"], camera_rmse=camera_rmse(rec, run["scene"]),
+             focal_mean=float(rec.intrinsics[reg, 0].mean()),
+             focal_mean_non_gauge=float(rec.intrinsics[reg[1:], 0].mean()),
+             k1_worst=float(np.abs(rec.intrinsics[reg, 4]).max()),
+             bas_8_wide=widths.count(8), bas_6_wide=widths.count(6), wall=run["wall"],
+             stage_s=rec.stage_seconds, plain_calls=sorted(set(run["plain_calls"])))
+    r["camera_rmse_pct_radius"] = 100 * r["camera_rmse"] / INC_RADIUS
+    r["focal_rel"] = r["focal_mean"] / run["focal"] - 1.0
+    bad = []
+    if r["registered"] < 0.95 * r["views"]:
+        bad.append("registered")
+    if not r["mean_reproj_px"] < 1.0:
+        bad.append("reprojection")
+    if not r["camera_rmse"] < REFINED_RMSE_BAR * INC_RADIUS:
+        bad.append("camera RMSE")
+    if not abs(r["focal_rel"]) < abs(INC_FOCAL / run["focal"] - 1.0):
+        bad.append("focal")
+    if not (widths and widths[-1] == 8 and r["bas_6_wide"] > 0):
+        bad.append("BA widths")
+    if any(launches.get(k, 0) == 0 for k in ("fused_ne_payloads_w8", "fused_cost_sums_w8",
+                                              "fused_ne_payloads", "fused_cost_sums")):
+        bad.append("launches")
+    if run["plain_calls"]:
+        bad.append("plain versions on the card")
+    r["failed"] = bad
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -2446,6 +2758,7 @@ def main() -> int:
     rmse = check_incremental(rec, launches, ba_log, scene)
     log(f"[incremental] camera-centre RMSE after Sim(3) alignment {rmse:.5f} "
         f"({100 * rmse / INC_RADIUS:.3f}% of the orbit radius)")
+    inc_rec, inc_cfg = rec, ba_log[-1]["cfg"]   # phase 11 refines this model's final BA
 
     # The BA kernels are held and timed on the incremental slice's final
     # global BA problem (PCG), as that run handed it to bundle_adjust; K7 and
@@ -2612,10 +2925,41 @@ def main() -> int:
     results["match_topk2"]["shapes"] = k2_shapes
     results["cam_segment_sum"]["shapes"] = results["cam_segment_sum"]["shapes"] + k9_big
     log(f"[kernel] twins on the merged polish's problem (ms): {json.dumps(twins)}")
+    del polish, first
+
+    # Intrinsics refinement at full width, the only path of 8-wide camera
+    # blocks: the 8-wide builds on the incremental slice's final global BA
+    # problem, the refined BA that recovers a 4% focal error on it, and a
+    # reconstruction whose focal prior is off.
+    wide, k9_wide = check_refined_kernels(inc_rec, inc_cfg, device)
+    log_results("refined global BA", wide)
+    log_shapes("cam_segment_sum", k9_wide)
+    results.update(wide)
+    results["cam_segment_sum"]["shapes"] += k9_wide
+    refined_ba = run_refined_ba(inc_rec, inc_cfg, device, INC_FOCAL, recover=False)
+    log("[refined] ring BA from focal " + f"{REFINED_BA_FOCAL * INC_FOCAL:g} (rendered {INC_FOCAL:g}), k1 0: "
+        + json.dumps(refined_ba))
+    paths["refined_ba"] = refined_ba["launches"]
+    del inc_rec
+    orbit_ba = run_refined_ba(orbit_reconstruction(*REFINED_ORBIT, outliers=0.0), inc_cfg, device,
+                              SLICE_FOCAL, recover=True)
+    log("[refined] orbit BA from focal " + f"{REFINED_BA_FOCAL * SLICE_FOCAL:g} (rendered {SLICE_FOCAL:g}), "
+        "k1 0: " + json.dumps(orbit_ba))
+    paths["refined_orbit_ba"] = orbit_ba["launches"]
+    refined = run_refined_reconstruct(device)
+    rr = check_refined_reconstruct(refined)
+    log_bundle_adjustments("refined", refined["ba_log"])
+    log(f"[refined] {REFINED_IMAGES} views rendered at focal {refined['focal']:g} in "
+        f"{refined['render_s']:.2f}s, prior {INC_FOCAL:g}: " + json.dumps(rr))
+    log(f"[refined] launches {json.dumps(refined['launches'])}")
+    if rr["failed"]:
+        raise AssertionError(f"refined reconstruction: {rr['failed']} off: {rr}")
+    paths["refined"] = refined["launches"]
+    del refined
     log("[lm] launches by path: " + json.dumps(
         {k: {name: p.get(k, 0) for name, p in paths.items()}
          for k in ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce",
-                   "pcg_solve", "pcg_solve_big")}))
+                   "pcg_solve", "pcg_solve_big") + WIDE_KERNELS}))
 
     # K10's and K11's rows count the launches that run their code (INSIDE).
     by_path = {k: {name: p.get(INSIDE.get(k, k), 0) for name, p in paths.items()} for k in KERNELS}

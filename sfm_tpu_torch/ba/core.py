@@ -4,9 +4,10 @@
   residual r_o = project(point_p, cam_c) - uv_o, robustified by IRLS
   normal equations in segment-sum form (kernel K3: one pass over the point
   segments that sums each point's blocks and inverts them, then the camera
-  rows summed per camera):
-    Hcc = segsum_c Jc^T Jc  [C, 6, 6],  Hpp = segsum_p Jp^T Jp  [P, 3, 3]
-    W_o = Jc_o^T Jp_o  [O, 6, 3] (kept per observation, feature-major)
+  rows summed per camera), for camera blocks of width D (6; 8 when the
+  global BA refines intrinsics: the log focal scale and dk1 columns):
+    Hcc = segsum_c Jc^T Jc  [C, D, D],  Hpp = segsum_p Jp^T Jp  [P, 3, 3]
+    W_o = Jc_o^T Jp_o  [O, D, 3] (kept per observation, feature-major)
     bc = -segsum_c Jc^T r,  bp = -segsum_p Jp^T r
   reduced camera system S dc = bc - W Hpp^-1 bp with S = Hcc - W Hpp^-1 W^T,
   solved either
@@ -19,8 +20,9 @@
     steps run in one pcg_solve launch (K11's coupling code and Hcc p per
     step, the dot products and updates between grid barriers);
   back-substitution dp = Hpp^-1 (bp - W^T dc) and the candidate's true
-  robust cost in one launch (kernel K5); LM accept/reject, multiplicative
-  damping.
+  robust cost in one launch (kernel K5; the intrinsic columns the config
+  does not refine are zeroed in the camera update after dp has read them,
+  as in sfm_tpu); LM accept/reject, multiplicative damping.
 
 Past MAX_CAMS = 4096 cameras (the JAX package's _MAX_CAMS, where its one-hot
 kernels stop) the normal equations and the candidate go through the
@@ -35,7 +37,9 @@ The JAX package switches its coupling matvec later (past 16384 cameras or on
 unaligned tiles, where its two-level in-kernel matvec cannot run); this
 package has no two-level kernel, so the whole set switches at one threshold.
 
-Intrinsics refinement (8-wide camera blocks) raises NotImplementedError.
+8-wide camera blocks run through the same kernels at width 8 up to MAX_CAMS
+cameras (sfm_tpu runs them as plain XLA: its kernels take six columns only);
+past MAX_CAMS they raise NotImplementedError (ROADMAP.md queue 1 item 2b).
 """
 
 from __future__ import annotations
@@ -61,12 +65,16 @@ _DENSE_MAX_VOLUME = 4 << 20   # C * O gate of the dense reduced solve
 def residual_jac_analytic(cams_o, pts_o, intr_o, uv):
     """Closed-form residual and Jacobian blocks per observation.
 
-    cams_o [O, 6] (rvec, tvec), pts_o [O, 3], intr_o [O, 6], uv [O, 2] ->
-    (r [O, 2], Jc [O, 2, 6], Jp [O, 2, 3], depth [O]). d(R p)/d rvec uses
-    the closed-form SO(3) right Jacobian: -R [p]x (I - B [w]x + C2 [w]x^2).
+    cams_o [O, D] (rvec, tvec; at D = 8 then the log focal scale and dk1),
+    pts_o [O, 3], intr_o [O, 6], uv [O, 2] -> (r [O, 2], Jc [O, 2, D],
+    Jp [O, 2, 3], depth [O]). d(R p)/d rvec uses the closed-form SO(3) right
+    Jacobian: -R [p]x (I - B [w]x + C2 [w]x^2). At D = 8 the residual uses
+    the refined intrinsics and dr/dc6 = f xy s, dr/dc7 = f xy r2
+    (sfm_tpu/ba/core.py _residual_jac_analytic).
     """
     pr = projection(cams_o, intr_o, pts_o, uv)
     x, y, r2, s, inv_z = pr["x"], pr["y"], pr["r2"], pr["s"], pr["inv_z"]
+    intr_o = pr["intr"]
     k1, k2 = intr_o[:, 4], intr_o[:, 5]
     xy = torch.stack([x, y], -1)
     ds_dxy = ((k1 + 2.0 * k2 * r2) * 2.0)[:, None] * xy
@@ -79,7 +87,11 @@ def residual_jac_analytic(cams_o, pts_o, intr_o, uv):
     R = pr["R"]
     Jp = M @ R
     dRX = -(R @ so3_hat(pts_o) @ so3_right_jacobian(cams_o[:, :3]))
-    Jc = torch.cat([M @ dRX, M], dim=-1)
+    blocks = [M @ dRX, M]
+    if cams_o.shape[-1] >= 8:
+        f = intr_o[:, :2]
+        blocks += [((xy * s[:, None]) * f)[:, :, None], (f * xy * r2[:, None])[:, :, None]]
+    Jc = torch.cat(blocks, dim=-1)
     return pr["r"], Jc, Jp, pr["xc2"]
 
 
@@ -106,8 +118,15 @@ class SolveInvariants(NamedTuple):
 
 
 def uses_big_kernels(prob: BAProblem) -> bool:
-    """Whether a solve of `prob` takes the large-camera-count kernel set."""
-    return prob.num_cameras > MAX_CAMS
+    """Whether a solve of `prob` takes the large-camera-count kernel set,
+    which is 6-wide only: an 8-wide problem past MAX_CAMS raises."""
+    if prob.num_cameras <= MAX_CAMS:
+        return False
+    if prob.cam_params.shape[-1] != CAM_DIM:
+        raise NotImplementedError(
+            f"intrinsics refinement (8-wide camera blocks) past {MAX_CAMS} cameras is not ported "
+            "yet (ROADMAP.md queue 1 item 2b: the 8-wide large-camera-count route)")
+    return True
 
 
 def _rows_t(table: torch.Tensor, obs_cam: torch.Tensor) -> torch.Tensor:
@@ -137,7 +156,8 @@ def solve_invariants(prob: BAProblem, z_floor: torch.Tensor | None = None) -> So
         z_floor=z_floor,
         intr_t=_rows_t(prob.intrinsics, prob.obs_cam) if big else None,
         # Once per bundle_adjust, not per LM iteration: the plan reads point_bounds back.
-        pcg_plan=pcg_launch_plan(point_bounds) if on_cuda(point_bounds) else None,
+        pcg_plan=(pcg_launch_plan(point_bounds, cam_dim=prob.cam_params.shape[-1])
+                  if on_cuda(point_bounds) else None),
     )
 
 
@@ -162,12 +182,14 @@ def compute_cost(prob: BAProblem, cam_params, points, cfg: BAConfig,
 
 
 class NormalEq(NamedTuple):
-    Hcc: torch.Tensor      # [C, 6, 6] damped
+    """Damped normal equations for camera blocks of width D (6 or 8)."""
+
+    Hcc: torch.Tensor      # [C, D, D] damped
     Hpp_inv: torch.Tensor  # [P, 3, 3] damped, inverted
-    W_t: torch.Tensor      # [18, O] row i*3+k = W[i, k]
-    bc: torch.Tensor       # [C, 6]
+    W_t: torch.Tensor      # [3D, O] row i*3+k = W[i, k]
+    bc: torch.Tensor       # [C, D]
     bp: torch.Tensor       # [P, 3]
-    whw: torch.Tensor | None = None   # [C, 36] sum_c W Hpp^-1 W^T, when built for PCG
+    whw: torch.Tensor | None = None   # [C, D^2] sum_c W Hpp^-1 W^T, when built for PCG
 
 
 def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConfig,
@@ -256,8 +278,8 @@ def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
     built with the normal equations; past MAX_CAMS from K8 then K9),
     inverted Jacobi-equilibrated so huge blocks cannot overflow the fp32
     inversion: M^-1 = D (D M D)^-1 D with D = diag(M)^-1/2. Returns
-    (M^-1 [C, 6, 6], sqrt|diag M| [C, 6])."""
-    C = prob.num_cameras
+    (M^-1 [C, K, K], sqrt|diag M| [C, K]) for camera blocks of width K."""
+    C, K = prob.num_cameras, ne.Hcc.shape[-1]
     if uses_big_kernels(prob):
         whw = cam_segment_sum(whw_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point),
                               inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
@@ -265,7 +287,7 @@ def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
         raise ValueError("pcg_preconditioner: build the normal equations with schur_jacobi=True")
     else:
         whw = ne.whw
-    M = ne.Hcc - whw.reshape(C, CAM_DIM, CAM_DIM)
+    M = ne.Hcc - whw.reshape(C, K, K)
     M.diagonal(dim1=-2, dim2=-1).add_(1e-6)
     dg = torch.sqrt(M.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
     Dinv = 1.0 / dg
@@ -279,16 +301,16 @@ def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
 # and ~1.7 ms of device time at the merged polish's 1.9 M observations
 # (tools/torch_perf.py polish).
 def _w_apply(W_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
-    """y[..., i, o] = sum_k W_o[i, k] x[..., k, o]: W_t [18, O], x_t [..., 3, O] -> [..., 6, O]."""
-    Wm = W_t.reshape(CAM_DIM, PT_DIM, -1)
+    """y[..., i, o] = sum_k W_o[i, k] x[..., k, o]: W_t [3D, O], x_t [..., 3, O] -> [..., D, O]."""
+    Wm = W_t.reshape(W_t.shape[0] // PT_DIM, PT_DIM, -1)
     if x_t.dim() == 2:
         return (Wm * x_t[None]).sum(1)
     return torch.einsum("iko,...ko->...io", Wm, x_t)
 
 
 def _w_apply_T(W_t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
-    """u[..., k, o] = sum_i W_o[i, k] x[..., i, o]: x_t [..., 6, O] -> [..., 3, O]."""
-    Wm = W_t.reshape(CAM_DIM, PT_DIM, -1)
+    """u[..., k, o] = sum_i W_o[i, k] x[..., i, o]: x_t [..., D, O] -> [..., 3, O]."""
+    Wm = W_t.reshape(W_t.shape[0] // PT_DIM, PT_DIM, -1)
     if x_t.dim() == 2:
         return (Wm * x_t[:, None]).sum(0)
     return torch.einsum("iko,...io->...ko", Wm, x_t)
@@ -310,12 +332,12 @@ def _point_reduce(u_t: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
 
 
 def _schur_matvec(ne: NormalEq, prob: BAProblem, V: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
-    """Implicit S @ v for a batch V [..., C, 6] without materializing S."""
+    """Implicit S @ v for a batch V [..., C, D] without materializing S."""
     oc, op = prob.obs_cam.long(), prob.obs_point.long()
-    v_obs_t = V[..., oc, :].transpose(-1, -2)                          # [..., 6, O]
+    v_obs_t = V[..., oc, :].transpose(-1, -2)                          # [..., D, O]
     g = _point_reduce(_w_apply_T(ne.W_t, v_obs_t), inv)                # [..., P, 3]
     h = torch.einsum("pij,...pj->...pi", ne.Hpp_inv, g)
-    y_t = _w_apply(ne.W_t, h[..., op, :].transpose(-1, -2))            # [..., 6, O]
+    y_t = _w_apply(ne.W_t, h[..., op, :].transpose(-1, -2))            # [..., D, O]
     return torch.einsum("cij,...cj->...ci", ne.Hcc, V) - _cam_reduce(y_t, inv)
 
 
@@ -366,19 +388,32 @@ def _back_substitute(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, inv: Solve
     return torch.einsum("pij,pj->pi", ne.Hpp_inv, g)
 
 
+def frozen_columns(cfg: BAConfig, width: int) -> dict:
+    """LMStep's column flags for camera blocks of `width`: with 8-wide
+    blocks, the intrinsic columns cfg does not refine."""
+    wide = width >= 8
+    return dict(freeze_focal=wide and not cfg.refine_focal,
+                freeze_distortion=wide and not cfg.refine_distortion)
+
+
 def lm_candidate(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, cam_params, points,
                  cfg: BAConfig, inv: SolveInvariants):
     """The LM candidate of the camera step dc: (cam_params + dc, points + dp)
     with dp = Hpp^-1 (bp - W^T dc), the steps of frozen cameras and points
-    zero, and its robust mean cost (0-d). Up to MAX_CAMS cameras one K5
-    launch; past it the back-substitution, masks and K6 as before (dc
-    masked after the back-substitution, as sfm_tpu does: a frozen camera's
-    W rows are zero, so the two orders agree on any finite step)."""
+    zero, and its robust mean cost (0-d). With 8-wide cameras the columns
+    the config does not refine (6: focal unless cfg.refine_focal, 7: k1
+    unless cfg.refine_distortion) are zeroed in the camera update only,
+    after dp has read the whole dc, as sfm_tpu's bundle_adjust_impl does
+    (their W rows are not zero). Up to MAX_CAMS cameras one K5 launch; past
+    it the back-substitution, masks and K6 as before (dc masked by
+    cam_fixed after the back-substitution, as sfm_tpu does: a frozen
+    camera's W rows are zero, so the two orders agree on any finite step)."""
     if not uses_big_kernels(prob):
         new_cams, new_points, sums = fused_cost_sums(
             prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
             prob.intrinsics, inv.point_bounds, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px,
-            step=LMStep(dc.contiguous(), ne.W_t, ne.Hpp_inv, ne.bp, prob.cam_fixed, prob.point_fixed),
+            step=LMStep(dc.contiguous(), ne.W_t, ne.Hpp_inv, ne.bp, prob.cam_fixed, prob.point_fixed,
+                        **frozen_columns(cfg, cam_params.shape[-1])),
             plan=inv.pcg_plan)
         return new_cams, new_points, sums[2]
     dp = _back_substitute(ne, prob, dc, inv)
@@ -414,11 +449,9 @@ class BAStats(NamedTuple):
 
 
 def bundle_adjust(prob: BAProblem, cfg: BAConfig) -> tuple[BAProblem, BAStats]:
-    """Single-device LM to convergence (or cfg.max_iterations)."""
-    if prob.cam_params.shape[-1] != CAM_DIM:
-        raise NotImplementedError(
-            "intrinsics refinement (8-wide camera blocks) is not ported yet "
-            "(ROADMAP.md queue 1 item 2: intrinsics refinement)")
+    """Single-device LM to convergence (or cfg.max_iterations), with 6-wide
+    or 8-wide camera blocks (intrinsics refinement: build_problem's
+    refine_intrinsics, cfg.refine_focal / cfg.refine_distortion)."""
     use_dense = uses_dense_solver(prob, cfg)
     inv = solve_invariants(prob, near_plane_floor(prob))
 

@@ -87,6 +87,21 @@
 // segments that lie in order and a coalesced transpose-scatter plus packed
 // reduction for segments of a permutation.
 //
+// Camera width. K3 and K5 are templates on the width D of a camera block:
+// D = 6 (rvec, tvec) or D = 8 with intrinsics refinement (then the log focal
+// scale and dk1, sfm_tpu/ba/problem.py build_problem(refine_intrinsics)).
+// sfm_tpu runs an 8-wide BA as plain XLA (every kernel gate asks for six
+// columns); here both widths take the same kernels, each a C entry of its own
+// (the `_w8` entries: the same arguments, 8-wide tables). At D = 8, W is
+// [24, O], a camera row 72 floats (vec(Jc^T Jc) 64, -Jc^T r 8; 16-byte rows)
+// and a PCG row 112 (72, the 36 entries of W Hpp^-1 W^T, 4 unused): the
+// camera pass sums 72 or 108 columns in two passes of segment_sum.cuh's
+// 64-column tiles. K5 takes a column mask for the candidate cameras (focal
+// or k1 frozen by the config), applied after its back-substitution, which
+// reads the whole step as sfm_tpu's bundle_adjust_impl does: the frozen
+// columns' W rows are not zero. The large-camera-count kernels (K4, K6)
+// stay 6-wide (ROADMAP queue 1 item 2b).
+//
 // No float atomics anywhere: every sum is taken in an order fixed by the
 // shapes, the tables and the launch widths, so a rerun gives identical bits.
 
@@ -104,34 +119,41 @@ constexpr int kNeThreads = 128;
 constexpr int kCostThreads = 256;
 constexpr int kSegThreads = 512;   // K3 and K5: observations per chunk, one a thread
 constexpr int kSegWarps = kSegThreads / 32;
-constexpr int kCamRows = 42;       // vec(Jc^T Jc) (36) then -Jc^T r (6)
-// With the Schur-Jacobi blocks: the camera row, the 21 entries of
-// W Hpp^-1 W^T, one unused float (16-byte rows).
-constexpr int kPcgRow = 64;
+// Floats of a camera row: vec(Jc^T Jc) (D^2) then -Jc^T r (D): 42 or 72.
+template <int D>
+constexpr int kCamRows = D * D + D;
+// With the Schur-Jacobi blocks: the camera row, the D (D + 1) / 2 entries
+// of W Hpp^-1 W^T, padded to a multiple of 16 floats (64-byte rows): 64
+// (one unused) or 112 (four).
+template <int D>
+constexpr int kPcgRow = (kCamRows<D> + sfm::kWhwEntries<D> + 15) / 16 * 16;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The IRLS-weighted Jacobian rows of one observation: the two rows of Jc
 // (scaled by the camera-free mask) and of Jp (by the point-free mask), and
 // the weighted residual.
+template <int D>
 struct NeRows {
-  float a[6], b[6];
+  float a[D], b[D];
   float p0[3], p1[3];
   float ru_w, rv_w;
 };
 
 // Residual, closed-form Jacobian, IRLS weight, near-plane gate and freeze
 // masks of an observation (u, v, weight w_obs, masks) of the point
-// (px, py, pz) in the camera `cam` (rvec, tvec) with intrinsics `in`.
-__device__ __forceinline__ NeRows ne_rows(const float* cam, const float* in,
-                                         float px, float py, float pz,
-                                         float u, float v, float w_obs,
-                                         float cam_free, float pt_free,
-                                         const float* __restrict__ zf,
-                                         int loss, float scale) {
-  const Projection P = sfm::project_obs(cam, in, px, py, pz, u, v);
+// (px, py, pz) in the camera `cam` (rvec, tvec; at D = 8 then the log focal
+// scale and dk1) with intrinsics `in`.
+template <int D>
+__device__ __forceinline__ NeRows<D> ne_rows(const float* cam, const float* in,
+                                            float px, float py, float pz,
+                                            float u, float v, float w_obs,
+                                            float cam_free, float pt_free,
+                                            const float* __restrict__ zf,
+                                            int loss, float scale) {
+  const Projection P = sfm::project_obs<D>(cam, in, px, py, pz, u, v);
   if (zf != nullptr) w_obs = (P.xc2 > *zf) ? w_obs : 0.0f;
 
-  const float fx = in[0], fy = in[1], k1 = in[4], k2 = in[5];
+  const float fx = P.fx, fy = P.fy, k1 = P.k1, k2 = in[5];
   const float x = P.x, y = P.y, r2 = P.r2, s = P.s, inv_z = P.inv_z;
   const float* R = P.R;
 
@@ -168,8 +190,10 @@ __device__ __forceinline__ NeRows ne_rows(const float* cam, const float* in,
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       drx[r][k] = -(R[3 * r] * g0[k] + R[3 * r + 1] * g1[k] + R[3 * r + 2] * g2[k]);
-  // Jc = [M dRX | M].
-  float jc0[6], jc1[6];
+  // Jc = [M dRX | M], at D = 8 then d r / d log focal scale = f x s (uv - c
+  // scales with f) and d r / d dk1 = f x r2 (sfm_tpu/ba/core.py
+  // _residual_jac_analytic).
+  float jc0[D], jc1[D];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     jc0[k] = m00 * drx[0][k] + m01 * drx[1][k] + m02 * drx[2][k];
@@ -177,17 +201,23 @@ __device__ __forceinline__ NeRows ne_rows(const float* cam, const float* in,
   }
   jc0[3] = m00; jc0[4] = m01; jc0[5] = m02;
   jc1[3] = m10; jc1[4] = m11; jc1[5] = m12;
+  if constexpr (D == 8) {
+    jc0[6] = (x * s) * fx;
+    jc1[6] = (y * s) * fy;
+    jc0[7] = fx * x * r2;
+    jc1[7] = fy * y * r2;
+  }
 
   // IRLS weight on the unweighted residual, freeze masks folded in.
   const float ru = P.ru, rv = P.rv;
   const float w_r = sfm::robust_weight(ru * ru + rv * rv, loss, scale) * w_obs;
   const float sw = sqrtf(sfm::nan_max(w_r, 0.0f));
   const float swc = sw * cam_free, swp = sw * pt_free;
-  NeRows out;
+  NeRows<D> out;
   out.ru_w = ru * sw;
   out.rv_w = rv * sw;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < D; ++i) {
     out.a[i] = jc0[i] * swc;
     out.b[i] = jc1[i] * swc;
   }
@@ -199,20 +229,22 @@ __device__ __forceinline__ NeRows ne_rows(const float* cam, const float* in,
   return out;
 }
 
-// Entry k of the camera payload: vec(Jc^T Jc) for k < 36, then -Jc^T r.
+// Entry k of the camera payload: vec(Jc^T Jc) for k < D^2, then -Jc^T r.
 // k must be a compile-time constant after unrolling.
-__device__ __forceinline__ float cam_entry(const NeRows& J, int k) {
-  if (k < 36) {
-    const int i = k / 6, j = k % 6;
+template <int D>
+__device__ __forceinline__ float cam_entry(const NeRows<D>& J, int k) {
+  if (k < D * D) {
+    const int i = k / D, j = k % D;
     return J.a[i] * J.a[j] + J.b[i] * J.b[j];
   }
-  const int i = k - 36;
+  const int i = k - D * D;
   return -(J.a[i] * J.ru_w + J.b[i] * J.rv_w);
 }
 
 // Entry k of the point payload: sym(Jp^T Jp) (00, 01, 02, 11, 12, 22), then
 // -Jp^T r. k must be a compile-time constant after unrolling.
-__device__ __forceinline__ float point_entry(const NeRows& J, int k) {
+template <int D>
+__device__ __forceinline__ float point_entry(const NeRows<D>& J, int k) {
   if (k < 6) {
     const int i = k < 3 ? 0 : (k < 5 ? 1 : 2);
     const int j = k < 3 ? k : (k < 5 ? k - 2 : 2);
@@ -222,14 +254,38 @@ __device__ __forceinline__ float point_entry(const NeRows& J, int k) {
   return -(J.p0[j] * J.ru_w + J.p1[j] * J.rv_w);
 }
 
-// W = Jc^T Jp, row-major 6x3, stored feature-major at column o of [18, O].
-__device__ __forceinline__ void store_w(const NeRows& J, float* __restrict__ w_t,
+// W = Jc^T Jp, row-major D x 3, stored feature-major at column o of [3D, O].
+template <int D>
+__device__ __forceinline__ void store_w(const NeRows<D>& J, float* __restrict__ w_t,
                                         int O, int o) {
 #pragma unroll
-  for (int i = 0; i < 6; ++i)
+  for (int i = 0; i < D; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       w_t[(size_t)(i * 3 + j) * O + o] = J.a[i] * J.p0[j] + J.b[i] * J.p1[j];
+}
+
+// The camera row of an observation at dst: 16-byte stores where dst is
+// 16-byte aligned (`quad`: every row of an 8-wide build, the PCG rows of a
+// 6-wide one), else 8-byte stores (the 168-byte rows of a 6-wide build).
+template <int D>
+__device__ __forceinline__ void store_cam_row(const NeRows<D>& J, float* dst, bool quad) {
+  constexpr int K = kCamRows<D>;
+  if (quad) {
+    float4* row = reinterpret_cast<float4*>(dst);
+#pragma unroll
+    for (int k = 0; k < K / 4; ++k)
+      row[k] = make_float4(cam_entry<D>(J, 4 * k), cam_entry<D>(J, 4 * k + 1),
+                           cam_entry<D>(J, 4 * k + 2), cam_entry<D>(J, 4 * k + 3));
+    if constexpr (K % 4 == 2)
+      reinterpret_cast<float2*>(dst)[K / 2 - 1] =
+          make_float2(cam_entry<D>(J, K - 2), cam_entry<D>(J, K - 1));
+  } else {
+    float2* row = reinterpret_cast<float2*>(dst);
+#pragma unroll
+    for (int k = 0; k < K / 2; ++k)
+      row[k] = make_float2(cam_entry<D>(J, 2 * k), cam_entry<D>(J, 2 * k + 1));
+  }
 }
 
 // ---- K3: the normal equations over point segments ---------------------------
@@ -239,7 +295,7 @@ struct NeArgs {
   const int* obs_point;     // [O]
   const float* points;      // [P, 3]
   const float* static_t;    // [5, O] u, v, weight, camera-free, point-free
-  const float* cams;        // [C, 6]
+  const float* cams;        // [C, D]
   const float* intr;        // [C, 6]
   const float* zf;          // 0-d or null
   const float* lam;         // 0-d
@@ -248,8 +304,8 @@ struct NeArgs {
   const int* block_points;  // [G+1]
   int O, P, loss;
   float scale;
-  int row;                  // floats per packed row: kCamRows, or kPcgRow with the blocks
-  float* w_t;               // [18, O]
+  int row;                  // floats per packed row: kCamRows<D>, or kPcgRow<D> with the blocks
+  float* w_t;               // [3D, O]
   float* packed;            // [M, row]
   float* hinv;              // [P, 9]
   float* bp;                // [P, 3]
@@ -325,9 +381,10 @@ __device__ __forceinline__ bool segment_total(float (*rows)[kSegThreads], int ch
 // segment's terms from shared memory. Points without observations (the
 // capacity padding's slots among them) are finished by every block for its
 // share of [0, P), the zero-weight tail [N, O) of W likewise. With the
-// Schur-Jacobi blocks (a.row == kPcgRow) a last sweep over the slice stores
-// each weighted observation's 21 entries of W Hpp^-1 W^T at columns
-// [42, 63) of its packed row.
+// Schur-Jacobi blocks (a.row == kPcgRow<D>) a last sweep over the slice
+// stores each weighted observation's D (D + 1) / 2 entries of
+// W Hpp^-1 W^T after the camera row of its packed row.
+template <int D>
 __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) {
   __shared__ float rows[9][kSegThreads];
   __shared__ float carry[2][9];
@@ -344,30 +401,19 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
       pt = a.obs_point[o];
       const int c = a.obs_cam[o];
       const float* p = a.points + 3 * (size_t)pt;
-      const NeRows J = ne_rows(a.cams + 6 * (size_t)c, a.intr + 6 * (size_t)c, p[0], p[1], p[2],
-                               a.static_t[o], a.static_t[(size_t)O + o],
-                               a.static_t[(size_t)2 * O + o], a.static_t[(size_t)3 * O + o],
-                               a.static_t[(size_t)4 * O + o], a.zf, a.loss, a.scale);
-      store_w(J, a.w_t, O, o);
+      const NeRows<D> J = ne_rows<D>(a.cams + D * (size_t)c, a.intr + 6 * (size_t)c, p[0], p[1],
+                                     p[2], a.static_t[o], a.static_t[(size_t)O + o],
+                                     a.static_t[(size_t)2 * O + o], a.static_t[(size_t)3 * O + o],
+                                     a.static_t[(size_t)4 * O + o], a.zf, a.loss, a.scale);
+      store_w<D>(J, a.w_t, O, o);
       const int place = a.cam_inv_perm[o];
-      if (place >= 0 && a.row == kCamRows) {
-        // 168 bytes per row: every row starts 8-byte aligned.
-        float2* row = reinterpret_cast<float2*>(a.packed + (size_t)kCamRows * place);
+      // Rows of 168 bytes (6-wide, 8-byte aligned), 288, 256 or 448 bytes
+      // (16-byte aligned).
+      if (place >= 0)
+        store_cam_row<D>(J, a.packed + (size_t)a.row * place,
+                         a.row != kCamRows<D> || kCamRows<D> % 4 == 0);
 #pragma unroll
-        for (int k = 0; k < kCamRows / 2; ++k)
-          row[k] = make_float2(cam_entry(J, 2 * k), cam_entry(J, 2 * k + 1));
-      } else if (place >= 0) {
-        // 256 bytes per row: 16-byte stores.
-        float4* row = reinterpret_cast<float4*>(a.packed + (size_t)kPcgRow * place);
-#pragma unroll
-        for (int k = 0; k < kCamRows / 4; ++k)
-          row[k] = make_float4(cam_entry(J, 4 * k), cam_entry(J, 4 * k + 1),
-                               cam_entry(J, 4 * k + 2), cam_entry(J, 4 * k + 3));
-        reinterpret_cast<float2*>(row)[kCamRows / 2 - 1] =
-            make_float2(cam_entry(J, kCamRows - 2), cam_entry(J, kCamRows - 1));
-      }
-#pragma unroll
-      for (int k = 0; k < 9; ++k) rows[k][tid] = point_entry(J, k);
+      for (int k = 0; k < 9; ++k) rows[k][tid] = point_entry<D>(J, k);
     }
     __syncthreads();
     if (pt >= 0 && (o == c0 || a.obs_point[o - 1] != pt)) {
@@ -378,20 +424,31 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
     }
     __syncthreads();
   }
-  if (a.row == kPcgRow) {
+  if (a.row == kPcgRow<D>) {
     // W and Hpp^-1 of the slice were written by this block before the last
     // barrier.
+    constexpr int E = sfm::kWhwEntries<D>;
     for (int o = o_lo + tid; o < o_hi; o += kSegThreads) {
       const int place = a.cam_inv_perm[o];
       if (place < 0) continue;
-      float e[sfm::kWhwEntries];
-      sfm::whw_of_observation(a.w_t, a.hinv, O, o, a.obs_point[o], e);
-      // Column 42 of a 256-byte row: 8-byte aligned.
-      float* dst = a.packed + (size_t)kPcgRow * place + kCamRows;
+      float e[E];
+      sfm::whw_of_observation<D>(a.w_t, a.hinv, O, o, a.obs_point[o], e);
+      float* dst = a.packed + (size_t)kPcgRow<D> * place + kCamRows<D>;
+      if constexpr (kCamRows<D> % 4 == 0) {
+        // Column 72 of a 448-byte row: 16-byte aligned, 36 entries.
 #pragma unroll
-      for (int k = 0; k < sfm::kWhwEntries / 2; ++k)
-        reinterpret_cast<float2*>(dst)[k] = make_float2(e[2 * k], e[2 * k + 1]);
-      dst[sfm::kWhwEntries - 1] = e[sfm::kWhwEntries - 1];
+        for (int k = 0; k < E / 4; ++k)
+          reinterpret_cast<float4*>(dst)[k] =
+              make_float4(e[4 * k], e[4 * k + 1], e[4 * k + 2], e[4 * k + 3]);
+#pragma unroll
+        for (int k = E / 4 * 4; k < E; ++k) dst[k] = e[k];
+      } else {
+        // Column 42 of a 256-byte row: 8-byte aligned, 21 entries.
+#pragma unroll
+        for (int k = 0; k < E / 2; ++k)
+          reinterpret_cast<float2*>(dst)[k] = make_float2(e[2 * k], e[2 * k + 1]);
+        if constexpr (E % 2 == 1) dst[E - 1] = e[E - 1];
+      }
     }
   }
   float zero[9];
@@ -402,39 +459,51 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
   const int N = a.point_bounds[a.P];
   for (int o = N + b * kSegThreads + tid; o < O; o += G * kSegThreads) {
 #pragma unroll
-    for (int k = 0; k < 18; ++k) a.w_t[(size_t)k * O + o] = 0.0f;
+    for (int k = 0; k < 3 * D; ++k) a.w_t[(size_t)k * O + o] = 0.0f;
   }
 }
 
-// Camera c's 42 sums of the packed rows [cam_bounds[c], cam_bounds[c+1]),
-// the diagonal of Hcc damped by lam diag + 1e-6; with whw (rows of kPcgRow
-// floats) also the 21 sums of W Hpp^-1 W^T, mirrored to whw [C, 36].
-// blockDim = 32 * warps.
+// Camera c's D^2 + D sums of the packed rows [cam_bounds[c], cam_bounds[c+1]),
+// the diagonal of Hcc damped by lam diag + 1e-6; with whw (rows of
+// kPcgRow<D> floats) also the D (D + 1) / 2 sums of W Hpp^-1 W^T, mirrored
+// to whw [C, D^2]. The columns go in equal tiles of at most kTileRows (64):
+// one pass for the 42 or 63 columns of a 6-wide build, two of 36 or 54 for
+// the 72 or 108 of an 8-wide one. Every tile is wider than 32 columns, so
+// each column is summed by one lane of each warp over the same terms in
+// the same order whatever the row width: the build with the blocks gives
+// the bits of the build without them, and its blocks those of K7's
+// standalone entry (one tile of 21 or 36 columns: the same order where it
+// is wider than 32, the 8-wide case). blockDim = 32 * warps.
+template <int D>
 __global__ __launch_bounds__(32 * sfm::kMaxSegmentWarps) void ne_cams_kernel(
     const float* __restrict__ packed, const int* __restrict__ cam_bounds,
     const float* __restrict__ lam, float* __restrict__ hcc, float* __restrict__ bc,
     float* __restrict__ whw) {
   __shared__ float part[sfm::kMaxSegmentWarps][sfm::kTileRows];
-  __shared__ float sums[kCamRows + sfm::kWhwEntries];
+  __shared__ float sums[kCamRows<D> + sfm::kWhwEntries<D>];
   const int c = blockIdx.x;
-  const int row = whw != nullptr ? kPcgRow : kCamRows;
-  const int cols = whw != nullptr ? kCamRows + sfm::kWhwEntries : kCamRows;
-  sfm::segment_sum_packed_rows(packed, cam_bounds[c], cam_bounds[c + 1], row, 0, cols, part,
-                               sums);
-  __syncthreads();
+  const int row = whw != nullptr ? kPcgRow<D> : kCamRows<D>;
+  const int cols = whw != nullptr ? kCamRows<D> + sfm::kWhwEntries<D> : kCamRows<D>;
+  const int tiles = (cols + sfm::kTileRows - 1) / sfm::kTileRows;
+  const int tile = (cols + tiles - 1) / tiles;
+  for (int k0 = 0; k0 < cols; k0 += tile) {
+    sfm::segment_sum_packed_rows(packed, cam_bounds[c], cam_bounds[c + 1], row, k0,
+                                 min(tile, cols - k0), part, sums + k0);
+    __syncthreads();   // part is reused by the next tile; sums read below
+  }
   const float l = *lam;
-  for (int k = threadIdx.x; k < kCamRows; k += blockDim.x) {
+  for (int k = threadIdx.x; k < kCamRows<D>; k += blockDim.x) {
     float v = sums[k];
-    if (k < 36) {
-      if (k % 7 == 0) v = v + (l * v + 1e-6f);
-      hcc[36 * (size_t)c + k] = v;
+    if (k < D * D) {
+      if (k % (D + 1) == 0) v = v + (l * v + 1e-6f);
+      hcc[D * D * (size_t)c + k] = v;
     } else {
-      bc[6 * (size_t)c + k - 36] = v;
+      bc[D * (size_t)c + k - D * D] = v;
     }
   }
   if (whw != nullptr)
-    for (int k = threadIdx.x; k < 36; k += blockDim.x)
-      whw[36 * (size_t)c + k] = sfm::whw_block_entry(sums + kCamRows, k);
+    for (int k = threadIdx.x; k < D * D; k += blockDim.x)
+      whw[D * D * (size_t)c + k] = sfm::whw_block_entry<D>(sums + kCamRows<D>, k);
 }
 
 // ---- K5: the LM candidate and its robust cost -------------------------------
@@ -444,41 +513,52 @@ struct CostArgs {
   const int* obs_point;          // [O]
   const float* points;           // [P, 3]
   const float* static_t;         // [5, O]
-  const float* cams;             // [C, 6]
+  const float* cams;             // [C, D]
   const float* intr;             // [C, 6]
   const float* zf;               // 0-d or null
   const int* point_bounds;       // [P+1] over [0, N)
   const int* block_points;       // [G+1]
   // The step (candidate mode only):
-  const float* dc;               // [C, 6]
+  const float* dc;               // [C, D]
   const unsigned char* cam_fixed;    // [C]
   const unsigned char* point_fixed;  // [P]
-  const float* w_t;              // [18, O]
+  const float* w_t;              // [3D, O]
   const float* hinv;             // [P, 9]
   const float* bp;               // [P, 3]
   int O, P, C, loss;
   float scale;
+  int frozen;                    // bit 0: column 6 (focal) frozen, bit 1: column 7 (k1)
   float* new_points;             // [P, 3] (candidate mode)
-  float* new_cams;               // [C, 6] (candidate mode)
+  float* new_cams;               // [C, D] (candidate mode)
   float* partials;               // [2, G]
   unsigned int* ticket;          // 0 on entry, 0 again on exit
   float* out;                    // [3]: sum cost * w, sum w, their mean
 };
 
 // Robust cost times the (gated) weight, and the weight, of one observation.
+template <int D>
 __device__ __forceinline__ void cost_term(const float* cam, const float* in, float px,
                                           float py, float pz, float u, float v, float w,
                                           const float* __restrict__ zf, int loss,
                                           float scale, float* cw, float* wout) {
-  const Projection P = sfm::project_obs(cam, in, px, py, pz, u, v);
+  const Projection P = sfm::project_obs<D>(cam, in, px, py, pz, u, v);
   if (zf != nullptr) w = (P.xc2 > *zf) ? w : 0.0f;
   *cw = sfm::robust_cost(P.ru * P.ru + P.rv * P.rv, loss, scale) * w;
   *wout = w;
 }
 
-// dc[c, i] unless camera c is fixed.
+// dc[c, i] unless camera c is fixed: the step the back-substitution reads.
+template <int D>
 __device__ __forceinline__ float step_cam(const CostArgs& a, int c, int i) {
-  return a.cam_fixed[c] ? 0.0f : a.dc[6 * (size_t)c + i];
+  return a.cam_fixed[c] ? 0.0f : a.dc[D * (size_t)c + i];
+}
+
+// The candidate camera's step: step_cam, zero in an intrinsic column the
+// config freezes (sfm_tpu zeroes dc[:, 6] or dc[:, 7] after dp is formed).
+template <int D>
+__device__ __forceinline__ float new_cam_step(const CostArgs& a, int c, int i) {
+  if (i >= 6 && ((a.frozen >> (i - 6)) & 1)) return 0.0f;
+  return step_cam<D>(a, c, i);
 }
 
 // new_points[p] = points[p] + dp, dp = Hpp^-1 (bp - g) (zero for a fixed point).
@@ -504,7 +584,7 @@ __device__ __forceinline__ void candidate_point(const CostArgs& a, int p, const 
 // for its share. The second pass (the only one without a step) projects each
 // observation's (candidate) point through its (candidate) camera: the
 // points it reads were written by this block before the barrier.
-template <bool kStep>
+template <bool kStep, int D>
 __global__ __launch_bounds__(kSegThreads) void cost_points_kernel(const CostArgs a) {
   __shared__ float rows[3][kSegThreads];
   __shared__ float carry[2][3];
@@ -524,8 +604,8 @@ __global__ __launch_bounds__(kSegThreads) void cost_points_kernel(const CostArgs
         const int c = a.obs_cam[o];
         float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 6; ++i) {
-          const float di = step_cam(a, c, i);
+        for (int i = 0; i < D; ++i) {
+          const float di = step_cam<D>(a, c, i);
           u0 += a.w_t[(size_t)(i * 3) * O + o] * di;
           u1 += a.w_t[(size_t)(i * 3 + 1) * O + o] * di;
           u2 += a.w_t[(size_t)(i * 3 + 2) * O + o] * di;
@@ -546,22 +626,22 @@ __global__ __launch_bounds__(kSegThreads) void cost_points_kernel(const CostArgs
     const float g0[3] = {0.0f, 0.0f, 0.0f};
     for (int p = b * kSegThreads + tid; p < a.P; p += G * kSegThreads)
       if (a.point_bounds[p] == a.point_bounds[p + 1]) candidate_point(a, p, g0);
-    for (int e = b * kSegThreads + tid; e < 6 * a.C; e += G * kSegThreads)
-      a.new_cams[e] = a.cams[e] + step_cam(a, e / 6, e % 6);
+    for (int e = b * kSegThreads + tid; e < D * a.C; e += G * kSegThreads)
+      a.new_cams[e] = a.cams[e] + new_cam_step<D>(a, e / D, e % D);
   }
   float acc_c = 0.0f, acc_w = 0.0f;
   for (int o = o_lo + tid; o < o_hi; o += kSegThreads) {
     const int pt = a.obs_point[o];
     const int c = a.obs_cam[o];
     const float* p = (kStep ? a.new_points : a.points) + 3 * (size_t)pt;
-    float cam[6];
+    float cam[D];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      cam[i] = a.cams[6 * (size_t)c + i];
-      if constexpr (kStep) cam[i] = cam[i] + step_cam(a, c, i);
+    for (int i = 0; i < D; ++i) {
+      cam[i] = a.cams[D * (size_t)c + i];
+      if constexpr (kStep) cam[i] = cam[i] + new_cam_step<D>(a, c, i);
     }
     float cw, w;
-    cost_term(cam, a.intr + 6 * (size_t)c, p[0], p[1], p[2], a.static_t[o],
+    cost_term<D>(cam, a.intr + 6 * (size_t)c, p[0], p[1], p[2], a.static_t[o],
               a.static_t[(size_t)O + o], a.static_t[(size_t)2 * O + o], a.zf, a.loss, a.scale,
               &cw, &w);
     acc_c += cw;
@@ -631,15 +711,15 @@ __global__ __launch_bounds__(kNeThreads) void fused_ne_big_kernel(
   float cam[6], in[6];
   load_rows6(cams_t, O, o, cam);
   load_rows6(intr_t, O, o, in);
-  const NeRows J = ne_rows(cam, in, pts_t[o], pts_t[O + o], pts_t[(size_t)2 * O + o],
-                           static_t[o], static_t[O + o], static_t[(size_t)2 * O + o],
-                           static_t[(size_t)3 * O + o], static_t[(size_t)4 * O + o], zf,
-                           loss, scale);
-  store_w(J, w_t, O, o);
+  const NeRows<6> J = ne_rows<6>(cam, in, pts_t[o], pts_t[O + o], pts_t[(size_t)2 * O + o],
+                                  static_t[o], static_t[O + o], static_t[(size_t)2 * O + o],
+                                  static_t[(size_t)3 * O + o], static_t[(size_t)4 * O + o], zf,
+                                  loss, scale);
+  store_w<6>(J, w_t, O, o);
 #pragma unroll
-  for (int k = 0; k < kCamRows; ++k) cam_t[(size_t)k * O + o] = cam_entry(J, k);
+  for (int k = 0; k < kCamRows<6>; ++k) cam_t[(size_t)k * O + o] = cam_entry<6>(J, k);
 #pragma unroll
-  for (int k = 0; k < 9; ++k) yp_t[(size_t)k * O + o] = point_entry(J, k);
+  for (int k = 0; k < 9; ++k) yp_t[(size_t)k * O + o] = point_entry<6>(J, k);
 }
 
 // Fixed-shape tree sum of (c, w) over the block into sc[0], sw[0].
@@ -670,7 +750,7 @@ __global__ __launch_bounds__(kCostThreads) void cost_partials_big_kernel(
     float cam[6], in[6];
     load_rows6(cams_t, O, o, cam);
     load_rows6(intr_t, O, o, in);
-    cost_term(cam, in, pts_t[o], pts_t[O + o], pts_t[(size_t)2 * O + o], static_t[o],
+    cost_term<6>(cam, in, pts_t[o], pts_t[O + o], pts_t[(size_t)2 * O + o], static_t[o],
               static_t[O + o], static_t[(size_t)2 * O + o], zf, loss, scale, &c, &w);
   }
   cost_block_sum(c, w, sc, sw);
@@ -696,6 +776,47 @@ __global__ __launch_bounds__(kCostThreads) void cost_finish_kernel(
   }
 }
 
+template <int D>
+int fused_ne_payloads(const int* obs_cam, const int* obs_point, const float* points,
+                      const float* static_t, const float* cams, const float* intr,
+                      const float* zf, const float* lam, const int* point_bounds,
+                      const int* cam_inv_perm, const int* cam_bounds, const int* block_points,
+                      int O, int P, int C, int loss, float scale, int grid, int cam_warps,
+                      float* w_t, float* packed, float* hinv, float* bp, float* hcc, float* bc,
+                      float* whw, void* stream) {
+  if (grid < 1 || cam_warps < 1 || cam_warps > sfm::kMaxSegmentWarps)
+    return (int)cudaErrorInvalidValue;
+  const NeArgs a{obs_cam, obs_point, points, static_t, cams, intr, zf, lam, point_bounds,
+                 cam_inv_perm, block_points, O, P, loss, scale,
+                 whw != nullptr ? kPcgRow<D> : kCamRows<D>, w_t, packed, hinv, bp};
+  ne_points_kernel<D><<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(a);
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || C == 0) return err;
+  ne_cams_kernel<D><<<C, 32 * cam_warps, 0, (cudaStream_t)stream>>>(packed, cam_bounds, lam, hcc,
+                                                                     bc, whw);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int fused_cost_sums(const int* obs_cam, const int* obs_point, const float* points,
+                    const float* static_t, const float* cams, const float* intr, const float* zf,
+                    const int* point_bounds, const int* block_points, const float* dc,
+                    const unsigned char* cam_fixed, const unsigned char* point_fixed,
+                    const float* w_t, const float* hinv, const float* bp, int O, int P, int C,
+                    int loss, float scale, int grid, int frozen, float* new_points,
+                    float* new_cams, float* partials, unsigned int* ticket, float* out,
+                    void* stream) {
+  if (grid < 1 || frozen < 0 || frozen > (D == 8 ? 3 : 0)) return (int)cudaErrorInvalidValue;
+  const CostArgs a{obs_cam, obs_point, points, static_t, cams, intr, zf, point_bounds,
+                   block_points, dc, cam_fixed, point_fixed, w_t, hinv, bp, O, P, C, loss,
+                   scale, frozen, new_points, new_cams, partials, ticket, out};
+  if (dc != nullptr)
+    cost_points_kernel<true, D><<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    cost_points_kernel<false, D><<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K3. block_points [grid+1] cuts the points into the blocks' slices
@@ -705,51 +826,41 @@ __global__ __launch_bounds__(kCostThreads) void cost_finish_kernel(
 // (-1: none), which cam_bounds [C+1] cuts into segments; cam_warps (1..32)
 // is the warps per camera of the camera pass. whw null: packed [M, 42] is
 // caller-allocated scratch. Otherwise packed is [M, 64] and whw [C, 36]
-// gets the Schur-Jacobi blocks. Two launches.
-extern "C" int sfm_fused_ne_payloads(
-    const int* obs_cam, const int* obs_point, const float* points, const float* static_t,
-    const float* cams, const float* intr, const float* zf, const float* lam,
-    const int* point_bounds, const int* cam_inv_perm, const int* cam_bounds,
-    const int* block_points, int O, int P, int C, int loss, float scale, int grid, int cam_warps,
-    float* w_t, float* packed, float* hinv, float* bp, float* hcc, float* bc, float* whw,
-    void* stream) {
-  if (grid < 1 || cam_warps < 1 || cam_warps > sfm::kMaxSegmentWarps)
-    return (int)cudaErrorInvalidValue;
-  const NeArgs a{obs_cam, obs_point, points, static_t, cams, intr, zf, lam, point_bounds,
-                 cam_inv_perm, block_points, O, P, loss, scale,
-                 whw != nullptr ? kPcgRow : kCamRows, w_t, packed, hinv, bp};
-  ne_points_kernel<<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(a);
-  const int err = (int)cudaGetLastError();
-  if (err != 0 || C == 0) return err;
-  ne_cams_kernel<<<C, 32 * cam_warps, 0, (cudaStream_t)stream>>>(packed, cam_bounds, lam, hcc,
-                                                                  bc, whw);
-  return (int)cudaGetLastError();
-}
+// gets the Schur-Jacobi blocks. Two launches. The _w8 entry: cams [C, 8],
+// W [24, O], packed [M, 72] or [M, 112], hcc [C, 64], bc [C, 8], whw [C, 64].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_fused_ne_payloads, fused_ne_payloads,
+    (const int* obs_cam, const int* obs_point, const float* points, const float* static_t,
+     const float* cams, const float* intr, const float* zf, const float* lam,
+     const int* point_bounds, const int* cam_inv_perm, const int* cam_bounds,
+     const int* block_points, int O, int P, int C, int loss, float scale, int grid, int cam_warps,
+     float* w_t, float* packed, float* hinv, float* bp, float* hcc, float* bc, float* whw,
+     void* stream),
+    (obs_cam, obs_point, points, static_t, cams, intr, zf, lam, point_bounds, cam_inv_perm,
+     cam_bounds, block_points, O, P, C, loss, scale, grid, cam_warps, w_t, packed, hinv, bp, hcc,
+     bc, whw, stream))
 
 // K5. The same plan and tables as K3. dc == nullptr: the cost at (cams,
-// points), and cam_fixed, point_fixed, w_t, hinv, bp, new_points and
+// points), and cam_fixed, point_fixed, w_t, hinv, bp, frozen, new_points and
 // new_cams are not read or written. Otherwise the candidate
 // (cams + dc, points + dp) with the freeze masks, its parameters written to
-// new_cams [C, 6] and new_points [P, 3], and its cost. partials [2 * grid]
-// is scratch; ticket is an unsigned int that is 0 on entry and left 0; out
-// [3] gets (sum cost * w, sum w, their mean). One launch.
-extern "C" int sfm_fused_cost_sums(
-    const int* obs_cam, const int* obs_point, const float* points, const float* static_t,
-    const float* cams, const float* intr, const float* zf, const int* point_bounds,
-    const int* block_points, const float* dc, const unsigned char* cam_fixed,
-    const unsigned char* point_fixed, const float* w_t, const float* hinv, const float* bp,
-    int O, int P, int C, int loss, float scale, int grid, float* new_points, float* new_cams,
-    float* partials, unsigned int* ticket, float* out, void* stream) {
-  if (grid < 1) return (int)cudaErrorInvalidValue;
-  const CostArgs a{obs_cam, obs_point, points, static_t, cams, intr, zf, point_bounds,
-                   block_points, dc, cam_fixed, point_fixed, w_t, hinv, bp, O, P, C, loss,
-                   scale, new_points, new_cams, partials, ticket, out};
-  if (dc != nullptr)
-    cost_points_kernel<true><<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(a);
-  else
-    cost_points_kernel<false><<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
+// new_cams [C, 6] and new_points [P, 3], and its cost; `frozen` must be 0.
+// partials [2 * grid] is scratch; ticket is an unsigned int that is 0 on
+// entry and left 0; out [3] gets (sum cost * w, sum w, their mean). One
+// launch. The _w8 entry: cams, dc and new_cams [C, 8], W [24, O]; `frozen`
+// (bit 0 the focal column 6, bit 1 the k1 column 7) zeroes those columns of
+// the candidate cameras only, after dp = Hpp^-1 (bp - W^T dc) has read them.
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_fused_cost_sums, fused_cost_sums,
+    (const int* obs_cam, const int* obs_point, const float* points, const float* static_t,
+     const float* cams, const float* intr, const float* zf, const int* point_bounds,
+     const int* block_points, const float* dc, const unsigned char* cam_fixed,
+     const unsigned char* point_fixed, const float* w_t, const float* hinv, const float* bp,
+     int O, int P, int C, int loss, float scale, int grid, int frozen, float* new_points,
+     float* new_cams, float* partials, unsigned int* ticket, float* out, void* stream),
+    (obs_cam, obs_point, points, static_t, cams, intr, zf, point_bounds, block_points, dc,
+     cam_fixed, point_fixed, w_t, hinv, bp, O, P, C, loss, scale, grid, frozen, new_points,
+     new_cams, partials, ticket, out, stream))
 
 extern "C" int sfm_fused_ne_payloads_big(const float* pts_t,
                                          const float* static_t,

@@ -4,8 +4,10 @@
 //
 // Mirrors sfm_tpu/kernels/schur_spmv.py _project_rows: Taylor-guarded
 // Rodrigues rotation, sign-preserving guarded perspective divide, radial
-// distortion (k1, k2), pixel residual. Every operation is fp32 in the same
-// order as the plain PyTorch version (sfm_tpu_torch/kernels/ba_kernels.py).
+// distortion (k1, k2), pixel residual. A camera of width D = 8 also refines
+// its intrinsics, as sfm_tpu/ba/core.py _residuals_flat does: fx and fy
+// scaled by exp(cam[6]), cam[7] added to k1. Every operation is fp32 in the
+// same order as the plain PyTorch version (sfm_tpu_torch/kernels/ba_kernels.py).
 
 #pragma once
 #include <cuda_runtime.h>
@@ -37,6 +39,7 @@ __device__ __forceinline__ void rot_entries(float wx, float wy, float wz,
 
 struct Projection {
   float ru, rv;          // pixel residual
+  float fx, fy, k1;      // the intrinsics the residual used (refined at D = 8)
   float xc2;             // camera-frame depth (for the near-plane gate)
   float x, y, r2, s;     // normalised coords, radius^2, distortion scale
   float inv_z;
@@ -44,15 +47,29 @@ struct Projection {
   float B, C2;           // (1-cos)/t^2 and (t-sin)/t^3 (right Jacobian)
 };
 
-// cam: rvec(3) tvec(3); intr: fx fy cx cy k1 k2.
+// cam: rvec(3) tvec(3), at D = 8 then log focal scale and dk1;
+// intr: fx fy cx cy k1 k2.
+template <int D>
 __device__ __forceinline__ Projection project_obs(const float* cam,
                                                   const float* intr, float px,
                                                   float py, float pz, float u,
                                                   float v) {
+  static_assert(D == 6 || D == 8, "camera blocks are 6 or 8 wide");
   Projection p;
   const float wx = cam[0], wy = cam[1], wz = cam[2];
-  const float fx = intr[0], fy = intr[1], cx = intr[2], cy = intr[3];
-  const float k1 = intr[4], k2 = intr[5];
+  float fx = intr[0], fy = intr[1];
+  const float cx = intr[2], cy = intr[3];
+  float k1 = intr[4];
+  const float k2 = intr[5];
+  if constexpr (D == 8) {
+    const float sf = expf(cam[6]);
+    fx = fx * sf;
+    fy = fy * sf;
+    k1 = k1 + cam[7];
+  }
+  p.fx = fx;
+  p.fy = fy;
+  p.k1 = k1;
   const float t2 = wx * wx + wy * wy + wz * wz;
   const float th = sqrtf(fmaxf(t2, 1e-24f));
   const bool small = t2 < 1e-8f;

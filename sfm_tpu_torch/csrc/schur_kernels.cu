@@ -55,6 +55,16 @@
 // The same code is the coupling phase of pcg_solve past 4,096 cameras, so
 // this entry's check holds what that solve runs; u and the point sums stay
 // in registers. No atomics: reruns are bit-identical.
+//
+// Camera width: K7, K11 and pcg_solve are templates on the width D of a
+// camera block, 6 or 8 (intrinsics refinement: the log focal scale and dk1
+// columns; sfm_tpu runs that case as plain XLA), each with a 6-wide C entry
+// and an 8-wide `_w8` twin of the same arguments. At D = 8, W is [24, O], a
+// standalone K7 row holds 36 entries (144 bytes), v and y rows are 32 bytes
+// (two 16-byte accesses), a lane group of 8 owns all eight rows of a camera
+// in pcg_solve's camera phases, and a resident slice stages 26 rows (W's 24,
+// the camera, the place): 104 bytes per observation. K8 and K10 (the
+// large-camera-count route) stay 6-wide (ROADMAP queue 1 item 2b).
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
@@ -68,10 +78,14 @@ namespace {
 
 constexpr int kPointThreads = 128;
 constexpr int kObsThreads = 128;
-constexpr int kWhwRow = 24;  // floats per packed row of the standalone K7: 21 entries, 16-byte rows
+// Floats per packed row of the standalone K7: the D (D + 1) / 2 entries in
+// 16-byte rows (24 for 21 entries, 36 for 36).
+template <int D>
+constexpr int kWhwRow = (sfm::kWhwEntries<D> + 3) / 4 * 4;
 
-// K7, first pass: the 21 entries of each weighted observation of [0, N) at
-// its camera-sorted place of packed [M, kWhwRow].
+// K7, first pass: the entries of each weighted observation of [0, N) at
+// its camera-sorted place of packed [M, kWhwRow<D>].
+template <int D>
 __global__ __launch_bounds__(kObsThreads) void whw_rows_kernel(
     const float* __restrict__ w_t, const float* __restrict__ hinv,
     const int* __restrict__ obs_point, const int* __restrict__ cam_inv_perm, int O, int N,
@@ -80,31 +94,35 @@ __global__ __launch_bounds__(kObsThreads) void whw_rows_kernel(
   if (o >= N) return;
   const int place = cam_inv_perm[o];
   if (place < 0) return;  // a zero-weight row: of no camera segment
-  float e[sfm::kWhwEntries];
-  sfm::whw_of_observation(w_t, hinv, O, o, obs_point[o], e);
-  float4* row = reinterpret_cast<float4*>(packed + (size_t)kWhwRow * place);
+  constexpr int E = sfm::kWhwEntries<D>;
+  float e[E];
+  sfm::whw_of_observation<D>(w_t, hinv, O, o, obs_point[o], e);
+  float* dst = packed + (size_t)kWhwRow<D> * place;
+  float4* row = reinterpret_cast<float4*>(dst);
 #pragma unroll
-  for (int k = 0; k < 5; ++k) row[k] = make_float4(e[4 * k], e[4 * k + 1], e[4 * k + 2], e[4 * k + 3]);
-  packed[(size_t)kWhwRow * place + 20] = e[20];
+  for (int k = 0; k < E / 4; ++k) row[k] = make_float4(e[4 * k], e[4 * k + 1], e[4 * k + 2], e[4 * k + 3]);
+#pragma unroll
+  for (int k = E / 4 * 4; k < E; ++k) dst[k] = e[k];
 }
 
-// K7, second pass: camera c's 21 sums, mirrored to its [36] block.
-// blockDim = 32 * warps.
+// K7, second pass: camera c's D (D + 1) / 2 sums, mirrored to its [D^2]
+// block. blockDim = 32 * warps.
+template <int D>
 __global__ __launch_bounds__(32 * sfm::kMaxSegmentWarps) void whw_cams_kernel(
     const float* __restrict__ packed, const int* __restrict__ cam_bounds,
     float* __restrict__ out) {
   __shared__ float part[sfm::kMaxSegmentWarps][sfm::kTileRows];
-  __shared__ float sums[sfm::kWhwEntries];
+  __shared__ float sums[sfm::kWhwEntries<D>];
   const int c = blockIdx.x;
-  sfm::segment_sum_packed_rows(packed, cam_bounds[c], cam_bounds[c + 1], kWhwRow, 0,
-                               sfm::kWhwEntries, part, sums);
+  sfm::segment_sum_packed_rows(packed, cam_bounds[c], cam_bounds[c + 1], kWhwRow<D>, 0,
+                               sfm::kWhwEntries<D>, part, sums);
   __syncthreads();
-  for (int k = threadIdx.x; k < 36; k += blockDim.x)
-    out[36 * (size_t)c + k] = sfm::whw_block_entry(sums, k);
+  for (int k = threadIdx.x; k < D * D; k += blockDim.x)
+    out[D * D * (size_t)c + k] = sfm::whw_block_entry<D>(sums, k);
 }
 
 // Per-observation rows of the coupling matvec as they lie in device memory:
-// W feature-major [18, O], the camera and the camera-sorted place per
+// W feature-major [3D, O], the camera and the camera-sorted place per
 // observation.
 struct GlobalObs {
   const float* __restrict__ w_t;
@@ -119,35 +137,55 @@ struct GlobalObs {
 };
 
 // Where the coupling of K11 and pcg_solve reads v and writes y: v is a
-// [C, 6] table read through the observation's camera, y_o goes to its
-// camera-sorted place of y_packed [M, 6] (no row for a zero-weight one).
+// [C, D] table read through the observation's camera, y_o goes to its
+// camera-sorted place of y_packed [M, D] (no row for a zero-weight one).
 // Plain loads and stores: the fused PCG solve rewrites v and reads y_packed
 // in the same launch.
+template <int D>
 struct CameraIo {
   const float* v;
   float* y_packed;
-  // Rows of 24 bytes (8-byte aligned): three 8-byte accesses each.
+  // Rows of 24 bytes (D = 6, 8-byte aligned: three 8-byte accesses) or 32
+  // bytes (D = 8, 16-byte aligned: two 16-byte accesses).
   template <class Obs>
-  __device__ __forceinline__ void load_v(const Obs& obs, int o, float (&vo)[6]) const {
-    const float2* vc = reinterpret_cast<const float2*>(v + 6 * (size_t)obs.camera(o));
+  __device__ __forceinline__ void load_v(const Obs& obs, int o, float (&vo)[D]) const {
+    const float* vc = v + D * (size_t)obs.camera(o);
+    if constexpr (D % 4 == 0) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float2 t = vc[i];
-      vo[2 * i] = t.x;
-      vo[2 * i + 1] = t.y;
+      for (int i = 0; i < D / 4; ++i) {
+        const float4 t = reinterpret_cast<const float4*>(vc)[i];
+        vo[4 * i] = t.x;
+        vo[4 * i + 1] = t.y;
+        vo[4 * i + 2] = t.z;
+        vo[4 * i + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        const float2 t = reinterpret_cast<const float2*>(vc)[i];
+        vo[2 * i] = t.x;
+        vo[2 * i + 1] = t.y;
+      }
     }
   }
   template <class Obs>
   __device__ __forceinline__ int dest(const Obs& obs, int o) const { return obs.sorted_place(o); }
-  __device__ __forceinline__ void store_y(int dst, const float (&y)[6]) const {
-    float2* row = reinterpret_cast<float2*>(y_packed + 6 * (size_t)dst);
+  __device__ __forceinline__ void store_y(int dst, const float (&y)[D]) const {
+    float* row = y_packed + D * (size_t)dst;
+    if constexpr (D % 4 == 0) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) row[i] = make_float2(y[2 * i], y[2 * i + 1]);
+      for (int i = 0; i < D / 4; ++i)
+        reinterpret_cast<float4*>(row)[i] = make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        reinterpret_cast<float2*>(row)[i] = make_float2(y[2 * i], y[2 * i + 1]);
+    }
   }
 };
 
-// K10's: v gathered per observation (v_obs_t [6, O]), y_o written in
-// observation order (y_t [6, O]).
+// K10's (6-wide only): v gathered per observation (v_obs_t [6, O]), y_o
+// written in observation order (y_t [6, O]).
 struct ObservationIo {
   const float* __restrict__ v_obs_t;
   float* __restrict__ y_t;
@@ -171,17 +209,18 @@ struct ObservationIo {
 // shuffles see the whole warp; p < 0 with lo = hi for a group without a
 // point): u_o = W_o^T v_o summed over the point's observations [lo, hi)
 // into g_p, h_p = Hpp^-1_p g_p, y_o = W_o h_p written where io puts it.
-template <class Obs, class Io>
+// D: the camera width (W's 3D rows, v and y of D values).
+template <int D, class Obs, class Io>
 __device__ __forceinline__ void coupling_point(
     const Obs& obs, const Io& io, const float* __restrict__ hinv, int p, int lo, int hi,
     int lane, int width) {
   float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
   for (int o = lo + lane; o < hi; o += width) {
-    float vo[6];
+    float vo[D];
     io.load_v(obs, o, vo);
     float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D; ++i) {
       u0 += obs.w(i * 3, o) * vo[i];
       u1 += obs.w(i * 3 + 1, o) * vo[i];
       u2 += obs.w(i * 3 + 2, o) * vo[i];
@@ -205,14 +244,15 @@ __device__ __forceinline__ void coupling_point(
   for (int o = lo + lane; o < hi; o += width) {
     const int dst = io.dest(obs, o);
     if (dst < 0) continue;  // a zero-weight row: of no camera segment
-    float y[6];
+    float y[D];
 #pragma unroll
-    for (int i = 0; i < 6; ++i)
+    for (int i = 0; i < D; ++i)
       y[i] = obs.w(i * 3, o) * h0 + obs.w(i * 3 + 1, o) * h1 + obs.w(i * 3 + 2, o) * h2;
     io.store_y(dst, y);
   }
 }
 
+template <int D>
 __global__ __launch_bounds__(kPointThreads) void coupling_point_kernel(
     const float* __restrict__ w_t, const float* __restrict__ hinv,
     const int* __restrict__ obs_cam, const int* __restrict__ point_bounds,
@@ -222,7 +262,7 @@ __global__ __launch_bounds__(kPointThreads) void coupling_point_kernel(
   // together.
   const int p = blockIdx.x * (kPointThreads / 32) + (threadIdx.x >> 5);
   if (p >= P) return;
-  coupling_point(GlobalObs{w_t, obs_cam, cam_inv_perm, O}, CameraIo{v, y_packed}, hinv, p,
+  coupling_point<D>(GlobalObs{w_t, obs_cam, cam_inv_perm, O}, CameraIo<D>{v, y_packed}, hinv, p,
                  point_bounds[p], point_bounds[p + 1], threadIdx.x & 31, 32);
 }
 
@@ -235,7 +275,7 @@ __global__ __launch_bounds__(kPointThreads) void coupling_big_kernel(
     int N, int lanes, float* __restrict__ y_t) {
   const int p = blockIdx.x * (kPointThreads / lanes) + (int)threadIdx.x / lanes;
   const bool has = p < P;
-  coupling_point(GlobalObs{w_t, nullptr, nullptr, O}, ObservationIo{v_obs_t, y_t, O}, hinv,
+  coupling_point<6>(GlobalObs{w_t, nullptr, nullptr, O}, ObservationIo{v_obs_t, y_t, O}, hinv,
                  has ? p : -1, has ? point_bounds[p] : 0, has ? point_bounds[p + 1] : 0,
                  threadIdx.x & (lanes - 1), lanes);
   for (int o = N + blockIdx.x * kPointThreads + threadIdx.x; o < O;
@@ -322,7 +362,7 @@ __device__ __forceinline__ int word_shift(const void* p) {
 }
 
 // The block's observation slice [lo, lo + n) staged in shared memory: row k
-// (W's 18 rows, then the camera, then the camera-sorted place) starts at
+// (W's 3D rows, then the camera, then the camera-sorted place) starts at
 // word k * stride + the source's word_shift, so that every 16-byte chunk of
 // the source lands 16-byte aligned.
 struct SharedObs {
@@ -355,25 +395,25 @@ __device__ __forceinline__ void stage_row(uint32_t* dst_row, const uint32_t* src
 }
 
 struct PcgArgs {
-  const float* w_t;           // [18, O]
+  const float* w_t;           // [3D, O]
   const float* hinv;          // [P, 9]
   const int* obs_cam;         // [O]
   const int* point_bounds;    // [P+1] over [0, N)
   const int* cam_inv_perm;    // [N]
   const int* cam_bounds;      // [C+1] over [0, M)
-  const float* hcc;           // [C, 36]
-  const float* minv;          // [C, 36]
-  const float* d;             // [C, 6]
-  const float* rhs;           // [C, 6]
+  const float* hcc;           // [C, D^2]
+  const float* minv;          // [C, D^2]
+  const float* d;             // [C, D]
+  const float* rhs;           // [C, D]
   const int* block_points;    // [G+1]
   int O, C, iterations;
   float tolerance;
   int lanes;                  // lanes per point in (A): a power of two <= 32
   int stride;                 // words per staged row (resident mode)
-  float* y_packed;            // [M, 6] scratch
-  float *v, *p, *x, *r, *z, *ap;  // [C, 6] scratch each
+  float* y_packed;            // [M, D] scratch
+  float *v, *p, *x, *r, *z, *ap;  // [C, D] scratch each
   float* part;                // [3, G] scratch: the blocks' partial sums
-  float* out;                 // [C, 6]
+  float* out;                 // [C, D]
 };
 
 // Deterministic block sum of (a, b): butterflies inside the warps, then the
@@ -429,8 +469,9 @@ __device__ __forceinline__ void grid_total2(const float* pa, const float* pb, in
 
 // Streaming mode keeps two blocks on an SM (at most 64 registers a thread):
 // its coupling phase waits on device memory, and 32 warps an SM hide more
-// of that wait than 16.
-template <bool kResident>
+// of that wait than 16. D: the camera width (6, or 8 with the intrinsic
+// columns: the lane group of 8 then owns all eight rows of a camera).
+template <bool kResident, int D>
 __global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kernel(const PcgArgs a) {
   __shared__ float part_s[kPcgWarps][sfm::kTileRows];
   __shared__ float red[kPcgWarps][2];
@@ -450,7 +491,7 @@ __global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kern
   }
   const int groups = kPcgThreads / a.lanes;  // point groups of the block
   // The block's cameras c = b, b + G, ...: in (C) and (D) the lane group
-  // grp owns one camera per pass and its lane `row` < 6 one row of it.
+  // grp owns one camera per pass and its lane `row` < D one row of it.
   const int ncam = b < a.C ? (a.C - 1 - b) / G + 1 : 0;
   const int grp = threadIdx.x >> 3, row = threadIdx.x & 7, gbase = lane & ~7;
   // (B)'s teams: the least power of two t of cameras a pass that covers the
@@ -465,19 +506,20 @@ __global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kern
   SharedObs sobs{};
   if constexpr (kResident) {
     const int n = o_hi - o_lo, s = a.stride;
-    for (int k = 0; k < 18; ++k)
+    for (int k = 0; k < 3 * D; ++k)
       stage_row(slice + k * s, reinterpret_cast<const uint32_t*>(a.w_t + (size_t)k * a.O + o_lo), n);
-    stage_row(slice + 18 * s, reinterpret_cast<const uint32_t*>(a.obs_cam + o_lo), n);
-    stage_row(slice + 19 * s, reinterpret_cast<const uint32_t*>(a.cam_inv_perm + o_lo), n);
+    stage_row(slice + 3 * D * s, reinterpret_cast<const uint32_t*>(a.obs_cam + o_lo), n);
+    stage_row(slice + (3 * D + 1) * s, reinterpret_cast<const uint32_t*>(a.cam_inv_perm + o_lo), n);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     sobs = SharedObs{reinterpret_cast<const float*>(slice),
-                     reinterpret_cast<const int*>(slice + 18 * s) + word_shift(a.obs_cam + o_lo) - o_lo,
-                     reinterpret_cast<const int*>(slice + 19 * s) + word_shift(a.cam_inv_perm + o_lo) - o_lo,
+                     reinterpret_cast<const int*>(slice + 3 * D * s) + word_shift(a.obs_cam + o_lo) - o_lo,
+                     reinterpret_cast<const int*>(slice + (3 * D + 1) * s) +
+                         word_shift(a.cam_inv_perm + o_lo) - o_lo,
                      s, o_lo, word_shift(a.w_t + o_lo), a.O & 3};
   }
   const GlobalObs gobs{a.w_t, a.obs_cam, a.cam_inv_perm, a.O};
-  const CameraIo io{a.v, a.y_packed};
+  const CameraIo<D> io{a.v, a.y_packed};
 
   // fn(live, c, e) for every (camera, row) of the block; every thread calls
   // fn the same number of times (a block-uniform count), so fn may shuffle
@@ -485,23 +527,23 @@ __global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kern
   auto each_camera_row = [&](auto&& fn) {
     for (int j0 = 0; j0 < ncam; j0 += kCamsPerPass) {
       const int j = j0 + grp;
-      const bool live = j < ncam && row < 6;
+      const bool live = j < ncam && row < D;
       const int c = live ? b + j * G : 0;
-      fn(live, c, (size_t)c * 6 + row);
+      fn(live, c, (size_t)c * D + row);
     }
   };
   // d_e (M^-1 (d r))_e for the row of this lane, dr = d r of this lane's
   // row. In double: the equilibrated blocks of M^-1 are ill-conditioned
   // (on the merged polish this six-term product cancels ~4 digits, and in
   // fp32 it sets the solve's error after one step: chip_smoke's
-  // pcg_solve_big row logs the plain fp32 version's), and its cost is 36
+  // pcg_solve_big row logs the plain fp32 version's), and its cost is D^2
   // FMAs a camera.
   auto precond = [&](bool live, int c, float dd, double dr) {
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < 6; ++j) {
+    for (int j = 0; j < D; ++j) {
       const double drj = __shfl_sync(kAll, dr, gbase + j);
-      if (live) acc += (double)a.minv[(size_t)c * 36 + row * 6 + j] * drj;
+      if (live) acc += (double)a.minv[(size_t)c * D * D + row * D + j] * drj;
     }
     return (float)((double)dd * acc);
   };
@@ -544,9 +586,9 @@ __global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kern
       const int lo = has ? a.point_bounds[pt] : 0, hi = has ? a.point_bounds[pt + 1] : 0;
       const int sub = threadIdx.x & (a.lanes - 1);
       if constexpr (kResident)
-        coupling_point(sobs, io, a.hinv, has ? pt : -1, lo, hi, sub, a.lanes);
+        coupling_point<D>(sobs, io, a.hinv, has ? pt : -1, lo, hi, sub, a.lanes);
       else
-        coupling_point(gobs, io, a.hinv, has ? pt : -1, lo, hi, sub, a.lanes);
+        coupling_point<D>(gobs, io, a.hinv, has ? pt : -1, lo, hi, sub, a.lanes);
     }
     grid.sync();
 
@@ -557,13 +599,13 @@ __global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kern
       const bool live = j < ncam;
       const int c = b + j * G;
       sfm::segment_sum_packed_warp(a.y_packed, live ? a.cam_bounds[c] : 0,
-                                   live ? a.cam_bounds[c + 1] : 0, 6, 0, 6, twarp, team_warps,
+                                   live ? a.cam_bounds[c + 1] : 0, D, 0, D, twarp, team_warps,
                                    part_s[warp]);
       __syncthreads();
-      if (twarp == 0 && lane < 6 && live) {
+      if (twarp == 0 && lane < D && live) {
         float s = 0.0f;
         for (int w = 0; w < team_warps; ++w) s += part_s[team * team_warps + w][lane];
-        a.ap[(size_t)c * 6 + lane] = s;
+        a.ap[(size_t)c * D + lane] = s;
       }
       __syncthreads();
     }
@@ -573,7 +615,7 @@ __global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kern
       if (!live) return;
       float hv = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 6; ++j) hv += a.hcc[(size_t)c * 36 + row * 6 + j] * a.v[(size_t)c * 6 + j];
+      for (int j = 0; j < D; ++j) hv += a.hcc[(size_t)c * D * D + row * D + j] * a.v[(size_t)c * D + j];
       const float ap = (1.0f / a.d[e]) * (hv - a.ap[e]);
       a.ap[e] = ap;
       const float re = a.r[e];
@@ -634,18 +676,80 @@ __global__ __launch_bounds__(kPcgThreads, kResident ? 1 : 2) void pcg_solve_kern
 
 using PcgKernel = void (*)(const PcgArgs);
 
+template <int D>
 PcgKernel pcg_kernel(int streaming) {
-  return streaming ? pcg_solve_kernel<false> : pcg_solve_kernel<true>;
+  return streaming ? pcg_solve_kernel<false, D> : pcg_solve_kernel<true, D>;
 }
 
-// Blocks of `kernel` with smem_bytes of dynamic shared memory that one SM
-// holds at once, after raising the kernel's dynamic shared-memory limit.
-int pcg_blocks_per_sm(PcgKernel kernel, int smem_bytes, int* out) {
+// Blocks of the solve (streaming or resident) with smem_bytes of dynamic
+// shared memory that one SM holds at once, after raising the kernel's
+// dynamic shared-memory limit.
+template <int D>
+int pcg_blocks_per_sm(int streaming, int smem_bytes, int* out) {
+  const PcgKernel kernel = pcg_kernel<D>(streaming);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kPcgThreads,
                                                             (size_t)smem_bytes);
+}
+
+template <int D>
+int whw_cam_reduce(const float* w_t, const float* hinv, const int* obs_point,
+                   const int* cam_inv_perm, const int* cam_bounds, int O, int N, int C, int warps,
+                   float* packed, float* out, void* stream) {
+  if (warps < 1 || warps > sfm::kMaxSegmentWarps) return (int)cudaErrorInvalidValue;
+  if (N > 0) {
+    whw_rows_kernel<D><<<(N + kObsThreads - 1) / kObsThreads, kObsThreads, 0,
+                         (cudaStream_t)stream>>>(w_t, hinv, obs_point, cam_inv_perm, O, N, packed);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  whw_cams_kernel<D><<<C, 32 * warps, 0, (cudaStream_t)stream>>>(packed, cam_bounds, out);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int schur_coupling_matvec(const float* w_t, const float* hinv, const int* obs_cam,
+                          const int* point_bounds, const float* v, const int* cam_inv_perm,
+                          const int* cam_bounds, int O, int P, int C, int seg_warps,
+                          float* y_packed, float* out, void* stream) {
+  constexpr int kPointsPerBlock = kPointThreads / 32;
+  const int blocks = (P + kPointsPerBlock - 1) / kPointsPerBlock;
+  coupling_point_kernel<D><<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
+      w_t, hinv, obs_cam, point_bounds, v, cam_inv_perm, O, P, y_packed);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return sfm::launch_segment_sum_packed(y_packed, cam_bounds, D, C, seg_warps,
+                                        out, (cudaStream_t)stream);
+}
+
+template <int D>
+int pcg_solve(const float* w_t, const float* hinv, const int* obs_cam, const int* point_bounds,
+              const int* cam_inv_perm, const int* cam_bounds, const float* hcc, const float* minv,
+              const float* d, const float* rhs, const int* block_points, int O, int C,
+              int iterations, float tolerance, int streaming, int grid, int lanes, int stride,
+              int smem_bytes, float* y_packed, float* work, float* out, void* stream) {
+  if (grid < 1 || C < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const PcgKernel kernel = pcg_kernel<D>(streaming);
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      smem_bytes);
+  if (err != 0) return err;
+  const size_t n = D * (size_t)C;
+  PcgArgs a{w_t, hinv, obs_cam, point_bounds, cam_inv_perm, cam_bounds, hcc,
+            minv, d, rhs, block_points, O, C, iterations, tolerance, lanes, stride,
+            y_packed, work, work + n, work + 2 * n, work + 3 * n, work + 4 * n,
+            work + 5 * n, work + 6 * n, out};
+  void* args[] = {&a};
+  err = (int)cudaLaunchCooperativeKernel((const void*)kernel, grid, kPcgThreads,
+                                         args, (size_t)smem_bytes,
+                                         (cudaStream_t)stream);
+  if (err != 0) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return err;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -678,48 +782,35 @@ extern "C" int sfm_schur_coupling_payloads_big(
 // place among the M of them in their stable camera sort (-1: a zero-weight
 // row), which cam_bounds [C+1] cuts into segments; packed [M, 24] is
 // caller-allocated scratch and warps (1..32) the warps per camera of the
-// camera pass. Two launches.
-extern "C" int sfm_whw_cam_reduce(const float* w_t, const float* hinv, const int* obs_point,
-                                  const int* cam_inv_perm, const int* cam_bounds, int O, int N,
-                                  int C, int warps, float* packed, float* out, void* stream) {
-  if (warps < 1 || warps > sfm::kMaxSegmentWarps) return (int)cudaErrorInvalidValue;
-  if (N > 0) {
-    whw_rows_kernel<<<(N + kObsThreads - 1) / kObsThreads, kObsThreads, 0,
-                      (cudaStream_t)stream>>>(w_t, hinv, obs_point, cam_inv_perm, O, N, packed);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  whw_cams_kernel<<<C, 32 * warps, 0, (cudaStream_t)stream>>>(packed, cam_bounds, out);
-  return (int)cudaGetLastError();
-}
+// camera pass. Two launches. The _w8 entry: W [24, O], packed [M, 36],
+// out [C, 64].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_whw_cam_reduce, whw_cam_reduce,
+    (const float* w_t, const float* hinv, const int* obs_point, const int* cam_inv_perm,
+     const int* cam_bounds, int O, int N, int C, int warps, float* packed, float* out,
+     void* stream),
+    (w_t, hinv, obs_point, cam_inv_perm, cam_bounds, O, N, C, warps, packed, out, stream))
 
 // The point segments must cover exactly the observations [0, N)
 // (point_bounds[0] = 0, point_bounds[P] = N); cam_inv_perm [N] is each one's
 // place among the M weighted observations in their stable camera sort, which
 // cam_bounds [C+1] cuts into segments, or -1 for a zero-weight row;
 // y_packed [M, 6] is caller-allocated scratch and seg_warps the warps per
-// camera of the packed reduction.
-extern "C" int sfm_schur_coupling_matvec(
-    const float* w_t, const float* hinv, const int* obs_cam,
-    const int* point_bounds, const float* v, const int* cam_inv_perm,
-    const int* cam_bounds, int O, int P, int C, int seg_warps, float* y_packed,
-    float* out, void* stream) {
-  constexpr int kPointsPerBlock = kPointThreads / 32;
-  const int blocks = (P + kPointsPerBlock - 1) / kPointsPerBlock;
-  coupling_point_kernel<<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
-      w_t, hinv, obs_cam, point_bounds, v, cam_inv_perm, O, P, y_packed);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return sfm::launch_segment_sum_packed(y_packed, cam_bounds, 6, C, seg_warps,
-                                        out, (cudaStream_t)stream);
-}
+// camera of the packed reduction. The _w8 entry: W [24, O], v, out [C, 8]
+// (v 16-byte aligned), y_packed [M, 8].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_schur_coupling_matvec, schur_coupling_matvec,
+    (const float* w_t, const float* hinv, const int* obs_cam, const int* point_bounds,
+     const float* v, const int* cam_inv_perm, const int* cam_bounds, int O, int P, int C,
+     int seg_warps, float* y_packed, float* out, void* stream),
+    (w_t, hinv, obs_cam, point_bounds, v, cam_inv_perm, cam_bounds, O, P, C, seg_warps,
+     y_packed, out, stream))
 
 // Blocks of pcg_solve (streaming mode or resident mode with smem_bytes of
 // staged slice) that one SM holds at once: the plan's grid is this times the
 // SM count.
-extern "C" int sfm_pcg_blocks_per_sm(int streaming, int smem_bytes, int* out) {
-  return pcg_blocks_per_sm(pcg_kernel(streaming), smem_bytes, out);
-}
+SFM_ENTRY_BOTH_WIDTHS(sfm_pcg_blocks_per_sm, pcg_blocks_per_sm,
+                      (int streaming, int smem_bytes, int* out), (streaming, smem_bytes, out))
 
 // The whole PCG solve of (Hcc - W Hpp^-1 W^T) x = rhs in the
 // Jacobi-equilibrated space (d = sqrt|diag M|, M_inv the Schur-Jacobi
@@ -727,36 +818,18 @@ extern "C" int sfm_pcg_blocks_per_sm(int streaming, int smem_bytes, int* out) {
 // blocks. block_points [grid+1] cuts the points into the blocks' slices,
 // `lanes` lanes walk one point's observations;
 // resident mode stages each slice in `smem_bytes` of shared memory
-// (20 rows of `stride` words), streaming mode reads W from device memory.
-// y_packed [M, 6] and work [6 * 6C + 3 * grid] are caller-allocated
-// scratch. A grid that cannot be co-resident (the cooperative launch's
-// cudaErrorCooperativeLaunchTooLarge), or any other refused launch, returns
-// the CUDA error.
-extern "C" int sfm_pcg_solve(
-    const float* w_t, const float* hinv, const int* obs_cam,
-    const int* point_bounds, const int* cam_inv_perm, const int* cam_bounds,
-    const float* hcc, const float* minv, const float* d, const float* rhs,
-    const int* block_points, int O, int C, int iterations, float tolerance,
-    int streaming, int grid, int lanes, int stride, int smem_bytes, float* y_packed,
-    float* work, float* out, void* stream) {
-  if (grid < 1 || C < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
-  const PcgKernel kernel = pcg_kernel(streaming);
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      smem_bytes);
-  if (err != 0) return err;
-  const size_t n = 6 * (size_t)C;
-  PcgArgs a{w_t, hinv, obs_cam, point_bounds, cam_inv_perm, cam_bounds, hcc,
-            minv, d, rhs, block_points, O, C, iterations, tolerance, lanes, stride,
-            y_packed, work, work + n, work + 2 * n, work + 3 * n, work + 4 * n,
-            work + 5 * n, work + 6 * n, out};
-  void* args[] = {&a};
-  err = (int)cudaLaunchCooperativeKernel((const void*)kernel, grid, kPcgThreads,
-                                         args, (size_t)smem_bytes,
-                                         (cudaStream_t)stream);
-  if (err != 0) {
-    cudaGetLastError();  // clear it: the wrapper raises
-    return err;
-  }
-  return (int)cudaGetLastError();
-}
+// (3D + 2 rows of `stride` words), streaming mode reads W from device
+// memory. y_packed [M, D] and work [6 * D * C + 3 * grid] are
+// caller-allocated scratch. A grid that cannot be co-resident (the
+// cooperative launch's cudaErrorCooperativeLaunchTooLarge), or any other
+// refused launch, returns the CUDA error. D = 6; the _w8 entry D = 8.
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_pcg_solve, pcg_solve,
+    (const float* w_t, const float* hinv, const int* obs_cam, const int* point_bounds,
+     const int* cam_inv_perm, const int* cam_bounds, const float* hcc, const float* minv,
+     const float* d, const float* rhs, const int* block_points, int O, int C, int iterations,
+     float tolerance, int streaming, int grid, int lanes, int stride, int smem_bytes,
+     float* y_packed, float* work, float* out, void* stream),
+    (w_t, hinv, obs_cam, point_bounds, cam_inv_perm, cam_bounds, hcc, minv, d, rhs,
+     block_points, O, C, iterations, tolerance, streaming, grid, lanes, stride, smem_bytes,
+     y_packed, work, out, stream))

@@ -23,6 +23,11 @@ Wrapper contract (one Python function per kernel):
   past ``ba_kernels.MAX_CAMS`` cameras counts as ``pcg_solve_big`` (its
   coupling phase is ``schur_coupling_payloads_big``'s device code, as
   ``pcg_solve``'s is ``schur_coupling_matvec``'s).
+
+K3, K5, K7, K11 and ``pcg_solve`` are built at two camera widths, 6 and 8
+(intrinsics refinement): each has a C entry point per width (the 8-wide one
+named ``<entry>_w8``, the same arguments) and counts its 8-wide launches
+under ``<name>_w8``.
 """
 
 from __future__ import annotations
@@ -58,6 +63,12 @@ LAUNCHES: dict[str, int] = {
     "schur_coupling_payloads_big": 0,
     "pcg_solve": 0,
     "pcg_solve_big": 0,
+    # The 8-wide instantiations (intrinsics refinement).
+    "fused_ne_payloads_w8": 0,
+    "fused_cost_sums_w8": 0,
+    "whw_cam_reduce_w8": 0,
+    "schur_coupling_matvec_w8": 0,
+    "pcg_solve_w8": 0,
 }
 
 _P = ctypes.c_void_p
@@ -68,7 +79,7 @@ _SIGNATURES = {
     "sfm_dog_extrema": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "sfm_match_topk2": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "sfm_fused_ne_payloads": (_P,) * 12 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 8,
-    "sfm_fused_cost_sums": (_P,) * 15 + (_I, _I, _I, _I, _F, _I) + (_P,) * 6,
+    "sfm_fused_cost_sums": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 6,
     "sfm_segment_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "sfm_whw_cam_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "sfm_schur_coupling_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
@@ -79,6 +90,10 @@ _SIGNATURES = {
     "sfm_pcg_blocks_per_sm": (_I, _I, ctypes.POINTER(_I)),
     "sfm_pcg_solve": (_P,) * 11 + (_I, _I, _I, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
+# The 8-wide twins take the same arguments.
+WIDE_ENTRIES = ("sfm_fused_ne_payloads", "sfm_fused_cost_sums", "sfm_whw_cam_reduce",
+                "sfm_schur_coupling_matvec", "sfm_pcg_blocks_per_sm", "sfm_pcg_solve")
+_SIGNATURES.update({f"{e}_w8": _SIGNATURES[e] for e in WIDE_ENTRIES})
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None

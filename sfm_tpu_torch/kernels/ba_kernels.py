@@ -25,12 +25,18 @@ Inputs shared by K3 and K5:
   obs_cam  [O] int32      camera of each observation (sorted by point)
   points   [P, 3] f32     the points (refreshed every LM iteration)
   static_t [5, O] f32     u, v, weight, camera-free, point-free (per solve)
-  cams     [C, 6] f32     rvec, tvec;  intr [C, 6] f32: fx fy cx cy k1 k2
+  cams     [C, D] f32     rvec, tvec, with D = 8 (intrinsics refinement)
+                          then the log focal scale and dk1: fx, fy scaled
+                          by exp(c6), c7 added to k1 (sfm_tpu/ba/problem.py)
+  intr     [C, 6] f32     fx fy cx cy k1 k2
   point_bounds [P+1] int32  point segments covering the observations [0, N)
   z_floor  0-d f32 tensor or None: near-plane gate at the current parameters
-K4 and K6 take pts_t [3, O] (each observation's point) and cams_t / intr_t
-[6, O] (those rows gathered per observation) in place of obs_cam, points,
-cams and intr.
+K3, K5, K7, K11 and pcg_solve take the camera width D from their inputs'
+shapes (cams, W_t [3D, O], v, rhs), 6 or 8, and launch the kernel built
+for it (kernels/__init__.py: the `_w8` entries); sfm_tpu runs an 8-wide BA
+as plain XLA. K4 and K6 take pts_t [3, O] (each observation's point) and
+cams_t / intr_t [6, O] (those rows gathered per observation) in place of
+obs_cam, points, cams and intr; they and K8, K10 are 6-wide only.
 """
 
 from __future__ import annotations
@@ -45,13 +51,50 @@ from sfm_tpu_torch.kernels import LAUNCHES, check, launch, library, on_cuda, ptr
 
 MAX_CAMS = 4096    # above this the BA core takes K4/K6/K8/K10 (sfm_tpu's _MAX_CAMS)
 LOSS_CODES = {"none": 0, "huber": 1, "cauchy": 2}
-NE_CAM_ROWS = 42   # vec(Jc^T Jc) (36) then -Jc^T r (6)
-NE_W_ROWS = 18     # vec(W = Jc^T Jp), row-major 6x3
+CAM_DIMS = (6, 8)  # camera widths the kernels are built for: pose, pose + intrinsics
+
+
+def ne_cam_rows(D: int) -> int:
+    """Floats of K3's camera row: vec(Jc^T Jc) (D^2) then -Jc^T r (D)."""
+    return D * D + D
+
+
+def whw_entries(D: int) -> int:
+    """Distinct entries of a symmetric D x D Schur-Jacobi block."""
+    return D * (D + 1) // 2
+
+
+def ne_pcg_rows(D: int) -> int:
+    """Floats of K3's packed row with the Schur-Jacobi blocks: the camera
+    row and the upper triangle of W Hpp^-1 W^T, padded to a multiple of 16
+    floats (64-byte rows): 64, or 112 at D = 8."""
+    return -(-(ne_cam_rows(D) + whw_entries(D)) // 16) * 16
+
+
+def upper(D: int) -> list[int]:
+    """The upper triangle of a D x D block, row by row, as flat indices
+    (csrc/schur_jacobi.cuh's order)."""
+    return [i * D + j for i in range(D) for j in range(i, D)]
+
+
+NE_CAM_ROWS = ne_cam_rows(6)   # 42 (72 at D = 8)
+NE_W_ROWS = 18     # vec(W = Jc^T Jp), row-major 6x3 (3D rows at width D)
 NE_PT_ROWS = 9     # sym(Jp^T Jp) (00, 01, 02, 11, 12, 22) then -Jp^T r
-NE_PCG_ROWS = 64   # with the Schur-Jacobi blocks: the camera row, 21 entries of W Hpp^-1 W^T, one unused
+NE_PCG_ROWS = ne_pcg_rows(6)   # 64: the camera row, 21 entries of W Hpp^-1 W^T, one unused (112 at D = 8)
 _STATIC_ROWS = 5
 _SYM3 = ([0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2])
-_UPPER6 = [i * 6 + j for i in range(6) for j in range(i, 6)]   # csrc/schur_jacobi.cuh's order
+_UPPER6 = upper(6)
+
+
+def _width(D: int) -> int:
+    if D not in CAM_DIMS:
+        raise ValueError(f"camera blocks are {CAM_DIMS[0]} or {CAM_DIMS[1]} wide, got {D}")
+    return D
+
+
+def _wide(name: str, D: int) -> str:
+    """The C entry or launch-count name of the kernel built for width D."""
+    return name if _width(D) == 6 else f"{name}_w8"
 
 
 def rot_entries(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,10 +109,23 @@ def rot_entries(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return torch.stack(rows, -1).reshape(*w.shape[:-1], 3, 3)
 
 
+def refined_intrinsics(cams_o, intr_o):
+    """The intrinsics an observation's residual uses: intr_o itself for
+    6-wide cameras; for 8-wide ones fx and fy scaled by exp(c6) and c7
+    added to k1 (sfm_tpu/ba/core.py _residuals_flat)."""
+    if cams_o.shape[-1] < 8:
+        return intr_o
+    sf = torch.exp(cams_o[:, 6])
+    return torch.stack([intr_o[:, 0] * sf, intr_o[:, 1] * sf, intr_o[:, 2], intr_o[:, 3],
+                        intr_o[:, 4] + cams_o[:, 7], intr_o[:, 5]], -1)
+
+
 def projection(cams_o, intr_o, pts_o, uv):
     """Shared per-observation projection (mirror of schur_spmv._project_rows
-    and of csrc/ba_project.cuh): cams_o/intr_o [O, 6], pts_o [O, 3],
-    uv [O, 2]. Returns a dict of the intermediates the NE Jacobians need."""
+    and of csrc/ba_project.cuh): cams_o [O, D], intr_o [O, 6], pts_o [O, 3],
+    uv [O, 2]. Returns a dict of the intermediates the NE Jacobians need,
+    "intr" the intrinsics the residual used (refined_intrinsics)."""
+    intr_o = refined_intrinsics(cams_o, intr_o)
     w = cams_o[:, :3]
     t2 = (w * w).sum(-1)
     th = torch.sqrt(t2.clamp_min(1e-24))
@@ -91,7 +147,8 @@ def projection(cams_o, intr_o, pts_o, uv):
     s = 1.0 + r2 * (k1 + r2 * k2)
     ru = intr_o[:, 0] * (x * s) + intr_o[:, 2] - uv[:, 0]
     rv = intr_o[:, 1] * (y * s) + intr_o[:, 3] - uv[:, 1]
-    return dict(r=torch.stack([ru, rv], -1), xc2=xc2, x=x, y=y, r2=r2, s=s, inv_z=inv_z, R=R)
+    return dict(r=torch.stack([ru, rv], -1), xc2=xc2, x=x, y=y, r2=r2, s=s, inv_z=inv_z, R=R,
+                intr=intr_o)
 
 
 def _gate(w: torch.Tensor, depth: torch.Tensor, z_floor) -> torch.Tensor:
@@ -102,13 +159,13 @@ def _gate(w: torch.Tensor, depth: torch.Tensor, z_floor) -> torch.Tensor:
 
 def _ne_payloads_obs_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: str, scale: float):
     """Per-observation normal-equation payloads, feature-major: (W = Jc^T Jp
-    [18, O], sym(Jp^T Jp), -Jp^T r [9, O], vec(Jc^T Jc), -Jc^T r [42, O]),
-    IRLS-weighted, near-plane gated, freeze masks applied; pts_t [3, O] is
-    each observation's point."""
+    [3D, O], sym(Jp^T Jp), -Jp^T r [9, O], vec(Jc^T Jc), -Jc^T r [D^2 + D, O])
+    for cams [C, D], IRLS-weighted, near-plane gated, freeze masks applied;
+    pts_t [3, O] is each observation's point."""
     from sfm_tpu_torch.ba.core import residual_jac_analytic
 
     oc = obs_cam.long()
-    O = oc.shape[0]
+    O, D = oc.shape[0], cams.shape[-1]
     r, Jc, Jp, depth = residual_jac_analytic(cams[oc], pts_t.T, intr[oc], static_t[:2].T)
     w = _gate(static_t[2], depth, z_floor)
     s = (r * r).sum(-1)
@@ -116,9 +173,9 @@ def _ne_payloads_obs_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss: 
     rw = r * sw[:, None]
     Jc = Jc * (sw * static_t[3])[:, None, None]
     Jp = Jp * (sw * static_t[4])[:, None, None]
-    cam_t = torch.cat([torch.einsum("oai,oaj->oij", Jc, Jc).reshape(O, 36),
+    cam_t = torch.cat([torch.einsum("oai,oaj->oij", Jc, Jc).reshape(O, D * D),
                        -torch.einsum("oai,oa->oi", Jc, rw)], 1).T.contiguous()
-    w_t = torch.einsum("oai,oaj->oij", Jc, Jp).reshape(O, 18).T.contiguous()
+    w_t = torch.einsum("oai,oaj->oij", Jc, Jp).reshape(O, 3 * D).T.contiguous()
     hpp = torch.einsum("oai,oaj->oij", Jp, Jp)[:, _SYM3[0], _SYM3[1]]
     yp_t = torch.cat([hpp, -torch.einsum("oai,oa->oi", Jp, rw)], 1).T.contiguous()
     return w_t, yp_t, cam_t
@@ -182,7 +239,7 @@ def _check_tables(obs_cam, obs_point, points, static_t, cams, intr, point_bounds
     check(obs_point, "obs_point", torch.int32, (O,), dev)
     check(points, "points", torch.float32, (P, 3), dev)
     check(static_t, "static_t", torch.float32, (_STATIC_ROWS, O), dev)
-    check(cams, "cams", torch.float32, (C, 6), dev)
+    check(cams, "cams", torch.float32, (C, _width(cams.shape[-1])), dev)
     check(intr, "intr", torch.float32, (C, 6), dev)
     check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
     if z_floor is not None:
@@ -195,34 +252,36 @@ def fused_ne_payloads_plain(obs_cam, obs_point, points, static_t, cams, intr, po
     """Plain K3, in the inputs' dtype: the per-observation payloads, the
     camera rows in camera order (packed[i] is the row of observation
     cam_perm[i]), their sums per camera and per point (in index order), the
-    damping and the 3x3 inversion -> (Hcc [C, 6, 6], Hpp_inv [P, 3, 3],
-    W_t [18, O], bc [C, 6], bp [P, 3], packed [M, 42]). W_t is zero past the
-    point segments. With schur_jacobi the packed rows are [M, 64] (the
-    camera row, the 21 upper entries of W Hpp^-1 W^T, a zero) and a seventh
-    output holds the Schur-Jacobi blocks [C, 36] (whw_cam_reduce_plain's)."""
-    O, C, N = obs_cam.shape[0], cams.shape[0], int(point_bounds[-1])
+    damping and the 3x3 inversion -> (Hcc [C, D, D], Hpp_inv [P, 3, 3],
+    W_t [3D, O], bc [C, D], bp [P, 3], packed [M, D^2 + D]) for cams [C, D].
+    W_t is zero past the point segments. With schur_jacobi the packed rows
+    are [M, ne_pcg_rows(D)] (the camera row, the D (D + 1) / 2 upper entries
+    of W Hpp^-1 W^T, zeros) and a seventh output holds the Schur-Jacobi
+    blocks [C, D^2] (whw_cam_reduce_plain's)."""
+    O, C, N, D = obs_cam.shape[0], cams.shape[0], int(point_bounds[-1]), cams.shape[-1]
     w_t, yp_t, cam_t = _ne_payloads_obs_plain(
         obs_cam[:N], points[obs_point[:N].long()].T, static_t[:, :N], cams, intr, z_floor, loss,
         scale)
-    w_t = torch.cat([w_t, w_t.new_zeros((NE_W_ROWS, O - N))], 1)
-    cam_t = torch.cat([cam_t, cam_t.new_zeros((NE_CAM_ROWS, O - N))], 1)
+    w_t = torch.cat([w_t, w_t.new_zeros((3 * D, O - N))], 1)
+    cam_t = torch.cat([cam_t, cam_t.new_zeros((ne_cam_rows(D), O - N))], 1)
     packed = cam_t[:, cam_perm.long()].T.contiguous()
-    camred = cam_segment_sum_plain(packed.T, None, cam_bounds)                   # [C, 42]
+    camred = cam_segment_sum_plain(packed.T, None, cam_bounds)                   # [C, D^2 + D]
     red = cam_segment_sum_plain(yp_t, None, point_bounds)                        # [P, 9]
-    Hcc = damp(camred[:, :36].reshape(C, 6, 6), lam)
+    Hcc = damp(camred[:, :D * D].reshape(C, D, D), lam)
     Hpp_inv = sym_solve3(damp(sym3(red[:, :6]), lam))
-    out = (Hcc, Hpp_inv, w_t, camred[:, 36:42], red[:, 6:9], packed)
+    out = (Hcc, Hpp_inv, w_t, camred[:, D * D:], red[:, 6:9], packed)
     if not schur_jacobi:
         return out
-    whw_t = _whw_rows_t(w_t, Hpp_inv[obs_point.long()])[_UPPER6][:, cam_perm.long()]
-    packed = torch.cat([packed, whw_t.T, packed.new_zeros((packed.shape[0], 1))], 1)
+    whw_t = _whw_rows_t(w_t, Hpp_inv[obs_point.long()])[upper(D)][:, cam_perm.long()]
+    pad = ne_pcg_rows(D) - ne_cam_rows(D) - whw_entries(D)
+    packed = torch.cat([packed, whw_t.T, packed.new_zeros((packed.shape[0], pad))], 1)
     return (*out[:5], packed, whw_cam_reduce_plain(w_t, Hpp_inv, obs_point, cam_perm, cam_bounds))
 
 
 def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, cam_perm,
                       cam_bounds, cam_inv_perm, lam, z_floor, loss: str, scale: float, plan=None,
                       schur_jacobi: bool = False):
-    """The damped normal equations at (cams [C, 6], points [P, 3]) in two
+    """The damped normal equations at (cams [C, D], points [P, 3]) in two
     launches: one pass over the point segments (observations sorted by
     point, obs_point [O]; point_bounds [P+1] covers [0, N)) forms each observation's
     W = Jc^T Jp and its camera row vec(Jc^T Jc), -Jc^T r, stored at its
@@ -231,18 +290,20 @@ def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bo
     point's damped, inverted block and -Jp^T r; then the camera rows are
     summed per camera and Hcc's diagonal damped. IRLS-weighted, near-plane
     gated (z_floor 0-d or None), the freeze masks of static_t applied; lam is
-    a 0-d tensor. Returns (Hcc [C, 6, 6], Hpp_inv [P, 3, 3], W_t [18, O]
-    (zero past N), bc [C, 6], bp [P, 3], packed [M, 42]). With schur_jacobi
-    (a PCG solve's build) the same two launches also form the Schur-Jacobi
-    blocks sum_c W Hpp^-1 W^T (whw_cam_reduce's device code: that count goes
-    up too), returned seventh as [C, 36], and packed is [M, 64]. plan
-    (pcg_launch_plan: the blocks' point slices) is made here when missing.
-    Deterministic."""
+    a 0-d tensor. Returns (Hcc [C, D, D], Hpp_inv [P, 3, 3], W_t [3D, O]
+    (zero past N), bc [C, D], bp [P, 3], packed [M, D^2 + D]). With
+    schur_jacobi (a PCG solve's build) the same two launches also form the
+    Schur-Jacobi blocks sum_c W Hpp^-1 W^T (whw_cam_reduce's device code:
+    that count goes up too), returned seventh as [C, D^2], and packed is
+    [M, ne_pcg_rows(D)] (64 or 112). D = 6 launches the 6-wide build, D = 8
+    the 8-wide one (counted as fused_ne_payloads_w8, whw_cam_reduce_w8).
+    plan (pcg_launch_plan: the blocks' point slices) is made here when
+    missing. Deterministic."""
     if not on_cuda(obs_cam):
         return fused_ne_payloads_plain(obs_cam, obs_point, points, static_t, cams, intr,
                                        point_bounds, cam_perm, cam_bounds, cam_inv_perm, lam,
                                        z_floor, loss, scale, schur_jacobi)
-    O, P, C = obs_cam.shape[0], points.shape[0], cams.shape[0]
+    O, P, C, D = obs_cam.shape[0], points.shape[0], cams.shape[0], cams.shape[-1]
     M, N = cam_perm.shape[0], cam_inv_perm.shape[0]
     dev = obs_cam.device
     _check_tables(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor)
@@ -255,15 +316,15 @@ def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bo
     if plan is None:
         plan = pcg_launch_plan(point_bounds)
     check(plan.block_points, "plan.block_points", torch.int32, (plan.grid + 1,), dev)
-    w_t = torch.empty((NE_W_ROWS, O), dtype=torch.float32, device=dev)
-    packed = torch.empty((M, NE_PCG_ROWS if schur_jacobi else NE_CAM_ROWS), dtype=torch.float32,
+    w_t = torch.empty((3 * D, O), dtype=torch.float32, device=dev)
+    packed = torch.empty((M, ne_pcg_rows(D) if schur_jacobi else ne_cam_rows(D)), dtype=torch.float32,
                          device=dev)
     hinv = torch.empty((P, 3, 3), dtype=torch.float32, device=dev)
     bp = torch.empty((P, 3), dtype=torch.float32, device=dev)
-    hcc = torch.empty((C, 6, 6), dtype=torch.float32, device=dev)
-    bc = torch.empty((C, 6), dtype=torch.float32, device=dev)
-    whw = torch.empty((C, 36), dtype=torch.float32, device=dev) if schur_jacobi else None
-    launch("sfm_fused_ne_payloads", "fused_ne_payloads",
+    hcc = torch.empty((C, D, D), dtype=torch.float32, device=dev)
+    bc = torch.empty((C, D), dtype=torch.float32, device=dev)
+    whw = torch.empty((C, D * D), dtype=torch.float32, device=dev) if schur_jacobi else None
+    launch(_wide("sfm_fused_ne_payloads", D), _wide("fused_ne_payloads", D),
            ptr(obs_cam), ptr(obs_point), ptr(points), ptr(static_t), ptr(cams), ptr(intr),
            ptr(z_floor), ptr(lam), ptr(point_bounds), ptr(cam_inv_perm), ptr(cam_bounds),
            ptr(plan.block_points), O, P, C, LOSS_CODES[loss], float(scale), plan.grid,
@@ -271,37 +332,55 @@ def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bo
            ptr(w_t), ptr(packed), ptr(hinv), ptr(bp), ptr(hcc), ptr(bc), ptr(whw))
     if not schur_jacobi:
         return hcc, hinv, w_t, bc, bp, packed
-    LAUNCHES["whw_cam_reduce"] += 1     # the launch ran K7's device code
+    LAUNCHES[_wide("whw_cam_reduce", D)] += 1     # the launch ran K7's device code
     return hcc, hinv, w_t, bc, bp, packed, whw
 
 
 class LMStep(NamedTuple):
     """An LM step for fused_cost_sums: the camera step and the normal
-    equations that give the point step dp = Hpp^-1 (bp - W^T dc)."""
+    equations that give the point step dp = Hpp^-1 (bp - W^T dc). With
+    8-wide cameras freeze_focal / freeze_distortion zero the candidate
+    cameras' column 6 / 7 (the config refines neither), after dp has read
+    the whole step, as sfm_tpu's bundle_adjust_impl does: those columns' W
+    rows are not zero, so zeroing them first would move the points."""
 
-    dc: torch.Tensor            # [C, 6]
-    W_t: torch.Tensor           # [18, O]
+    dc: torch.Tensor            # [C, D]
+    W_t: torch.Tensor           # [3D, O]
     Hpp_inv: torch.Tensor       # [P, 3, 3]
     bp: torch.Tensor            # [P, 3]
     cam_fixed: torch.Tensor     # [C] bool
     point_fixed: torch.Tensor   # [P] bool
+    freeze_focal: bool = False
+    freeze_distortion: bool = False
+
+    @property
+    def frozen(self) -> int:
+        """The column mask K5 takes: bit 0 column 6, bit 1 column 7."""
+        return int(self.freeze_focal) | int(self.freeze_distortion) << 1
 
 
 def fused_cost_sums_plain(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor,
                           loss: str, scale: float, step: LMStep | None = None):
     """Plain K5, in the inputs' dtype: dc masked by cam_fixed, the
-    back-substitution, dp masked by point_fixed, the candidate parameters,
+    back-substitution, dp masked by point_fixed, the candidate parameters
+    (the step's frozen intrinsic columns zeroed in the camera update only),
     then the robust cost sums over the point segments -> (new_cams,
     new_points, tensor [3]: sum robust_cost(|r|^2) * w, sum w, their mean)."""
-    N = int(point_bounds[-1])
+    N, D = int(point_bounds[-1]), cams.shape[-1]
     obs_point = obs_point[:N].long()
     if step is not None:
         zero = torch.zeros((), dtype=cams.dtype, device=cams.device)
         dc = torch.where(step.cam_fixed[:, None], zero, step.dc)
-        u_t = torch.einsum("iko,io->ko", step.W_t[:, :N].reshape(6, 3, N), dc[obs_cam[:N].long()].T)
+        u_t = torch.einsum("iko,io->ko", step.W_t[:, :N].reshape(D, 3, N), dc[obs_cam[:N].long()].T)
         g = step.bp - cam_segment_sum_plain(u_t, None, point_bounds)
         dp = torch.where(step.point_fixed[:, None], zero,
                          torch.einsum("pij,pj->pi", step.Hpp_inv, g))
+        if step.frozen:
+            dc = dc.clone()
+            if step.freeze_focal:
+                dc[:, 6] = 0.0
+            if step.freeze_distortion:
+                dc[:, 7] = 0.0
         cams, points = cams + dc, points + dp
     sums = _cost_sums_obs_plain(obs_cam[:N], points[obs_point].T, static_t[:, :N], cams, intr,
                                 z_floor, loss, scale)
@@ -315,30 +394,33 @@ _TICKETS: dict[torch.device, torch.Tensor] = {}
 
 def fused_cost_sums(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor,
                     loss: str, scale: float, step: LMStep | None = None, plan=None):
-    """The robust cost at (cams [C, 6], points [P, 3]) or, given an LM
+    """The robust cost at (cams [C, D], points [P, 3]) or, given an LM
     `step`, at its candidate (cams + dc, points + dp) with dp = Hpp^-1
-    (bp - W^T dc) and the steps of frozen cameras and points zero, in one
+    (bp - W^T dc), the steps of frozen cameras and points zero and the
+    step's frozen intrinsic columns zeroed in the camera update, in one
     launch over the point segments (observations sorted by point, obs_point
-    [O]; point_bounds [P+1] covers [0, N)). Returns (new_cams [C, 6], new_points
+    [O]; point_bounds [P+1] covers [0, N)). Returns (new_cams [C, D], new_points
     [P, 3], sums [3]: sum robust_cost(|r|^2) * w, sum w, their mean); without
     a step new_cams and new_points are cams and points. The last block to
     finish adds the blocks' sums in block order: deterministic. plan as for
-    fused_ne_payloads."""
+    fused_ne_payloads. D = 8 launches the 8-wide build (fused_cost_sums_w8)."""
     if not on_cuda(obs_cam):
         return fused_cost_sums_plain(obs_cam, obs_point, points, static_t, cams, intr,
                                      point_bounds, z_floor, loss, scale, step)
-    O, P, C = obs_cam.shape[0], points.shape[0], cams.shape[0]
+    O, P, C, D = obs_cam.shape[0], points.shape[0], cams.shape[0], cams.shape[-1]
     dev = obs_cam.device
     _check_tables(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor)
     new_cams, new_points = cams, points
     if step is not None:
-        check(step.dc, "dc", torch.float32, (C, 6), dev)
-        check(step.W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+        if step.frozen and D < 8:
+            raise ValueError("fused_cost_sums: a 6-wide camera has no intrinsic columns to freeze")
+        check(step.dc, "dc", torch.float32, (C, D), dev)
+        check(step.W_t, "W_t", torch.float32, (3 * D, O), dev)
         check(step.Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
         check(step.bp, "bp", torch.float32, (P, 3), dev)
         check(step.cam_fixed, "cam_fixed", torch.bool, (C,), dev)
         check(step.point_fixed, "point_fixed", torch.bool, (P,), dev)
-        new_cams = torch.empty((C, 6), dtype=torch.float32, device=dev)
+        new_cams = torch.empty((C, D), dtype=torch.float32, device=dev)
         new_points = torch.empty((P, 3), dtype=torch.float32, device=dev)
     if plan is None:
         plan = pcg_launch_plan(point_bounds)
@@ -348,11 +430,11 @@ def fused_cost_sums(obs_cam, obs_point, points, static_t, cams, intr, point_boun
     if dev not in _TICKETS:
         _TICKETS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
     s = step if step is not None else LMStep(None, None, None, None, None, None)
-    launch("sfm_fused_cost_sums", "fused_cost_sums",
+    launch(_wide("sfm_fused_cost_sums", D), _wide("fused_cost_sums", D),
            ptr(obs_cam), ptr(obs_point), ptr(points), ptr(static_t), ptr(cams), ptr(intr),
            ptr(z_floor), ptr(point_bounds), ptr(plan.block_points), ptr(s.dc), ptr(s.cam_fixed),
            ptr(s.point_fixed), ptr(s.W_t), ptr(s.Hpp_inv), ptr(s.bp),
-           O, P, C, LOSS_CODES[loss], float(scale), plan.grid,
+           O, P, C, LOSS_CODES[loss], float(scale), plan.grid, s.frozen,
            ptr(new_points) if step is not None else None,
            ptr(new_cams) if step is not None else None,
            ptr(partials), ptr(_TICKETS[dev]), ptr(out))
@@ -521,51 +603,55 @@ def cam_segment_sum(values_t, perm, bounds, inv_perm=None):
 
 
 def _whw_rows_t(W_t: torch.Tensor, hinv_o: torch.Tensor) -> torch.Tensor:
-    """vec(W_o Hinv_o W_o^T) per observation: W_t [18, O], hinv_o [O, 3, 3]
-    -> [36, O] (the plain versions' intermediate)."""
-    Wm = W_t.reshape(6, 3, -1)
+    """vec(W_o Hinv_o W_o^T) per observation: W_t [3D, O], hinv_o [O, 3, 3]
+    -> [D^2, O] (the plain versions' intermediate)."""
+    D = W_t.shape[0] // 3
+    Wm = W_t.reshape(D, 3, -1)
     u = torch.einsum("iko,okl->ilo", Wm, hinv_o)
-    return torch.einsum("ilo,jlo->ijo", u, Wm).reshape(36, -1)
+    return torch.einsum("ilo,jlo->ijo", u, Wm).reshape(D * D, -1)
 
 
 def whw_cam_reduce_plain(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds):
     """Plain K7: out[c] = sum over observations o of camera c of
-    vec(W_o Hpp_inv[p(o)] W_o^T) -> [C, 36], in W_t's dtype."""
+    vec(W_o Hpp_inv[p(o)] W_o^T) -> [C, D^2], in W_t's dtype."""
     return cam_segment_sum_plain(_whw_rows_t(W_t, Hpp_inv[obs_point.long()]), cam_perm, cam_bounds)
 
 
-_WHW_ROW = 24   # csrc/schur_kernels.cu kWhwRow: floats per packed row of the standalone K7
+def whw_row(D: int) -> int:
+    """csrc/schur_kernels.cu kWhwRow: floats per packed row of the standalone
+    K7, the D (D + 1) / 2 entries in 16-byte rows (24, or 36 at D = 8)."""
+    return -(-whw_entries(D) // 4) * 4
 
 
 def whw_cam_reduce(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds, cam_inv_perm):
-    """Schur-Jacobi blocks sum_{o in c} W_o Hpp^-1_{p(o)} W_o^T: W_t [18, O]
+    """Schur-Jacobi blocks sum_{o in c} W_o Hpp^-1_{p(o)} W_o^T: W_t [3D, O]
     (row i*3+k = W[i, k]), Hpp_inv [P, 3, 3], obs_point [O] int32,
     cam_perm [M] int32 and cam_bounds [C+1] int32 (a stable camera sort of
-    the weighted observations) -> [C, 36]. cam_inv_perm [N] is each
+    the weighted observations) -> [C, D^2]. cam_inv_perm [N] is each
     observation's place in cam_perm (-1 outside it, invert_permutation).
     The device code of fused_ne_payloads' blocks, in two launches of its
     own (a PCG solve takes the blocks from K3). Deterministic."""
     if not on_cuda(W_t):
         return whw_cam_reduce_plain(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds)
-    O = W_t.shape[1]
+    O, D = W_t.shape[1], _width(W_t.shape[0] // 3)
     P = Hpp_inv.shape[0]
     C = cam_bounds.shape[0] - 1
     dev = W_t.device
-    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(W_t, "W_t", torch.float32, (3 * D, O), dev)
     check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
     check(obs_point, "obs_point", torch.int32, (O,), dev)
     M = cam_perm.shape[0]
     check(cam_perm, "cam_perm", torch.int32, (M,), dev)
     check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
-    out = torch.empty((C, 36), dtype=torch.float32, device=dev)
+    out = torch.empty((C, D * D), dtype=torch.float32, device=dev)
     if C == 0:
         return out
     N = cam_inv_perm.shape[0]
     check(cam_inv_perm, "cam_inv_perm", torch.int32, (N,), dev)
     if not M <= N <= O:
         raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
-    packed = torch.empty((M, _WHW_ROW), dtype=torch.float32, device=dev)
-    launch("sfm_whw_cam_reduce", "whw_cam_reduce",
+    packed = torch.empty((M, whw_row(D)), dtype=torch.float32, device=dev)
+    launch(_wide("sfm_whw_cam_reduce", D), _wide("whw_cam_reduce", D),
            ptr(W_t), ptr(Hpp_inv), ptr(obs_point), ptr(cam_inv_perm), ptr(cam_bounds), O, N, C,
            segment_warps(M, C), ptr(packed), ptr(out))
     return out
@@ -597,19 +683,19 @@ def whw_payloads_big(W_t, Hpp_inv, obs_point):
 
 def schur_coupling_matvec_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm,
                                 cam_bounds, v):
-    """Plain K11: (W Hpp^-1 W^T) v -> [C, 6], in W_t's dtype, by the
+    """Plain K11: (W Hpp^-1 W^T) v -> [C, D], in W_t's dtype, by the
     feature-major einsums and the plain sorted-segment sums."""
-    Wm = W_t.reshape(6, 3, -1)
+    Wm = W_t.reshape(W_t.shape[0] // 3, 3, -1)
     u_t = torch.einsum("iko,io->ko", Wm, v[obs_cam.long()].T)                  # [3, O]
     g = cam_segment_sum_plain(u_t, None, point_bounds)                         # [P, 3]
     h = torch.einsum("pij,pj->pi", Hpp_inv, g)
-    y_t = torch.einsum("iko,ko->io", Wm, h[obs_point.long()].T)                # [6, O]
+    y_t = torch.einsum("iko,ko->io", Wm, h[obs_point.long()].T)                # [D, O]
     return cam_segment_sum_plain(y_t, cam_perm, cam_bounds)
 
 
 def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_bounds, v,
                           cam_inv_perm=None):
-    """The Schur coupling term (W Hpp^-1 W^T) v for v [C, 6] -> [C, 6]:
+    """The Schur coupling term (W Hpp^-1 W^T) v for v [C, D] -> [C, D]:
     per observation u_o = W_o^T v[cam_o], per point g_p = sum u_o and
     h_p = Hpp^-1_p g_p, per observation y_o = W_o h_p, per camera the sum of
     y_o. Observations must be sorted by point; point_bounds [P+1] covers
@@ -620,19 +706,19 @@ def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_pe
     if not on_cuda(W_t):
         return schur_coupling_matvec_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds,
                                            cam_perm, cam_bounds, v)
-    O = W_t.shape[1]
+    O, D = W_t.shape[1], _width(v.shape[-1])
     P = Hpp_inv.shape[0]
     C = v.shape[0]
     dev = W_t.device
-    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(W_t, "W_t", torch.float32, (3 * D, O), dev)
     check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
     check(obs_cam, "obs_cam", torch.int32, (O,), dev)
     check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
     M = cam_perm.shape[0]
     check(cam_perm, "cam_perm", torch.int32, (M,), dev)
     check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
-    check(v, "v", torch.float32, (C, 6), dev)
-    out = torch.empty((C, 6), dtype=torch.float32, device=dev)
+    check(v, "v", torch.float32, (C, D), dev)
+    out = torch.empty((C, D), dtype=torch.float32, device=dev)
     if C == 0 or M == 0 or P == 0:
         return out.zero_()
     if cam_inv_perm is None:
@@ -641,20 +727,21 @@ def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_pe
     check(cam_inv_perm, "cam_inv_perm", torch.int32, (N,), dev)
     if not M <= N <= O:
         raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
-    y_packed = torch.empty((M, 6), dtype=torch.float32, device=dev)
-    if v.data_ptr() % 8:   # the kernel reads v's 24-byte rows as 8-byte pairs
+    y_packed = torch.empty((M, D), dtype=torch.float32, device=dev)
+    if v.data_ptr() % (2 * D - 4):   # v's rows are read as 8-byte pairs (D = 6) or 16-byte quads (D = 8)
         v = v.clone()
-    launch("sfm_schur_coupling_matvec", "schur_coupling_matvec",
+    launch(_wide("sfm_schur_coupling_matvec", D), _wide("schur_coupling_matvec", D),
            ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(v), ptr(cam_inv_perm),
            ptr(cam_bounds), O, P, C, segment_warps(M, C), ptr(y_packed), ptr(out))
     return out
 
 
 def pcg_loop(matvec, M_inv, d, rhs, iterations: int, tolerance: float):
-    """Preconditioned CG on S x = rhs (matvec(v) = S v for v [C, 6]) in the
-    Jacobi-equilibrated space: solve (D^-1 S D^-1) y = D^-1 rhs with D = d
-    [C, 6] (sqrt|diag M| of the Schur-Jacobi preconditioner M, whose inverse
-    blocks are M_inv [C, 6, 6]), return x = D^-1 y (every iterate O(1)-scaled,
+    """Preconditioned CG on S x = rhs (matvec(v) = S v for v [C, K], K the
+    camera width) in the Jacobi-equilibrated space: solve
+    (D^-1 S D^-1) y = D^-1 rhs with D = d [C, K] (sqrt|diag M| of the
+    Schur-Jacobi preconditioner M, whose inverse blocks are M_inv
+    [C, K, K]), return x = D^-1 y (every iterate O(1)-scaled,
     so fp32 CG cannot overflow in p.(S p) when diag S spans many decades).
 
     `iterations` steps, always: a converged or dead solve freezes its updates
@@ -704,7 +791,15 @@ def pcg_solve_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, ca
 
 
 PCG_SMEM_BUDGET = 200 * 1024   # dynamic shared memory a block of pcg_solve may stage
-PCG_STAGED_ROWS = 20           # W's 18 rows, the camera and the camera-sorted place
+
+
+def pcg_staged_rows(cam_dim: int = 6) -> int:
+    """Rows of a resident pcg_solve slice: W's 3D, the camera and the
+    camera-sorted place (20, or 26 at D = 8)."""
+    return 3 * cam_dim + 2
+
+
+PCG_STAGED_ROWS = pcg_staged_rows(6)
 
 
 class PcgPlan(NamedTuple):
@@ -712,9 +807,10 @@ class PcgPlan(NamedTuple):
     to MAX_CAMS cameras): block b owns the points [block_points[b],
     block_points[b+1]) and their observations, a group of `lanes` lanes
     walks one point's observations in pcg_solve; resident mode stages each
-    block's slice in smem_bytes of shared memory (20 rows of `stride` 4-byte
-    words), streaming mode reads W from device memory every step
-    (stride = smem_bytes = 0)."""
+    block's slice in smem_bytes of shared memory (pcg_staged_rows(cam_dim)
+    rows of `stride` 4-byte words), streaming mode reads W from device
+    memory every step (stride = smem_bytes = 0). cam_dim: the camera width
+    the plan was made for (the kernel's occupancy and staged rows)."""
 
     streaming: bool
     grid: int
@@ -723,15 +819,17 @@ class PcgPlan(NamedTuple):
     max_slice: int               # observations of the largest slice
     stride: int
     smem_bytes: int
+    cam_dim: int = 6
 
 
 def pcg_plan(point_bounds: torch.Tensor, num_sms: int, blocks_per_sm: int = 1,
-             streaming: bool | None = None) -> PcgPlan:
+             streaming: bool | None = None, cam_dim: int = 6) -> PcgPlan:
     """The plan of pcg_solve on a grid of num_sms * blocks_per_sm blocks:
     slices of about N / grid observations (N = point_bounds[-1]) cut at point
     boundaries (a block starts at the first point that starts at or after
     its share), so a slice is off its share by less than one point's
-    segment. Resident mode when the largest slice's 20 staged rows fit
+    segment. Resident mode when the largest slice's staged rows
+    (pcg_staged_rows(cam_dim): 20, or 26 for 8-wide cameras) fit
     PCG_SMEM_BUDGET bytes (the engines' solves), streaming when they do not
     (the merged polish: ~11,500 observations a block), unless `streaming`
     says otherwise. The kernel skips the
@@ -746,30 +844,32 @@ def pcg_plan(point_bounds: torch.Tensor, num_sms: int, blocks_per_sm: int = 1,
     block_points[0], block_points[-1] = 0, P
     max_slice = int((pb[block_points[1:]] - pb[block_points[:-1]]).max())
     stride = -(-(max_slice + 3) // 4) * 4     # + up to 3 words of alignment shift
-    smem = PCG_STAGED_ROWS * 4 * stride
+    smem = pcg_staged_rows(_width(cam_dim)) * 4 * stride
     if streaming is None:
         streaming = smem > PCG_SMEM_BUDGET
     return PcgPlan(streaming=streaming, grid=grid, block_points=block_points.to(torch.int32),
                    lanes=lanes, max_slice=max_slice, stride=0 if streaming else stride,
-                   smem_bytes=0 if streaming else smem)
+                   smem_bytes=0 if streaming else smem, cam_dim=cam_dim)
 
 
-def pcg_launch_plan(point_bounds: torch.Tensor, streaming: bool | None = None) -> PcgPlan:
-    """pcg_plan for the card point_bounds lies on: first one block per SM;
-    where the kernel's occupancy at that plan's shared memory allows more
-    co-resident blocks, the plan is cut again for that many in the same mode
-    (smaller slices need no more shared memory). block_points goes to the
-    card."""
+def pcg_launch_plan(point_bounds: torch.Tensor, streaming: bool | None = None,
+                    cam_dim: int = 6) -> PcgPlan:
+    """pcg_plan for the card point_bounds lies on and the kernel built for
+    cam_dim: first one block per SM; where the kernel's occupancy at that
+    plan's shared memory allows more co-resident blocks, the plan is cut
+    again for that many in the same mode (smaller slices need no more
+    shared memory). block_points goes to the card."""
     dev = point_bounds.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = pcg_plan(point_bounds, sms, 1, streaming)
+    plan = pcg_plan(point_bounds, sms, 1, streaming, cam_dim)
     per_sm = ctypes.c_int(0)
-    err = library().sfm_pcg_blocks_per_sm(int(plan.streaming), plan.smem_bytes, ctypes.byref(per_sm))
+    entry = _wide("sfm_pcg_blocks_per_sm", cam_dim)
+    err = getattr(library(), entry)(int(plan.streaming), plan.smem_bytes, ctypes.byref(per_sm))
     if err != 0 or per_sm.value < 1:
-        raise RuntimeError(f"sfm_pcg_blocks_per_sm: CUDA error {err}, {per_sm.value} blocks per SM "
+        raise RuntimeError(f"{entry}: CUDA error {err}, {per_sm.value} blocks per SM "
                            f"with {plan.smem_bytes} bytes of shared memory")
     if per_sm.value > 1:
-        plan = pcg_plan(point_bounds, sms, per_sm.value, plan.streaming)
+        plan = pcg_plan(point_bounds, sms, per_sm.value, plan.streaming, cam_dim)
     return plan._replace(block_points=plan.block_points.to(dev))
 
 
@@ -778,21 +878,22 @@ def pcg_solve(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_boun
     """The reduced camera system's PCG solve, all `iterations` steps in one
     launch: pcg_loop's algorithm over S v = Hcc v - (W Hpp^-1 W^T) v (the
     coupling as schur_coupling_matvec computes it; the same inputs and
-    contract). Hcc, M_inv [C, 6, 6], d, rhs [C, 6] -> x [C, 6]. The dot
+    contract). Hcc, M_inv [C, D, D], d, rhs [C, D] -> x [C, D]. The dot
     products are summed in a fixed per-block order: deterministic. plan
-    (pcg_launch_plan) is made here when missing. Any camera count: past
-    MAX_CAMS (the merged polish) the launch counts as pcg_solve_big, and the
-    plan's streaming mode reads W from device memory every step. The kernel
+    (pcg_launch_plan, at the width D) is made here when missing. Any camera
+    count at D = 6: past MAX_CAMS (the merged polish) the launch counts as
+    pcg_solve_big, and the plan's streaming mode reads W from device memory
+    every step; D = 8 launches the 8-wide build (pcg_solve_w8). The kernel
     applies the preconditioner in float64 (the plain version in the inputs'
     dtype): fp32 loses ~4 digits there on the merged polish's blocks."""
     if not on_cuda(W_t):
         return pcg_solve_plain(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm,
                                cam_bounds, Hcc, M_inv, d, rhs, iterations, tolerance)
-    O = W_t.shape[1]
+    O, D = W_t.shape[1], _width(rhs.shape[-1])
     P = Hpp_inv.shape[0]
     C = rhs.shape[0]
     dev = W_t.device
-    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(W_t, "W_t", torch.float32, (3 * D, O), dev)
     check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
     check(obs_cam, "obs_cam", torch.int32, (O,), dev)
     check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
@@ -804,20 +905,22 @@ def pcg_solve(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_boun
     if not M <= N <= O:
         raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
     for t, name in ((Hcc, "Hcc"), (M_inv, "M_inv")):
-        check(t, name, torch.float32, (C, 6, 6), dev)
+        check(t, name, torch.float32, (C, D, D), dev)
     for t, name in ((d, "d"), (rhs, "rhs")):
-        check(t, name, torch.float32, (C, 6), dev)
+        check(t, name, torch.float32, (C, D), dev)
     if iterations < 0:
         raise ValueError(f"iterations: expected >= 0, got {iterations}")
-    out = torch.empty((C, 6), dtype=torch.float32, device=dev)
+    out = torch.empty((C, D), dtype=torch.float32, device=dev)
     if C == 0:
         return out
     if plan is None:
-        plan = pcg_launch_plan(point_bounds)
+        plan = pcg_launch_plan(point_bounds, cam_dim=D)
     check(plan.block_points, "plan.block_points", torch.int32, (plan.grid + 1,), dev)
-    y_packed = torch.empty((M, 6), dtype=torch.float32, device=dev)
-    work = torch.empty((36 * C + 3 * plan.grid,), dtype=torch.float32, device=dev)
-    launch("sfm_pcg_solve", "pcg_solve_big" if C > MAX_CAMS else "pcg_solve",
+    if plan.cam_dim != D:
+        raise ValueError(f"plan: made for {plan.cam_dim}-wide cameras, the solve is {D}-wide")
+    y_packed = torch.empty((M, D), dtype=torch.float32, device=dev)
+    work = torch.empty((6 * D * C + 3 * plan.grid,), dtype=torch.float32, device=dev)
+    launch(_wide("sfm_pcg_solve", D), "pcg_solve_big" if C > MAX_CAMS else _wide("pcg_solve", D),
            ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(cam_inv_perm),
            ptr(cam_bounds), ptr(Hcc), ptr(M_inv), ptr(d), ptr(rhs), ptr(plan.block_points),
            O, C, int(iterations), float(tolerance), int(plan.streaming), plan.grid, plan.lanes,

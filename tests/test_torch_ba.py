@@ -290,11 +290,23 @@ def test_build_problem_requires_device():
     assert prob.obs_w.device.type == "cpu"
 
 
-def test_intrinsics_refinement_is_refused(ne_problem):
-    _, prob = ne_problem
+def test_intrinsics_refinement_matches_jax(ne_problem):
+    """The same problem with 8-wide camera blocks (log focal scale and dk1
+    at zero) solves with focal and k1 refined and lands on sfm_tpu's cost
+    (its BA runs the 8-wide case as plain XLA)."""
+    jprob, prob = ne_problem
     wide = prob._replace(cam_params=torch.cat([prob.cam_params, torch.zeros(prob.num_cameras, 2)], 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.bundle_adjust(wide, BAConfig())
+    jwide = jprob._replace(cam_params=jnp.concatenate(
+        [jprob.cam_params, jnp.zeros((jprob.num_cameras, 2), jnp.float32)], 1))
+    kw = dict(refine_focal=True, refine_distortion=True, max_iterations=6)
+    out_j, st_j = jcore.bundle_adjust(jwide, JBAConfig(**kw))
+    out_t, st_t = core.bundle_adjust(wide, BAConfig(**kw))
+    assert out_t.cam_params.shape == (prob.num_cameras, 8)
+    assert float(st_t.initial_cost) == pytest.approx(float(st_j.initial_cost), rel=1e-5)
+    assert float(st_t.final_cost) == pytest.approx(float(st_j.final_cost), rel=1e-3)
+    assert float(st_t.final_cost) < 0.5 * float(st_t.initial_cost)
+    fixed = wide.cam_fixed.numpy()
+    assert not out_t.cam_params[fixed].ne(wide.cam_params[fixed]).any()
 
 
 def test_segment_tables_leave_out_the_padding_tail(ne_problem):

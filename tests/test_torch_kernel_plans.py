@@ -337,3 +337,106 @@ def test_dog_tiles_fit_two_blocks_an_sm(tile):
     assert smem <= 48 * 1024 <= _BLOCK_SMEM          # no opt-in needed
     assert 2 * (smem + _SMEM_RESERVED) <= _SM_SMEM
     assert k1.tile_threads(tile) % 32 == 0 and k1.tile_threads(tile) <= 1024
+
+
+# ---- the 8-wide builds: pcg_solve's plan, K3's packed rows, the C entries ----
+
+
+def test_pcg_plan_stages_26_rows_at_width_8():
+    """An 8-wide resident slice stages W's 24 rows, the camera and the place
+    (104 bytes an observation): the final global BA's problem (C = 128,
+    O = 65,536, 38,052 weighted observations) stays resident on 132
+    blocks, and the shared-memory test streams a problem the 6-wide plan
+    still stages."""
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+    from tests.test_torch_pcg import _bounds, slice_bounds
+
+    assert kb.pcg_staged_rows(8) == 26 and kb.pcg_staged_rows(6) == kb.PCG_STAGED_ROWS == 20
+    pb = slice_bounds()
+    for D in (6, 8):
+        plan = kb.pcg_plan(pb, 132, cam_dim=D)
+        assert plan.cam_dim == D and not plan.streaming
+        assert plan.smem_bytes == kb.pcg_staged_rows(D) * 4 * plan.stride <= kb.PCG_SMEM_BUDGET
+    wide, narrow = kb.pcg_plan(pb, 132, cam_dim=8), kb.pcg_plan(pb, 132)
+    assert torch.equal(wide.block_points, narrow.block_points) and wide.stride == narrow.stride
+    # Every weighted row staged: 65,536 x 104 bytes = 6.8 MB over the SMs' ~30 MB.
+    assert 65536 * 4 * kb.pcg_staged_rows(8) < 132 * _BLOCK_SMEM
+    # ~270,000 observations: 2,046 a block fit 20 rows (164 KB) but not 26 (213 KB).
+    pb = _bounds(np.full(2700, 100))
+    assert not kb.pcg_plan(pb, 132).streaming
+    plan = kb.pcg_plan(pb, 132, cam_dim=8)
+    assert plan.streaming and plan.smem_bytes == 0 and plan.stride == 0
+    with pytest.raises(ValueError):
+        kb.pcg_plan(pb, 132, cam_dim=7)
+
+
+def test_k3_packed_rows_at_both_widths():
+    """K3's camera row is D^2 + D floats (42, 72); with the Schur-Jacobi
+    blocks it carries the D (D + 1) / 2 upper entries of W Hpp^-1 W^T padded
+    to a multiple of 16 floats (64, 112); K7's standalone rows hold the
+    entries in 16-byte rows (24, 36)."""
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    assert [kb.ne_cam_rows(D) for D in (6, 8)] == [kb.NE_CAM_ROWS, 72] == [42, 72]
+    assert [kb.ne_pcg_rows(D) for D in (6, 8)] == [kb.NE_PCG_ROWS, 112] == [64, 112]
+    assert [kb.whw_entries(D) for D in (6, 8)] == [21, 36]
+    assert [kb.whw_row(D) for D in (6, 8)] == [24, 36]
+    assert kb.upper(6) == kb._UPPER6 and len(kb.upper(8)) == 36
+    for D in (6, 8):
+        assert kb.ne_cam_rows(D) + kb.whw_entries(D) <= kb.ne_pcg_rows(D) and kb.ne_pcg_rows(D) % 16 == 0
+
+
+@pytest.mark.parametrize("D", [6, 8])
+def test_wide_entries_take_what_the_wrappers_pass(D, monkeypatch):
+    """K3, K5 (with a step and its column mask), K7, K11 and pcg_solve at
+    width D launch the entry built for it (`_w8` at D = 8, the same
+    arguments as the 6-wide entry) and count under its name; the outputs
+    have the width's shapes."""
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    scene = make_orbit_scene(num_cameras=4, num_points=30, noise_px=0.5, seed=3)
+    obs = np.argwhere(scene.visible)
+    rec = Reconstruction(
+        intrinsics=scene.intrinsics.copy(), rvecs=scene.rvecs, tvecs=scene.tvecs,
+        registered=np.ones(4, bool), points=scene.points, point_errors=np.zeros(30, np.float32),
+        point_valid=np.ones(30, bool), obs_point=obs[:, 1].astype(np.int32),
+        obs_image=obs[:, 0].astype(np.int32), obs_kp=obs[:, 1].astype(np.int32),
+        obs_uv=scene.pixels[obs[:, 0], obs[:, 1]].astype(np.float32))
+    prob, _, _ = build_problem(rec, refine_intrinsics=D == 8, device="cpu")
+    assert prob.cam_params.shape[1] == D
+    inv = core.solve_invariants(prob)
+    plan = kb.pcg_plan(inv.point_bounds, 4, cam_dim=D)
+    ne = core.build_normal_equations(prob, prob.cam_params, prob.points, torch.tensor(1e-3),
+                                     core.BAConfig(), inv, schur_jacobi=True)
+    passed = []
+    monkeypatch.setattr(kb, "on_cuda", lambda t: True)
+    monkeypatch.setattr(kb, "check", lambda *a: None)
+    monkeypatch.setattr(kb, "launch", lambda entry, name, *a: passed.append((entry, name, a)))
+    tables = (prob.obs_cam, prob.obs_point, prob.points, inv.static_t, prob.cam_params, prob.intrinsics)
+    out = kb.fused_ne_payloads(*tables, inv.point_bounds, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm,
+                               torch.tensor(1e-3), None, "huber", 4.0, plan=plan, schur_jacobi=True)
+    assert out[0].shape == (prob.num_cameras, D, D) and out[2].shape == (3 * D, prob.obs_w.shape[0])
+    assert out[5].shape[1] == kb.ne_pcg_rows(D) and out[6].shape == (prob.num_cameras, D * D)
+    step = kb.LMStep(ne.bc.contiguous(), ne.W_t, ne.Hpp_inv, ne.bp, prob.cam_fixed, prob.point_fixed,
+                     freeze_focal=D == 8)
+    new_cams, _, _ = kb.fused_cost_sums(*tables, inv.point_bounds, None, "huber", 4.0, step=step, plan=plan)
+    assert new_cams.shape == (prob.num_cameras, D)
+    kb.whw_cam_reduce(ne.W_t, ne.Hpp_inv, prob.obs_point, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
+    kb.schur_coupling_matvec(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds,
+                             inv.cam_perm, inv.cam_bounds, ne.bc.contiguous(), inv.cam_inv_perm)
+    M_inv, d = core.pcg_preconditioner(ne, prob, inv)
+    x = kb.pcg_solve(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
+                     inv.cam_bounds, inv.cam_inv_perm, ne.Hcc, M_inv, d, ne.bc.contiguous(), 8, 1e-6,
+                     plan=plan)
+    assert x.shape == (prob.num_cameras, D)
+    suffix = "" if D == 6 else "_w8"
+    names = ["fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce", "schur_coupling_matvec", "pcg_solve"]
+    assert [(e, n) for e, n, _ in passed] == [(f"sfm_{n}{suffix}", f"{n}{suffix}") for n in names]
+    for entry, _, a in passed:
+        assert len(_SIGNATURES[entry]) == len(a) + 1, entry
+        assert _SIGNATURES[entry] == _SIGNATURES[entry.removesuffix("_w8")]
+    assert passed[1][2][21] == (1 if D == 8 else 0)     # K5's column mask: the focal frozen at D = 8
+    with pytest.raises(ValueError, match="plan"):
+        kb.pcg_solve(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm,
+                     inv.cam_bounds, inv.cam_inv_perm, ne.Hcc, M_inv, d, ne.bc.contiguous(), 8, 1e-6,
+                     plan=plan._replace(cam_dim=14 - D))

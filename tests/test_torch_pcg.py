@@ -101,8 +101,8 @@ def test_bundle_adjust_makes_the_launch_plan_once(monkeypatch):
     _, prob, _, _ = _jax_pcg_setup()
     plans, used = [], []
 
-    def launch_plan(point_bounds):
-        plans.append(kb.pcg_plan(point_bounds, 4))
+    def launch_plan(point_bounds, cam_dim=6):
+        plans.append(kb.pcg_plan(point_bounds, 4, cam_dim=cam_dim))
         return plans[-1]
 
     inner = core.pcg_solve
@@ -126,7 +126,8 @@ def test_solve_invariants_plans_only_the_fused_route(monkeypatch):
     _, prob, _, _ = _jax_pcg_setup()
     assert core.solve_invariants(prob).pcg_plan is None
     monkeypatch.setattr(core, "on_cuda", lambda t: True)
-    monkeypatch.setattr(core, "pcg_launch_plan", lambda point_bounds: kb.pcg_plan(point_bounds, 4))
+    monkeypatch.setattr(core, "pcg_launch_plan",
+                        lambda point_bounds, cam_dim=6: kb.pcg_plan(point_bounds, 4, cam_dim=cam_dim))
     assert core.solve_invariants(prob).pcg_plan.grid == 4
     monkeypatch.setattr(core, "MAX_CAMS", prob.num_cameras - 1)
     assert core.uses_big_kernels(prob)

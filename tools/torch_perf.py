@@ -91,6 +91,21 @@
         merges three such sessions): the wrapper's own launches
         per call (kernels.LAUNCHES) beside the launches and device ms per
         call the profiler recorded.
+    python3 tools/torch_perf.py ptxas
+        each kernel source compiled as the package builds it, with
+        -Xptxas -v: registers, spill stores and loads, shared memory and
+        stack of every kernel, by name (the 6-wide and 8-wide builds of K3,
+        K5, K7, K11 and pcg_solve apart);
+    python3 tools/torch_perf.py refined [--source ring|orbit] [--offsets 0.04 ...]
+        chip_smoke.py's phase 11 without the other phases: the 8-wide
+        builds held and timed (check_refined_kernels) on the final global
+        BA's problem of the incremental ring (--source ring, phase 5 run
+        first) or on the C = 128 orbit (--source orbit), then the refined
+        BA (run_refined_ba) on the ring's problem (with ring) and on the
+        orbit without outliers; then the 46-view ring reconstructed
+        with the focal prior off by each offset (run_refined_reconstruct,
+        its bars reported, not enforced; --baseline: each offset also
+        without refinement).
 
 Every line names the card and its power limit. Needs a CUDA device.
 """
@@ -806,6 +821,83 @@ def crossover_cmd(device):
               + json.dumps(row), flush=True)
 
 
+def ptxas_cmd():
+    """nvcc -Xptxas -v over each source with the package's flags; one line
+    per kernel: its demangled name, registers, spills, shared memory."""
+    import re
+    import shutil
+    import tempfile
+
+    from sfm_tpu_torch import kernels
+
+    nvcc = kernels._nvcc()
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(nvcc), "cu++filt")
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(kernels.CSRC.glob("*.cu")):
+            out = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+                                  os.path.join(tmp, src.stem + ".o")], capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(out.stderr)
+            name, rows = None, []
+            for line in out.stderr.splitlines():
+                m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+                if m:
+                    name = m.group(1)
+                    continue
+                m = re.search(r"Used \d+ registers.*", line)
+                if m and name:
+                    rows.append((name, m.group(0)))
+                m = re.search(r"\d+ bytes stack frame, \d+ bytes spill stores, \d+ bytes spill loads", line)
+                if m and name:
+                    rows.append((name, m.group(0)))
+            names = sorted({n for n, _ in rows})
+            demangled = {}
+            if os.path.exists(filt):
+                demangled = dict(zip(names, subprocess.run([filt], input="\n".join(names), capture_output=True,
+                                                           text=True).stdout.splitlines()))
+            for n in names:
+                info = " | ".join(r for m_, r in rows if m_ == n)
+                print(f"[ptxas] {card()} {src.name}: {demangled.get(n, n)}: {info}", flush=True)
+
+
+def refined_cmd(device, source: str, offsets, baseline: bool):
+    from sfm_tpu_torch.config import BAConfig
+
+    if source == "ring":
+        ring, _ = cs.render_ring(cs.INC_IMAGES, cs.INC_BLOBS, cs.INC_ARC)
+        rec, _, ba_log, _, wall = cs.run_reconstruct(device, ring)
+        del ring
+        cfg = ba_log[-1]["cfg"]
+        print(f"[refined] {card()} incremental ring: {json.dumps(rec.summary())}, wall {wall:.2f}s", flush=True)
+    else:
+        rec, cfg = cs.orbit_reconstruction(100, 500), BAConfig()
+    t0 = time.perf_counter()
+    rows, k9 = cs.check_refined_kernels(rec, cfg, device)
+    print(f"[refined] {card()} kernel checks {time.perf_counter() - t0:.1f}s", flush=True)
+    cs.log_results(f"{card()} refined ({source})", rows)
+    cs.log_shapes("cam_segment_sum", k9)
+    if source == "ring":
+        try:
+            print(f"[refined] {card()} ring BA: "
+                  + json.dumps(cs.run_refined_ba(rec, cfg, device, cs.INC_FOCAL, recover=False)), flush=True)
+        except AssertionError as e:   # reported, not enforced
+            print(f"[refined] {card()} ring BA: {e}", flush=True)
+    try:
+        orbit = cs.orbit_reconstruction(*cs.REFINED_ORBIT, outliers=0.0)
+        print(f"[refined] {card()} orbit BA: "
+              + json.dumps(cs.run_refined_ba(orbit, cfg, device, cs.SLICE_FOCAL, recover=True)), flush=True)
+    except AssertionError as e:
+        print(f"[refined] {card()} orbit BA: {e}", flush=True)
+    variants = {"refined": cs.REFINED_OVERRIDES, **({"not refined": {}} if baseline else {})}
+    for offset in offsets:
+        for what, overrides in variants.items():
+            run = cs.run_refined_reconstruct(device, offset, overrides)
+            cs.log_bundle_adjustments("refined", run["ba_log"])
+            print(f"[refined] {card()} {cs.REFINED_IMAGES} views, focal offset {offset}, {what}: "
+                  + json.dumps(cs.check_refined_reconstruct(run)) + " launches " + json.dumps(run["launches"]),
+                  flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -846,6 +938,11 @@ def main() -> int:
     p = sub.add_parser("kernels")
     p.add_argument("--pairs", type=int, default=32)
     p.add_argument("--keypoints", type=int, default=4096)
+    sub.add_parser("ptxas")
+    p = sub.add_parser("refined")
+    p.add_argument("--source", choices=("ring", "orbit"), default="ring")
+    p.add_argument("--offsets", type=float, nargs="*", default=[cs.REFINED_FOCAL_OFFSET])
+    p.add_argument("--baseline", action="store_true", help="each offset also without refinement")
     args = parser.parse_args()
     if getattr(args, "root", None):
         sys.path.insert(0, os.path.abspath(args.root))
@@ -877,6 +974,10 @@ def main() -> int:
         partition_cmd(device, args.variants, args.dump)
     elif args.cmd == "global":
         global_cmd(device, args.sizes)
+    elif args.cmd == "ptxas":
+        ptxas_cmd()
+    elif args.cmd == "refined":
+        refined_cmd(device, args.source, args.offsets, args.baseline)
     else:
         crossover_cmd(device)
     return 0
