@@ -107,7 +107,27 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      with ba.refine_focal and ba.refine_distortion: >= 95% registered,
      < 1 px, camera RMSE < 3% of the radius, the mean refined focal nearer
      the rendered one than the prior, the global BAs 8 wide and the local
-     ones 6 wide, no plain version on the card.
+     ones 6 wide, no plain version on the card;
+ 12. several devices, on the one card: the process joins a one-process
+     NCCL group through dist.mesh (initialize_multihost, make_mesh) and
+     holds each multi-device route against the single-card one: (a) DP
+     extraction of phase 11's 46 views (every Features array identical);
+     (b) stages.ring_match_pairs, the ring matcher (K2), against the block
+     matcher on every pair (the same pairs, indices and masks); (c) the
+     match + verify stage as a multi-device run calls it (the ring's
+     matches, pair-sharded) against the single-card graph on the ring's
+     first 256 pairs (identical); (d)
+     bundle_adjust_sharded on phase 5's final global BA problem at 6 and 8
+     wide and (e) on phase 8's merged polish problem for 3 LM iterations
+     (its cost falling at each) against bundle_adjust: final cost within
+     rtol 1e-3, poses within 5e-3 (tests/distributed/test_sharding.py's
+     bars; rotations, and camera centres after a Sim(3) alignment: the
+     scale is free), a rerun bit-identical, no plain version on the card, K3's
+     sharded mode (fused_ne_sums) and both halves of K11
+     (coupling_point_half, coupling_camera_half) launched; (f) those three
+     entries against their plain versions in float64 at (d)'s and (e)'s
+     shapes, timed; (g) the sharded LM's steps and one sharded solve under
+     torch.profiler (the "[lm] sharded LM" lines).
 Each kernel check holds the kernel against its plain version with the
 tolerance stated and takes the median time of the kernel, the plain version
 and (where one PyTorch call computes the same function) that call (CUDA
@@ -119,13 +139,15 @@ camera side (a permutation) for K = 6, 36 and 42 rows, the point side
 against its plain version in float64 and timed beside `loop_ms`, the same
 solve as Python steps over the coupling-only K11 (K10 then K9 for
 pcg_solve_big). Every row also carries its device time per call
-(`device_ms`, torch.profiler). The record (eighteen rows) reports K1-K3,
+(`device_ms`, torch.profiler). The record (24 rows) reports K1-K3,
 K5, K7, K9, K11 and pcg_solve at the incremental slice's shapes, K4, K6,
 K8, K10 and pcg_solve_big at the merged polish's, the 8-wide K3, K5, K7,
-K11 and pcg_solve (`*_w8`) at phase 11's, every kernel's launches on each
+K11 and pcg_solve (`*_w8`) at phase 11's, K3's sharded mode and the two
+halves of K11 at both widths at phase 12's (the 6-wide ones at the merged
+polish's too, under `shapes`), every kernel's launches on each
 path (two_view, incremental, partition, global, vocab, options,
-merged_polish, refined_ba, refined_orbit_ba, refined; `launches` is the
-largest of them;
+merged_polish, refined_ba, refined_orbit_ba, refined, sharded; `launches`
+is the largest of them;
 K11's rows count the launches of pcg_solve and K10's those of
 pcg_solve_big, which run their code; K7's count K3's launches that build
 the Schur-Jacobi blocks), K7's
@@ -174,11 +196,21 @@ KERNELS = {
 WIDE_KERNELS = tuple(f"{k}_w8" for k in ("fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce",
                                          "schur_coupling_matvec", "pcg_solve"))
 KERNELS.update({k: KERNELS[k.removesuffix("_w8")] for k in WIDE_KERNELS})
+# The camera-sharded LM's entries (phase 12 alone launches them): K3's
+# sharded mode and K11 cut at h, at both widths.
+KERNELS.update({
+    "fused_ne_sums": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:366"),
+    "coupling_point_half": ("sfm_tpu_torch/csrc/schur_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:975"),
+    "coupling_camera_half": ("sfm_tpu_torch/csrc/schur_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:975"),
+})
+KERNELS.update({f"{k}_w8": KERNELS[k] for k in ("fused_ne_sums", "coupling_point_half",
+                                                 "coupling_camera_half")})
 # The large-camera-count BA set (more than 4096 cameras) and the set that
 # serves the engines' problems; K9 cam_segment_sum reduces for both.
 BIG_KERNELS = ("fused_ne_payloads_big", "fused_cost_sums_big", "whw_payloads_big",
                "schur_coupling_payloads_big", "pcg_solve_big")
-SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS + WIDE_KERNELS)
+SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS + WIDE_KERNELS
+                      and not k.startswith(("fused_ne_sums", "coupling_")))
 # Kernels whose device code runs inside another launch on the main path, by
 # the count of that launch: K11's coupling inside pcg_solve, K10's inside
 # pcg_solve_big. Their coupling-only entries launch on no path. (K7's code
@@ -2661,7 +2693,7 @@ def run_refined_reconstruct(device, offset: float = REFINED_FOCAL_OFFSET,
     with forbid_plain() as plain:
         rec, launches, ba_log, _, wall = run_reconstruct(device, imgs, **overrides)
     return dict(rec=rec, launches=launches, ba_log=ba_log, wall=wall, scene=scene, focal=focal,
-                offset=offset, plain_calls=plain, render_s=render_s)
+                offset=offset, plain_calls=plain, render_s=render_s, imgs=imgs)
 
 
 def check_refined_reconstruct(run) -> dict:
@@ -2705,6 +2737,502 @@ def check_refined_reconstruct(run) -> dict:
         bad.append("plain versions on the card")
     r["failed"] = bad
     return r
+
+
+# ---- phase 12: several devices, one process on the card ---------------------
+
+# The camera-sharded LM's two kernel entries (K3's sharded mode, K11 cut at
+# h), at both camera widths; only phase 12 launches them.
+SHARDED_KERNELS = ("fused_ne_sums", "coupling_point_half", "coupling_camera_half")
+SHARDED_WIDE = tuple(f"{k}_w8" for k in SHARDED_KERNELS)
+# Phase 12 (e): LM iterations of the sharded merged polish; (d): of the
+# bit-identical reruns; (g): of the profiled sharded solve.
+DIST_POLISH_ITERATIONS = 3
+DIST_RERUN_ITERATIONS = 3
+DIST_TRACED_ITERATIONS = 2
+# Phase 12 (c): the ring's pairs verified both ways (eight blocks of 32).
+DIST_VERIFY_PAIRS = 256
+# Phase 12 (d) and (e): tests/distributed/test_sharding.py's bars.
+DIST_COST_RTOL = 1e-3
+DIST_CAMS_ATOL = 5e-3
+
+
+def join_group(device):
+    """Phase 12's process group: this process alone, NCCL on the card,
+    joined through dist.mesh as a multi-host run joins it (the coordinator
+    fields of ShardConfig, a free port on localhost)."""
+    import socket
+
+    from sfm_tpu_torch.config import ShardConfig
+    from sfm_tpu_torch.dist.mesh import initialize_multihost, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(ShardConfig(multihost=True, coordinator_address=f"localhost:{port}",
+                                     num_processes=1, process_id=0), device)
+    return make_mesh(1, device)
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def counted(fn):
+    """fn() with the launch counts set to 0 just before and read just after:
+    (its result, the counts that moved)."""
+    from sfm_tpu_torch import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    return out, {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def check_dp_extract(imgs, device, mesh) -> dict:
+    """Phase 12 (a): the feature stage over the group (DP extraction: each
+    process its 8 views of every chunk, K1, then all_gather) against the
+    single-card stage on the same views, default config: every Features
+    array identical."""
+    import numpy as np
+
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.pipeline import ingest, stages
+
+    cfg = PipelineConfig(verbose=False)
+    batch = ingest.load_images(list(imgs), cfg.sift)
+    t0 = time.perf_counter()
+    single = stages.extract_stage(batch, cfg, device)
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp, launches = counted(lambda: stages.extract_stage(batch, cfg, device, mesh))
+    dp_s = time.perf_counter() - t0
+    differ = [f for f in ("xy", "sigma", "angle", "response", "desc", "valid")
+              if not np.array_equal(getattr(single, f), getattr(dp, f))]
+    if differ or (device.type == "cuda" and not launches.get("dog_extrema_scores")):
+        raise AssertionError(f"DP extraction: {differ} differ from the single-card stage; launches {launches}")
+    return dict(feats=dp, intrinsics=batch.intrinsics, cfg=cfg, launches=launches, views=len(imgs),
+                keypoints=int(dp.valid.sum()), single_s=single_s, dp_s=dp_s)
+
+
+def block_matches(feats, pairs, cfg, device):
+    """The single-card match stage's matches of `pairs` (ops/match.match_block
+    over blocks of cfg.match.block_pairs pairs at the stage's keypoint
+    bucket) -> numpy (idx_i, idx_j, valid) [E, M]."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.ops.match import match_block
+    from sfm_tpu_torch.pipeline import stages
+
+    n = stages._bucket_keypoints(int(feats.valid.sum(axis=1).max()), feats.valid.shape[1])
+    desc = torch.from_numpy(np.ascontiguousarray(feats.desc[:, :n])).to(device)
+    valid = torch.from_numpy(np.ascontiguousarray(feats.valid[:, :n])).to(device)
+    outs = []
+    for s in range(0, len(pairs), cfg.match.block_pairs):
+        i = torch.from_numpy(pairs[s:s + cfg.match.block_pairs, 0].astype(np.int64)).to(device)
+        j = torch.from_numpy(pairs[s:s + cfg.match.block_pairs, 1].astype(np.int64)).to(device)
+        outs.append([t.cpu().numpy() for t in match_block(desc[i], valid[i], desc[j], valid[j], cfg.match)])
+    return tuple(np.concatenate(t) for t in zip(*outs))
+
+
+def check_ring(dp, device, mesh) -> dict:
+    """Phase 12 (b): stages.ring_match_pairs over the group (the ring
+    matcher, K2 at every step) against the block matcher on every
+    exhaustive pair, kept where it finds match.min_matches: the same pairs,
+    indices and masks."""
+    import numpy as np
+
+    from sfm_tpu_torch.pipeline import stages
+
+    feats, cfg = dp["feats"], dp["cfg"]
+    t0 = time.perf_counter()
+    ring, launches = counted(lambda: stages.ring_match_pairs(feats, cfg, device, mesh))
+    ring_s = time.perf_counter() - t0
+    pairs = stages.exhaustive_pairs(len(feats.xy))
+    t0 = time.perf_counter()
+    ii, jj, ok = block_matches(feats, pairs, cfg, device)
+    block_s = time.perf_counter() - t0
+    keep = ok.sum(-1) >= cfg.match.min_matches
+    same = [np.array_equal(a, b) for a, b in zip(ring, (pairs[keep], ii[keep], jj[keep], ok[keep]))]
+    if not all(same) or (device.type == "cuda" and not launches.get("match_topk2")):
+        raise AssertionError(f"ring matcher: pairs, idx_i, idx_j, valid equal {same}; launches {launches}")
+    return dict(ring=ring, launches=launches, pairs=int(keep.sum()), exhaustive=len(pairs),
+                ring_s=ring_s, block_s=block_s)
+
+
+def check_sharded_verify(dp, ring, device, mesh) -> dict:
+    """Phase 12 (c): the match + verify stage as a multi-device run calls it
+    (the ring's matches verified, each process its share of every pair
+    block, then all_gather) against the single-card stage on the same pairs
+    (the block matcher's matches, equal to the ring's by (b)), on the ring's
+    first DIST_VERIFY_PAIRS pairs: every field of the graph identical."""
+    import numpy as np
+
+    from sfm_tpu_torch.pipeline import stages
+
+    feats, cfg, intr = dp["feats"], dp["cfg"], dp["intrinsics"]
+    pairs, pi, pj, pv = (a[:DIST_VERIFY_PAIRS] for a in ring["ring"])
+    t0 = time.perf_counter()
+    single = stages.match_and_verify_stage(feats, pairs, intr, cfg, device, seed=cfg.seed)
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph, launches = counted(lambda: stages.match_and_verify_stage(
+        feats, pairs, intr, cfg, device, seed=cfg.seed, prematched=(pi, pj, pv), mesh=mesh))
+    sharded_s = time.perf_counter() - t0
+    fields = ("pairs", "idx_i", "idx_j", "inlier", "num_inliers", "num_h_inliers", "rvec", "tvec", "ok",
+              "pose_ok")
+    differ = [f for f in fields if not np.array_equal(getattr(single, f), getattr(graph, f))]
+    if differ:
+        raise AssertionError(f"pair-sharded verify: {differ} differ from the single-card graph")
+    return dict(launches=launches, verified=int(graph.ok.sum()), pairs=len(pairs), single_s=single_s,
+                sharded_s=sharded_s)
+
+
+def sharded_local(prob):
+    """The rows a one-process group solves: shard_problem_by_camera's rows of
+    shard 0, sorted by point (dist.sharded_ba.local_rows)."""
+    from sfm_tpu_torch.dist.sharded_ba import local_rows, shard_problem_by_camera
+
+    return local_rows(shard_problem_by_camera(prob, 1), 0, 1)
+
+
+def pose_gaps(cams, ref, prob) -> dict:
+    """How far the cameras `cams` [C, D] sit from `ref` beyond the BA's
+    gauge: only camera 0 is fixed, so the problem's scale is free and the LM
+    moves along it by rounding alone. The rotations (and the intrinsic
+    columns at D = 8) as they are; the camera centres after a Sim(3)
+    alignment of cams' onto ref's; over the cameras with a weighted
+    observation (the others are padding). Also the raw max |cams - ref|."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.geometry.rotations import so3_exp
+    from sfm_tpu_torch.geometry.similarity import umeyama_np
+
+    seen = torch.bincount(prob.obs_cam[prob.obs_w > 0].long(), minlength=prob.num_cameras) > 0
+    a, b = cams[seen].double().cpu(), ref[seen].double().cpu()
+
+    def centres(c):
+        return (-torch.einsum("kji,kj->ki", so3_exp(c[:, :3]), c[:, 3:6])).numpy()
+
+    ca, cb = centres(a), centres(b)
+    s, R, t = umeyama_np(ca, cb)
+    cols = [0, 1, 2] + list(range(6, a.shape[1]))
+    return dict(rotations=float((a[:, cols] - b[:, cols]).abs().max()),
+                centres_aligned=float(np.linalg.norm(s * ca @ R.T + t - cb, axis=1).max()),
+                raw=float((a - b).abs().max()))
+
+
+def check_sharded_ba(prob, cfg, device, mesh, what: str, iterations: int | None = None) -> dict:
+    """Phase 12 (d), (e): dist.sharded_ba.bundle_adjust_sharded over the
+    group against the single-card bundle_adjust on the same problem: final
+    cost within DIST_COST_RTOL, the poses within DIST_CAMS_ATOL
+    (tests/distributed/test_sharding.py's bars; the rotations and the camera
+    centres after a Sim(3) alignment, pose_gaps: on the ring's final BA the
+    first run found the raw parameters 5.2e-3 apart at the same fp32 cost),
+    a rerun bit-identical, no
+    plain version handed a CUDA tensor, the launch counts set to 0 just
+    before and read just after. With `iterations` the LM runs that many
+    iterations, and the sharded one 1 .. iterations - 1 more: its cost must
+    fall at every one. The rerun is of the whole solve with `iterations`,
+    else of the first DIST_RERUN_ITERATIONS iterations, twice (a sharded
+    CG step is ~40 launches from Python, PERF.md)."""
+    import dataclasses
+
+    import torch
+
+    from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.dist.sharded_ba import bundle_adjust_sharded, shard_problem_by_camera
+
+    if iterations is not None:
+        cfg = dataclasses.replace(cfg, max_iterations=iterations)
+    t0 = time.perf_counter()
+    single, s_stats = core.bundle_adjust(prob, cfg)
+    sync(device)
+    single_s = time.perf_counter() - t0
+    sharded = shard_problem_by_camera(prob, mesh.size)
+    with forbid_plain() as plain:
+        t0 = time.perf_counter()
+        (out, stats), launches = counted(lambda: bundle_adjust_sharded(sharded, cfg, mesh))
+        sync(device)
+        sharded_s = time.perf_counter() - t0
+        # The rerun: of the whole solve where it is `iterations` long, else
+        # of its first DIST_RERUN_ITERATIONS iterations, twice.
+        short = dataclasses.replace(cfg, max_iterations=iterations or DIST_RERUN_ITERATIONS)
+        first = out if iterations else bundle_adjust_sharded(sharded, short, mesh)[0]
+        again = bundle_adjust_sharded(sharded, short, mesh)[0]
+        costs = [float(stats.initial_cost)]
+        for k in range(1, iterations or 0):
+            costs.append(float(bundle_adjust_sharded(sharded, dataclasses.replace(cfg, max_iterations=k),
+                                                     mesh)[1].final_cost))
+        costs.append(float(stats.final_cost))
+    r = dict(what=what, C=prob.num_cameras, O=int(prob.obs_w.shape[0]), width=prob.cam_params.shape[-1],
+             single_cost=float(s_stats.final_cost), sharded_cost=float(stats.final_cost),
+             single_iterations=int(s_stats.iterations), sharded_iterations=int(stats.iterations),
+             poses=pose_gaps(out.cam_params, single.cam_params, prob),
+             single_s=single_s, sharded_s=sharded_s, plain_calls=sorted(set(plain)), launches=launches)
+    r["cost_rel"] = abs(r["sharded_cost"] / r["single_cost"] - 1.0)
+    if iterations is not None:
+        r["costs_by_iteration"] = costs
+    bad = []
+    if not r["cost_rel"] <= DIST_COST_RTOL:
+        bad.append("cost")
+    if not max(r["poses"]["rotations"], r["poses"]["centres_aligned"]) <= DIST_CAMS_ATOL:
+        bad.append("poses")
+    if not (torch.equal(first.cam_params, again.cam_params) and torch.equal(first.points, again.points)):
+        bad.append("rerun")
+    if plain:
+        bad.append("plain versions on the card")
+    if iterations is not None and not all(b < a for a, b in zip(costs, costs[1:])):
+        bad.append("cost by iteration")
+    if bad:
+        raise AssertionError(f"sharded BA ({what}): {bad} off: {r}")
+    return r
+
+
+def ne_sums_bytes_ops(prob, inv) -> tuple[int, int]:
+    """What K3's sharded mode must move and compute: K3's reads (ne_bytes_ops
+    without lam), W [3D, O] and the sums written once (Hcc, bc, the point
+    sums [P, 9]); the packed camera rows are scratch. Operations: K3's per
+    observation, 9 per observation for the point sums, D^2 + D per weighted
+    observation for the camera sums."""
+    O, C, P, D = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, prob.cam_params.shape[-1]
+    N, M = inv.cam_inv_perm.numel(), inv.cam_perm.numel()
+    rows = D * D + D
+    moved = 4 * (2 * N + 5 * N + N + 3 * P + (D + 6) * C + P + 1 + C + 1
+                 + 3 * D * O + 9 * P + rows * C)
+    return moved, (300 if D == 6 else 420) * N + 9 * N + rows * M
+
+
+# check_big's bar for K4 against float64 on the merged model: there the
+# world origin lies many depths from a camera's points, R p + t cancels, and
+# any fp32 evaluation of a residual moves its IRLS weight by ~1e-4.
+MERGED_NE_BAR = 1e-3
+
+
+def check_sharded_kernels(prob, cfg, device, what: str, f64_bar: float | None = None) -> dict:
+    """Phase 12 (f): K3's sharded mode and both halves of K11 on the rows a
+    one-process group solves (sharded_local) at its first LM iteration,
+    against their plain versions in float64 on the same fp32 inputs:
+    - fused_ne_sums: Hcc and the point blocks sym(Jp^T Jp) within NE_BAR of
+      each block's max |value|, bc and bp within NE_BAR of their term scale
+      (rhs_scales), W within NE_PAYLOAD_BAR of its max (check_ba's bars; on
+      the merged model every one within f64_bar, MERGED_NE_BAR there); and
+      the bits of K3 (the same device code, undamped) wherever K3 writes
+      the same sums: W, bc, bp (the point sums' last three columns) and
+      Hcc off its diagonal;
+    - coupling_point_half (a random v) and coupling_camera_half (a random
+      h) within 1e-5 of the output's max (check_schur's K11 bar); composed
+      through the damped, inverted point blocks, within 1e-5 of K11 itself;
+    - identical bits on a rerun, for each.
+    Each timed beside its plain version in fp32 and its bound. An 8-wide
+    problem runs the `_w8` builds."""
+    import torch
+
+    from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.kernels import ba_kernels as kb
+
+    local = sharded_local(prob)
+    inv = core.solve_invariants(local, core.near_plane_floor(local))
+    O, C, P, D = local.obs_w.shape[0], local.num_cameras, local.num_points, local.cam_params.shape[-1]
+    N, M = inv.cam_inv_perm.numel(), inv.cam_perm.numel()
+    suffix = "" if D == 6 else "_w8"
+    shape = f"{what}: O={O} ({N} in point segments) C={C} P={P}"
+    loss = (cfg.robust_loss, cfg.robust_scale_px)
+    f64 = lambda t: None if t is None else t.double()
+
+    def ne_args(dt=lambda t: t):
+        return (local.obs_cam, local.obs_point, dt(local.points), dt(inv.static_t),
+                dt(local.cam_params.contiguous()), dt(local.intrinsics), inv.point_bounds, inv.cam_perm,
+                inv.cam_bounds)
+
+    ne = lambda: kb.fused_ne_sums(*ne_args(), inv.cam_inv_perm, inv.z_floor, *loss, plan=inv.pcg_plan)
+    out = ne()
+    ref = kb.fused_ne_sums_plain(*ne_args(f64), f64(inv.z_floor), *loss)
+    cam_scale, pt_scale = rhs_scales(local, inv, local.points, inv.z_floor, loss)
+    errs = {"Hcc": float(block_errors(out[0], ref[0], ref[0].abs()).max()),
+            "W_t": float((out[1].double() - ref[1]).abs().max()) / max(float(ref[1].abs().max()), 1e-30),
+            "bc": float(block_errors(out[2], ref[2], cam_scale).max()),
+            "Hpp": float(block_errors(out[3][:, :6], ref[3][:, :6], ref[3][:, :6].abs()).max()),
+            "bp": float(block_errors(out[3][:, 6:], ref[3][:, 6:], pt_scale).max())}
+    bars = {"Hcc": NE_BAR, "W_t": NE_PAYLOAD_BAR, "bc": NE_BAR, "Hpp": NE_BAR, "bp": NE_BAR}
+    off = [k for k, bar in bars.items() if not errs[k] <= (f64_bar or bar)]
+    lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
+    k3 = kb.fused_ne_payloads(*ne_args(), inv.cam_inv_perm, lam, inv.z_floor, *loss, plan=inv.pcg_plan)
+    off_diag = ~torch.eye(D, dtype=torch.bool, device=device)
+    twin = {"W_t": torch.equal(out[1], k3[2]), "bc": torch.equal(out[2], k3[3]),
+            "bp": torch.equal(out[3][:, 6:9], k3[4]), "Hcc": torch.equal(out[0][:, off_diag], k3[0][:, off_diag])}
+    if off or not all(twin.values()) or not all(torch.equal(a, b) for a, b in zip(out, ne())):
+        raise AssertionError(f"fused_ne_sums ({shape}): {off} off, bits of K3 {twin}, or a rerun "
+                             f"differs; errors {errs}")
+    moved, ops = ne_sums_bytes_ops(local, inv)
+    results = {"fused_ne_sums" + suffix: dict(
+        shape=shape, max_abs_err=float(max((a.double() - b).abs().max() for a, b in zip(out, ref))),
+        ms=time_ms(ne, device),
+        plain_ms=time_ms(lambda: kb.fused_ne_sums_plain(*ne_args(), inv.z_floor, *loss), device),
+        library_ms=None, **bound(moved, ops, FP32_OPS_PER_S), device_ms=device_ms(ne, device),
+        note=f"{shape}: errors vs float64 " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+             + "; K3's bits (W, bc, bp, Hcc off its diagonal); deterministic")}
+
+    W_t = out[1]
+    gen = torch.Generator(device=device).manual_seed(11)
+    v = torch.randn((C, D), generator=gen, device=device)
+    h = torch.randn((P, 3), generator=gen, device=device)
+    point = lambda: kb.coupling_point_half(W_t, local.obs_cam, inv.point_bounds, v)
+    camera = lambda: kb.coupling_camera_half(W_t, local.obs_point, inv.point_bounds, inv.cam_perm,
+                                             inv.cam_bounds, inv.cam_inv_perm, h)
+    g, y = point(), camera()
+    g_err, g_rel = max_rel(g, kb.coupling_point_half_plain(W_t.double(), local.obs_cam, inv.point_bounds,
+                                                           v.double()))
+    y_err, y_rel = max_rel(y, kb.coupling_camera_half_plain(W_t.double(), local.obs_point, inv.cam_perm,
+                                                            inv.cam_bounds, h.double()))
+    # The halves composed through the damped, inverted point blocks: K11.
+    hinv = core._sym_solve3_big(core._damp_big(core._sym3_big(out[3][:, :6]), lam)).contiguous()
+    hg = torch.einsum("pij,pj->pi", hinv, g).contiguous()
+    composed = kb.coupling_camera_half(W_t, local.obs_point, inv.point_bounds, inv.cam_perm, inv.cam_bounds,
+                                       inv.cam_inv_perm, hg)
+    k11 = kb.schur_coupling_matvec(W_t, hinv, local.obs_cam, local.obs_point, inv.point_bounds,
+                                   inv.cam_perm, inv.cam_bounds, v, inv.cam_inv_perm)
+    k11_rel = max_rel(composed, k11)[1]
+    if not (g_rel <= 1e-5 and y_rel <= 1e-5 and k11_rel <= 1e-5 and torch.equal(g, point())
+            and torch.equal(y, camera())):
+        raise AssertionError(f"K11 halves ({shape}): point half {g_rel:.2e}, camera half {y_rel:.2e}, "
+                             f"composed vs K11 {k11_rel:.2e}, or a rerun differs")
+    # Bytes: W's 3D rows of the N observations, their camera ids (point
+    # half) or camera-sorted places (camera half), the point segments, v
+    # and g (point half) or h, the camera segments and the output (camera
+    # half). Operations: 6D multiply-adds and 3 adds per observation, or
+    # 6D and D per weighted observation.
+    results["coupling_point_half" + suffix] = dict(
+        shape=shape, max_abs_err=g_err, ms=time_ms(point, device),
+        plain_ms=time_ms(lambda: kb.coupling_point_half_plain(W_t, local.obs_cam, inv.point_bounds, v), device),
+        library_ms=None, **bound(4 * (3 * D * N + N + P + 1 + D * C + 3 * P), 6 * D * N + 3 * N, FP32_OPS_PER_S),
+        device_ms=device_ms(point, device),
+        note=f"{shape}: rel err {g_rel:.2e} vs float64, deterministic; composed with the camera half "
+             f"through Hpp^-1: {k11_rel:.2e} from K11")
+    results["coupling_camera_half" + suffix] = dict(
+        shape=shape, max_abs_err=y_err, ms=time_ms(camera, device),
+        plain_ms=time_ms(lambda: kb.coupling_camera_half_plain(W_t, local.obs_point, inv.cam_perm,
+                                                               inv.cam_bounds, h), device),
+        library_ms=None, **bound(4 * (3 * D * N + N + P + 1 + 3 * P + C + 1 + D * C), 6 * D * N + D * M,
+                                 FP32_OPS_PER_S),
+        device_ms=device_ms(camera, device),
+        note=f"{shape}: rel err {y_rel:.2e} vs float64, deterministic")
+    return results
+
+
+def sharded_lm_report(prob, cfg, device, mesh) -> dict:
+    """Phase 12 (g): the sharded LM's steps on the rows a one-process group
+    solves, at the first LM iteration, as lm_report gives the single-card
+    ones: the normal-equation build (K3's sharded mode, the all_reduce, the
+    damping and inversions, K7 standalone and its all_reduce), the rhs and
+    the PCG solve (pcg_loop over the halves of K11, two all_reduces a step),
+    the candidate (K11's point half, its all_reduce, K5 in its cost mode and
+    the all_reduce of its sums), each as device launches, device ms and
+    event ms per call (the solve: one traced session, the median of 5
+    timed calls); then bundle_adjust_sharded for DIST_TRACED_ITERATIONS
+    iterations under torch.profiler (one session): device launches and
+    device ms per LM iteration, device busy ms, wall ms, idle share."""
+    import dataclasses
+
+    import torch
+
+    from sfm_tpu_torch.ba import core
+    from sfm_tpu_torch.dist.sharded_ba import bundle_adjust_sharded, shard_problem_by_camera
+
+    group = mesh.group
+    local = sharded_local(prob)
+    inv = core.solve_invariants(local, core.near_plane_floor(local, group))
+    lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=device)
+    cams, points = local.cam_params, local.points
+    build = lambda: core.build_normal_equations(local, cams, points, lam, cfg, inv, group=group)
+    ne = build()
+    solve = lambda: core._pcg(ne, local, core._schur_rhs(ne, local, inv, group), cfg, inv, group)
+    dc = solve()
+    # The solve and the whole LM are ~2,900 launches an iteration: one traced
+    # session each (three took ~60 s of phase 12 in the profiler's own host
+    # work).
+    launches, ms, top = per_call(traced(solve, sessions=1)[0], 1)
+    rows = {"NE build": profile_calls(build, device, calls=5),
+            "rhs + PCG": dict(launches=launches, device_ms=ms, event_ms=time_ms(solve, device, runs=5),
+                              top=top[:4]),
+            "candidate": profile_calls(lambda: core.lm_candidate(ne, local, dc, cams, points, cfg, inv, group),
+                                       device, calls=5)}
+    sharded = shard_problem_by_camera(prob, mesh.size)
+    short = dataclasses.replace(cfg, max_iterations=DIST_TRACED_ITERATIONS)
+    trace, wall, (_, stats) = traced(lambda: bundle_adjust_sharded(sharded, short, mesh), sessions=1)
+    its = max(int(stats.iterations), 1)
+    busy = device_time_ms(trace)[0]
+    rows["bundle_adjust_sharded"] = dict(lm_iterations=its, launches_per_lm_iteration=device_launches(trace) / its,
+                                         device_ms=busy, device_ms_per_lm_iteration=busy / its, wall_ms=wall,
+                                         idle_share=1.0 - busy / wall)
+    return rows
+
+
+def run_sharded(imgs, ring_ba, polish_ba, device) -> dict:
+    """Phase 12: one process joins a one-process NCCL group on the card
+    through dist.mesh and runs every multi-device route against the
+    single-card one: (a)-(c) on the refined phase's 46 views, (d) on phase
+    5's final global BA problem at 6 and 8 wide, (e) on phase 8's merged
+    polish problem for DIST_POLISH_ITERATIONS iterations, (f) the new
+    kernel entries at (d)'s and (e)'s shapes, (g) the sharded LM
+    iteration's launches, each logged as it is done. Returns the rows of
+    the kernels' record and the launches of the sharded routes (one
+    path)."""
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.ba import build_problem
+
+    mesh = join_group(device)
+    try:
+        launches = {}
+        dp = check_dp_extract(imgs, device, mesh)
+        add_launches(launches, dp["launches"])
+        log("[dist] (a) DP extraction: " + json.dumps(
+            {k: dp[k] for k in ("views", "keypoints", "single_s", "dp_s", "launches")}) + " identical")
+        ring = check_ring(dp, device, mesh)
+        add_launches(launches, ring["launches"])
+        log("[dist] (b) ring matcher: " + json.dumps(
+            {k: ring[k] for k in ("pairs", "exhaustive", "ring_s", "block_s", "launches")}) + " identical")
+        ver = check_sharded_verify(dp, ring, device, mesh)
+        add_launches(launches, ver["launches"])
+        log("[dist] (c) pair-sharded verify: " + json.dumps(ver) + " identical")
+        del dp, ring
+
+        prob, cfg, rec = ring_ba
+        prob8, _, _ = build_problem(rec, refine_intrinsics=True, device=device)
+        cfg8 = refine_config(cfg)
+        polish, polish_cfg = polish_ba
+        for args in ((prob, cfg, "final global BA"), (prob8, cfg8, "final global BA, 8 wide"),
+                     (polish, polish_cfg, "merged polish", DIST_POLISH_ITERATIONS)):
+            r = check_sharded_ba(args[0], args[1], device, mesh, *args[2:])
+            add_launches(launches, r["launches"])
+            log(f"[dist] ({'e' if r['what'] == 'merged polish' else 'd'}) sharded BA: " + json.dumps(r))
+        t0 = time.perf_counter()
+        results = {**check_sharded_kernels(prob, cfg, device, "final global BA"),
+                   **check_sharded_kernels(prob8, cfg8, device, "final global BA, 8 wide")}
+        big = check_sharded_kernels(polish, polish_cfg, device, "merged polish", f64_bar=MERGED_NE_BAR)
+        for k, r in big.items():
+            results[k]["shapes"] = [dict(results[k]), r]
+        log(f"[dist] (f) the three entries held and timed at three shapes in {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        for what, p, c in (("final global BA", prob, cfg), ("merged polish", polish, polish_cfg)):
+            log(f"[lm] sharded LM, {what}: " + json.dumps(sharded_lm_report(p, c, device, mesh)))
+        log(f"[dist] (g) profiled in {time.perf_counter() - t0:.2f}s")
+        missing = [k for k in SHARDED_KERNELS + SHARDED_WIDE if not launches.get(k)]
+        if device.type == "cuda" and missing:
+            raise AssertionError(f"phase 12: never launched {missing}")
+        return dict(results=results, launches=launches)
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -2818,6 +3346,7 @@ def main() -> int:
                                     "incremental_features_stage_s": rec.stage_seconds["features"]}))
     del images, valid_hw
     paths = {"two_view": two_view_launches, "incremental": launches}
+    ring_ba = (final["problem"], final["cfg"], inc_rec)   # phase 12 shards this BA
     del ba_log, final
 
     # Divide and conquer on the same views: clusters reconstructed by the
@@ -2925,6 +3454,7 @@ def main() -> int:
     results["match_topk2"]["shapes"] = k2_shapes
     results["cam_segment_sum"]["shapes"] = results["cam_segment_sum"]["shapes"] + k9_big
     log(f"[kernel] twins on the merged polish's problem (ms): {json.dumps(twins)}")
+    polish_ba = (first["problem"], first["cfg"])   # phase 12 shards this BA
     del polish, first
 
     # Intrinsics refinement at full width, the only path of 8-wide camera
@@ -2940,7 +3470,6 @@ def main() -> int:
     log("[refined] ring BA from focal " + f"{REFINED_BA_FOCAL * INC_FOCAL:g} (rendered {INC_FOCAL:g}), k1 0: "
         + json.dumps(refined_ba))
     paths["refined_ba"] = refined_ba["launches"]
-    del inc_rec
     orbit_ba = run_refined_ba(orbit_reconstruction(*REFINED_ORBIT, outliers=0.0), inc_cfg, device,
                               SLICE_FOCAL, recover=True)
     log("[refined] orbit BA from focal " + f"{REFINED_BA_FOCAL * SLICE_FOCAL:g} (rendered {SLICE_FOCAL:g}), "
@@ -2955,11 +3484,24 @@ def main() -> int:
     if rr["failed"]:
         raise AssertionError(f"refined reconstruction: {rr['failed']} off: {rr}")
     paths["refined"] = refined["launches"]
-    del refined
+    ring_views = refined["imgs"]
+    del refined, inc_rec
+
+    # Several devices: the multi-device routes in a one-process NCCL group
+    # on the card, each against the single-card route.
+    t0 = time.perf_counter()
+    sharded = run_sharded(ring_views, ring_ba, polish_ba, device)
+    del ring_views, ring_ba, polish_ba
+    log_results("sharded BA", sharded["results"])
+    for k in SHARDED_KERNELS:
+        log_shapes(k, sharded["results"][k]["shapes"])
+    results.update(sharded["results"])
+    paths["sharded"] = sharded["launches"]
+    log(f"[dist] phase 12 wall {time.perf_counter() - t0:.2f}s; launches {json.dumps(sharded['launches'])}")
     log("[lm] launches by path: " + json.dumps(
         {k: {name: p.get(k, 0) for name, p in paths.items()}
          for k in ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce",
-                   "pcg_solve", "pcg_solve_big") + WIDE_KERNELS}))
+                   "pcg_solve", "pcg_solve_big") + WIDE_KERNELS + SHARDED_KERNELS + SHARDED_WIDE}))
 
     # K10's and K11's rows count the launches that run their code (INSIDE).
     by_path = {k: {name: p.get(INSIDE.get(k, k), 0) for name, p in paths.items()} for k in KERNELS}

@@ -11,11 +11,14 @@ from sfm_tpu_torch.config import PipelineConfig
 
 def resolve_device(device) -> torch.device:
     """torch.device for the device stages; "cuda" without a visible GPU
-    raises: nothing moves to the CPU silently."""
+    raises: nothing moves to the CPU silently. Under a launcher that sets
+    LOCAL_RANK (torchrun: one process per card), "cuda" is cuda:LOCAL_RANK."""
+    from sfm_tpu_torch.dist.mesh import local_device
+
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but no CUDA device is available")
-    return device
+    return local_device(device)
 
 
 def reconstruct(images: Sequence, config: PipelineConfig | None = None, device="cuda", **overrides):

@@ -1,5 +1,5 @@
-"""Schur-complement Levenberg-Marquardt bundle adjustment, single device
-(port of the single-chip path of sfm_tpu/ba/core.py).
+"""Schur-complement Levenberg-Marquardt bundle adjustment (port of
+sfm_tpu/ba/core.py), on one device or camera-sharded over a process group.
 
   residual r_o = project(point_p, cam_c) - uv_o, robustified by IRLS
   normal equations in segment-sum form (kernel K3: one pass over the point
@@ -40,6 +40,21 @@ package has no two-level kernel, so the whole set switches at one threshold.
 8-wide camera blocks run through the same kernels at width 8 up to MAX_CAMS
 cameras (sfm_tpu runs them as plain XLA: its kernels take six columns only);
 past MAX_CAMS they raise NotImplementedError (ROADMAP.md queue 1 item 2b).
+
+The camera-sharded LM (dist/sharded_ba.py) passes `group`, the
+torch.distributed process group whose processes each hold the observations
+of their cameras (None: one device, as sfm_tpu's axis_name=None). Where
+sfm_tpu psums, an all_reduce completes the sum: both depth sums of the
+near-plane floor, the cost's numerator and denominator, the normal
+equations (Hcc, bc and the point sums, all-reduced undamped: K3's sharded
+mode, or K4 + K9 past MAX_CAMS; the damping and the 3x3 inversions after),
+the Schur-Jacobi blocks (K7's standalone entry from the summed Hpp^-1, or
+K8 + K9), the rhs, both halves of the coupling matvec (K11's point half and
+camera half) and the back-substitution. The solve is always PCG (sfm_tpu's
+dense route is single-device only), as pcg_loop's Python steps over the
+sharded matvec: two all_reduces a step; the CG dot products are over
+replicated [C, D] vectors. The candidate's cost is K5 in its cost mode (or
+K6), its point step formed from the all-reduced point half.
 """
 
 from __future__ import annotations
@@ -54,12 +69,21 @@ from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.geometry.rotations import so3_hat, so3_right_jacobian
 from sfm_tpu_torch.kernels import on_cuda
 from sfm_tpu_torch.kernels.ba_kernels import (
-    MAX_CAMS, LMStep, PcgPlan, cam_segment_sum, fused_cost_sums, fused_cost_sums_big,
-    fused_ne_payloads, fused_ne_payloads_big, invert_permutation, pcg_launch_plan, pcg_solve,
-    projection, segment_bounds, whw_payloads_big,
+    MAX_CAMS, LMStep, PcgPlan, cam_segment_sum, coupling_camera_half, coupling_point_half,
+    fused_cost_sums, fused_cost_sums_big, fused_ne_payloads, fused_ne_payloads_big, fused_ne_sums,
+    invert_permutation, pcg_launch_plan, pcg_loop, pcg_solve, projection, segment_bounds,
+    whw_cam_reduce, whw_payloads_big,
 )
 
 _DENSE_MAX_VOLUME = 4 << 20   # C * O gate of the dense reduced solve
+
+
+def _psum(t: torch.Tensor, group) -> torch.Tensor:
+    """sfm_tpu's _maybe_psum: t summed over the group's processes (in place;
+    every process gets the same bits), or t itself for one device."""
+    if group is not None:
+        torch.distributed.all_reduce(t, group=group)
+    return t
 
 
 def residual_jac_analytic(cams_o, pts_o, intr_o, uv):
@@ -166,19 +190,32 @@ def _pts_t(prob: BAProblem, points: torch.Tensor) -> torch.Tensor:
 
 
 def compute_cost(prob: BAProblem, cam_params, points, cfg: BAConfig,
-                 inv: SolveInvariants | None = None) -> torch.Tensor:
+                 inv: SolveInvariants | None = None, group=None) -> torch.Tensor:
     """Robustified mean cost over valid observations (0-d tensor), with the
-    near-plane gate of inv.z_floor at these parameters."""
+    near-plane gate of inv.z_floor at these parameters; with a group, the
+    numerator and denominator summed over its processes before the
+    division."""
     if inv is None:
         inv = solve_invariants(prob)
     if uses_big_kernels(prob):
         sums = fused_cost_sums_big(_pts_t(prob, points), inv.static_t,
                                    _rows_t(cam_params, prob.obs_cam), inv.intr_t, inv.z_floor,
                                    cfg.robust_loss, cfg.robust_scale_px)
+        sums = _psum(sums, group)
         return sums[0] / sums[1].clamp_min(1.0)
-    return fused_cost_sums(prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t,
+    sums = fused_cost_sums(prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t,
                            cam_params.contiguous(), prob.intrinsics, inv.point_bounds, inv.z_floor,
-                           cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan)[2][2]
+                           cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan)[2]
+    if group is None:
+        return sums[2]
+    sums = _psum(sums[:2].clone(), group)
+    return sums[0] / sums[1].clamp_min(1.0)
+
+
+def ba_cost(prob: BAProblem, cfg: BAConfig) -> torch.Tensor:
+    """The robustified mean cost at the problem's own parameters, without
+    the near-plane gate (sfm_tpu's ba_cost)."""
+    return compute_cost(prob, prob.cam_params, prob.points, cfg)
 
 
 class NormalEq(NamedTuple):
@@ -193,13 +230,16 @@ class NormalEq(NamedTuple):
 
 
 def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConfig,
-                           inv: SolveInvariants, schur_jacobi: bool = False) -> NormalEq:
+                           inv: SolveInvariants, schur_jacobi: bool = False,
+                           group=None) -> NormalEq:
     """Damped normal-equation blocks at (cam_params, points); lam is a 0-d
     tensor. Multiplicative LM damping of the block diagonals with an
     absolute floor (kernels.ba_kernels.damp). schur_jacobi (a PCG solve's
     build, up to MAX_CAMS cameras): K3 also returns the Schur-Jacobi blocks
     in the same launches; past MAX_CAMS the preconditioner builds them
-    (K8 + K9)."""
+    (K8 + K9). With a group: _sharded_normal_equations."""
+    if group is not None:
+        return _sharded_normal_equations(prob, cam_params, points, lam, cfg, inv, group)
     if not uses_big_kernels(prob):
         out = fused_ne_payloads(
             prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
@@ -216,6 +256,43 @@ def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConf
     return NormalEq(Hcc=_damp_big(camred[:, :36].reshape(C, CAM_DIM, CAM_DIM), lam),
                     Hpp_inv=_sym_solve3_big(_damp_big(_sym3_big(red[:, :6]), lam)), W_t=w_t,
                     bc=camred[:, 36:42], bp=red[:, 6:9])
+
+
+def _sharded_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConfig,
+                              inv: SolveInvariants, group) -> NormalEq:
+    """The normal equations of the camera-sharded LM: this process's
+    undamped sums (K3's sharded mode, or K4 then K9 past MAX_CAMS)
+    all-reduced in one call, then damped and inverted (sfm_tpu's order: a
+    point without observations here has a zero block, and damping before
+    the sum would add one floor per process); the Schur-Jacobi blocks from
+    the summed Hpp^-1 (K7's standalone entry, or K8 then K9), all-reduced."""
+    C, P, D = prob.num_cameras, prob.num_points, cam_params.shape[-1]
+    if not uses_big_kernels(prob):
+        Hcc, W_t, bc, psums = fused_ne_sums(
+            prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
+            prob.intrinsics, inv.point_bounds, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm,
+            inv.z_floor, cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan)
+        sums = torch.cat([Hcc.reshape(-1), bc.reshape(-1), psums.reshape(-1)])
+    else:
+        W_t, yp_t, cam_t = fused_ne_payloads_big(
+            _pts_t(prob, points), inv.static_t, _rows_t(cam_params, prob.obs_cam), inv.intr_t,
+            inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
+        camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)  # [C, 42]
+        red = cam_segment_sum(yp_t, None, inv.point_bounds)                           # [P, 9]
+        sums = torch.cat([camred[:, :D * D].reshape(-1), camred[:, D * D:].reshape(-1), red.reshape(-1)])
+    sums = _psum(sums, group)
+    Hcc = sums[:C * D * D].reshape(C, D, D)
+    bc = sums[C * D * D:C * D * (D + 1)].reshape(C, D)
+    red = sums[C * D * (D + 1):].reshape(P, 9)
+    Hpp_inv = _sym_solve3_big(_damp_big(_sym3_big(red[:, :6]), lam)).contiguous()
+    if uses_big_kernels(prob):
+        whw = cam_segment_sum(whw_payloads_big(W_t, Hpp_inv, prob.obs_point), inv.cam_perm,
+                              inv.cam_bounds, inv.cam_inv_perm)
+    else:
+        whw = whw_cam_reduce(W_t, Hpp_inv, prob.obs_point, inv.cam_perm, inv.cam_bounds,
+                             inv.cam_inv_perm)
+    return NormalEq(Hcc=_damp_big(Hcc, lam), Hpp_inv=Hpp_inv, W_t=W_t, bc=bc,
+                    bp=red[:, 6:9].contiguous(), whw=_psum(whw, group))
 
 
 # The large-camera route's damping and inversion of its blocks (10,240
@@ -280,13 +357,13 @@ def pcg_preconditioner(ne: NormalEq, prob: BAProblem, inv: SolveInvariants
     inversion: M^-1 = D (D M D)^-1 D with D = diag(M)^-1/2. Returns
     (M^-1 [C, K, K], sqrt|diag M| [C, K]) for camera blocks of width K."""
     C, K = prob.num_cameras, ne.Hcc.shape[-1]
-    if uses_big_kernels(prob):
+    if ne.whw is not None:
+        whw = ne.whw
+    elif uses_big_kernels(prob):
         whw = cam_segment_sum(whw_payloads_big(ne.W_t, ne.Hpp_inv, prob.obs_point),
                               inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)
-    elif ne.whw is None:
-        raise ValueError("pcg_preconditioner: build the normal equations with schur_jacobi=True")
     else:
-        whw = ne.whw
+        raise ValueError("pcg_preconditioner: build the normal equations with schur_jacobi=True")
     M = ne.Hcc - whw.reshape(C, K, K)
     M.diagonal(dim1=-2, dim2=-1).add_(1e-6)
     dg = torch.sqrt(M.diagonal(dim1=-2, dim2=-1).abs().clamp_min(1e-18))
@@ -341,8 +418,19 @@ def _schur_matvec(ne: NormalEq, prob: BAProblem, V: torch.Tensor, inv: SolveInva
     return torch.einsum("cij,...cj->...ci", ne.Hcc, V) - _cam_reduce(y_t, inv)
 
 
+def _sharded_matvec(ne: NormalEq, prob: BAProblem, v: torch.Tensor, inv: SolveInvariants,
+                    group) -> torch.Tensor:
+    """S v for v [C, D] in the camera-sharded LM: K11's point half, its
+    all_reduce, h = Hpp^-1 g, the camera half and its all_reduce."""
+    g = _psum(coupling_point_half(ne.W_t, prob.obs_cam, inv.point_bounds, v), group)
+    h = torch.einsum("pij,pj->pi", ne.Hpp_inv, g).contiguous()
+    y = coupling_camera_half(ne.W_t, prob.obs_point, inv.point_bounds, inv.cam_perm,
+                             inv.cam_bounds, inv.cam_inv_perm, h)
+    return torch.einsum("cij,cj->ci", ne.Hcc, v) - _psum(y, group)
+
+
 def _pcg(ne: NormalEq, prob: BAProblem, rhs: torch.Tensor, cfg: BAConfig,
-         inv: SolveInvariants) -> torch.Tensor:
+         inv: SolveInvariants, group=None) -> torch.Tensor:
     """Preconditioned CG on the reduced camera system (kernels.ba_kernels
     pcg_loop's algorithm: Jacobi-equilibrated by D = sqrt|diag M| of the
     Schur-Jacobi preconditioner M, cfg.cg_iterations steps, converged or dead
@@ -350,14 +438,22 @@ def _pcg(ne: NormalEq, prob: BAProblem, rhs: torch.Tensor, cfg: BAConfig,
     whole solve is one pcg_solve launch (past MAX_CAMS in its streaming
     mode, with K10's coupling code)."""
     M_inv, d = pcg_preconditioner(ne, prob, inv)
+    if group is not None:   # the sharded matvec needs two all_reduces a step
+        return pcg_loop(lambda v: _sharded_matvec(ne, prob, v, inv, group), M_inv, d, rhs,
+                        cfg.cg_iterations, cfg.cg_tolerance)
     return pcg_solve(ne.W_t, ne.Hpp_inv, prob.obs_cam, prob.obs_point, inv.point_bounds,
                      inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm, ne.Hcc, M_inv, d,
                      rhs.contiguous(), cfg.cg_iterations, cfg.cg_tolerance, plan=inv.pcg_plan)
 
 
-def _schur_rhs(ne: NormalEq, prob: BAProblem, inv: SolveInvariants) -> torch.Tensor:
-    """rhs = bc - W Hpp^-1 bp."""
+def _schur_rhs(ne: NormalEq, prob: BAProblem, inv: SolveInvariants, group=None) -> torch.Tensor:
+    """rhs = bc - W Hpp^-1 bp (with a group, the W term K11's camera half,
+    all-reduced)."""
     h = torch.einsum("pij,pj->pi", ne.Hpp_inv, ne.bp)
+    if group is not None:
+        return ne.bc - _psum(coupling_camera_half(ne.W_t, prob.obs_point, inv.point_bounds,
+                                                  inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm,
+                                                  h.contiguous()), group)
     y_t = _w_apply(ne.W_t, h.index_select(0, prob.obs_point).T)
     return ne.bc - _cam_reduce(y_t, inv)
 
@@ -381,8 +477,14 @@ def _dense_schur_solve(ne: NormalEq, prob: BAProblem, rhs: torch.Tensor, inv: So
     return (y * inv_d).reshape(C, D)
 
 
-def _back_substitute(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, inv: SolveInvariants) -> torch.Tensor:
-    """dp = Hpp^-1 (bp - W^T dc)."""
+def _back_substitute(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, inv: SolveInvariants,
+                     group=None) -> torch.Tensor:
+    """dp = Hpp^-1 (bp - W^T dc) (with a group, W^T dc K11's point half,
+    all-reduced)."""
+    if group is not None:
+        g = ne.bp - _psum(coupling_point_half(ne.W_t, prob.obs_cam, inv.point_bounds,
+                                              dc.contiguous()), group)
+        return torch.einsum("pij,pj->pi", ne.Hpp_inv, g)
     u_t = _w_apply_T(ne.W_t, dc.index_select(0, prob.obs_cam).T)
     g = ne.bp - _point_reduce(u_t, inv)
     return torch.einsum("pij,pj->pi", ne.Hpp_inv, g)
@@ -397,7 +499,7 @@ def frozen_columns(cfg: BAConfig, width: int) -> dict:
 
 
 def lm_candidate(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, cam_params, points,
-                 cfg: BAConfig, inv: SolveInvariants):
+                 cfg: BAConfig, inv: SolveInvariants, group=None):
     """The LM candidate of the camera step dc: (cam_params + dc, points + dp)
     with dp = Hpp^-1 (bp - W^T dc), the steps of frozen cameras and points
     zero, and its robust mean cost (0-d). With 8-wide cameras the columns
@@ -407,7 +509,25 @@ def lm_candidate(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, cam_params, po
     (their W rows are not zero). Up to MAX_CAMS cameras one K5 launch; past
     it the back-substitution, masks and K6 as before (dc masked by
     cam_fixed after the back-substitution, as sfm_tpu does: a frozen
-    camera's W rows are zero, so the two orders agree on any finite step)."""
+    camera's W rows are zero, so the two orders agree on any finite step).
+    With a group (the camera-sharded LM): sfm_tpu's order at every camera
+    count: dp from the whole dc through the all-reduced point half, then
+    the fixed and frozen columns zeroed, then the cost (K5 in its cost mode,
+    or K6) summed over the group."""
+    if group is not None:
+        dp = _back_substitute(ne, prob, dc, inv, group)
+        zero = torch.zeros((), dtype=dc.dtype, device=dc.device)
+        dc = torch.where(prob.cam_fixed[:, None], zero, dc)
+        dp = torch.where(prob.point_fixed[:, None], zero, dp)
+        frozen = frozen_columns(cfg, cam_params.shape[-1])
+        if frozen["freeze_focal"] or frozen["freeze_distortion"]:
+            dc = dc.clone()
+            if frozen["freeze_focal"]:
+                dc[:, 6] = 0.0
+            if frozen["freeze_distortion"]:
+                dc[:, 7] = 0.0
+        new_cams, new_points = cam_params + dc, points + dp
+        return new_cams, new_points, compute_cost(prob, new_cams, new_points, cfg, inv, group)
     if not uses_big_kernels(prob):
         new_cams, new_points, sums = fused_cost_sums(
             prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
@@ -430,13 +550,17 @@ def uses_dense_solver(prob: BAProblem, cfg: BAConfig) -> bool:
     return C <= cfg.dense_schur_max_cameras and C * O <= _DENSE_MAX_VOLUME
 
 
-def near_plane_floor(prob: BAProblem) -> torch.Tensor:
+def near_plane_floor(prob: BAProblem, group=None) -> torch.Tensor:
     """The near-plane/cheirality gate's depth floor (0-d): 1e-3 of the
-    weighted RMS depth at prob's parameters. Points at or behind a camera
-    plane would inflate the normal equations by decades; every NE build and
-    cost of a solve drops the observations at or below it."""
+    weighted RMS depth at prob's parameters (with a group, both sums over
+    its processes). Points at or behind a camera plane would inflate the
+    normal equations by decades; every NE build and cost of a solve drops
+    the observations at or below it."""
     z0 = projection(prob.cam_params[prob.obs_cam.long()], prob.intrinsics[prob.obs_cam.long()],
                     prob.points[prob.obs_point.long()], prob.obs_uv)["xc2"]
+    if group is not None:
+        sums = _psum(torch.stack([(prob.obs_w * z0 * z0).sum(), prob.obs_w.sum()]), group)
+        return 1e-3 * torch.sqrt(sums[0] / sums[1].clamp_min(1.0)).clamp_min(1e-9)
     z_rms = torch.sqrt((prob.obs_w * z0 * z0).sum() / prob.obs_w.sum().clamp_min(1.0))
     return 1e-3 * z_rms.clamp_min(1e-9)
 
@@ -448,25 +572,31 @@ class BAStats(NamedTuple):
     lam: torch.Tensor
 
 
-def bundle_adjust(prob: BAProblem, cfg: BAConfig) -> tuple[BAProblem, BAStats]:
-    """Single-device LM to convergence (or cfg.max_iterations), with 6-wide
-    or 8-wide camera blocks (intrinsics refinement: build_problem's
-    refine_intrinsics, cfg.refine_focal / cfg.refine_distortion)."""
-    use_dense = uses_dense_solver(prob, cfg)
-    inv = solve_invariants(prob, near_plane_floor(prob))
+def bundle_adjust(prob: BAProblem, cfg: BAConfig, group=None) -> tuple[BAProblem, BAStats]:
+    """LM to convergence (or cfg.max_iterations), with 6-wide or 8-wide
+    camera blocks (intrinsics refinement: build_problem's
+    refine_intrinsics, cfg.refine_focal / cfg.refine_distortion). group
+    None: one device. With a process group (dist/sharded_ba.py) prob holds
+    this process's observations, sorted by point, and every sum over them is
+    completed by an all_reduce; the exit test reads the all-reduced cost, so
+    every process leaves on the same iteration."""
+    use_dense = group is None and uses_dense_solver(prob, cfg)
+    inv = solve_invariants(prob, near_plane_floor(prob, group))
 
     cam_params, points = prob.cam_params, prob.points
-    cost = cost0 = compute_cost(prob, cam_params, points, cfg, inv)
+    cost = cost0 = compute_cost(prob, cam_params, points, cfg, inv, group)
     lam = torch.tensor(cfg.initial_lambda, dtype=torch.float32, device=cam_params.device)
     it = 0
     while it < cfg.max_iterations:
-        ne = build_normal_equations(prob, cam_params, points, lam, cfg, inv, schur_jacobi=not use_dense)
-        rhs = _schur_rhs(ne, prob, inv)
+        ne = build_normal_equations(prob, cam_params, points, lam, cfg, inv,
+                                    schur_jacobi=not use_dense, group=group)
+        rhs = _schur_rhs(ne, prob, inv, group)
         if use_dense:
             dc = _dense_schur_solve(ne, prob, rhs, inv)
         else:
-            dc = _pcg(ne, prob, rhs, cfg, inv)
-        new_cams, new_points, new_cost = lm_candidate(ne, prob, dc, cam_params, points, cfg, inv)
+            dc = _pcg(ne, prob, rhs, cfg, inv, group)
+        new_cams, new_points, new_cost = lm_candidate(ne, prob, dc, cam_params, points, cfg, inv,
+                                                      group)
 
         accept = new_cost < cost
         cam_params = torch.where(accept, new_cams, cam_params)

@@ -12,6 +12,14 @@ values are parsed as JSON (pair_mode='"vocab_tree"'), else kept as strings.
 visible GPU raises. OUT_DIR holds the stage artifacts (resumed by a rerun),
 stage_timings.json, and after reconstruct the COLMAP model in sparse/ (text
 and binary) and cloud.ply.
+
+On N GPUs of one host, one process per GPU:
+
+    torchrun --nproc_per_node=N -m sfm_tpu_torch.cli reconstruct IMAGES_DIR --out OUT_DIR \
+        shard.num_devices=N shard.multihost=true
+
+--device cuda is then cuda:LOCAL_RANK; every process runs the pipeline and
+prints the summary, and the process of local rank 0 writes OUT_DIR.
 """
 
 from __future__ import annotations
@@ -84,27 +92,34 @@ def main(argv=None):
             cfg = apply_overrides(cfg, ov)
 
         if args.cmd == "reconstruct":
-            from sfm_tpu_torch.pipeline.run import run_pipeline
+            from sfm_tpu_torch.dist.mesh import mesh_for
+            from sfm_tpu_torch.pipeline.run import is_writer, run_pipeline
             from sfm_tpu_torch.scene.export import write_colmap_bin, write_colmap_text, write_ply
 
             rec = run_pipeline(args.images, cfg, device)
-            write_colmap_text(rec, os.path.join(args.out, "sparse"))
-            write_colmap_bin(rec, os.path.join(args.out, "sparse"))
-            write_ply(rec, os.path.join(args.out, "cloud.ply"))
+            if is_writer(mesh_for(cfg.shard, device)):
+                write_colmap_text(rec, os.path.join(args.out, "sparse"))
+                write_colmap_bin(rec, os.path.join(args.out, "sparse"))
+                write_ply(rec, os.path.join(args.out, "cloud.ply"))
             print(json.dumps(rec.summary()))
         else:
             # Stage-only runs: just the needed stages through the artifact store.
             from sfm_tpu_torch.config import config_hash
+            from sfm_tpu_torch.dist.mesh import initialize_multihost, mesh_for
             from sfm_tpu_torch.pipeline import ingest as ing, stages as st
+            from sfm_tpu_torch.pipeline.run import is_writer
             from sfm_tpu_torch.scene.artifacts import ArtifactStore, input_hash
 
+            if cfg.shard.multihost:
+                initialize_multihost(cfg.shard, device)
+            mesh = mesh_for(cfg.shard, device)
             batch = ing.load_images(args.images, cfg.sift)
-            store = ArtifactStore(args.out)
+            store = ArtifactStore(args.out, writable=is_writer(mesh))
             key = config_hash(cfg) + "-" + input_hash(batch.canvases, batch.names)
             if store.is_complete("features", key):
                 feats = store.load_features()
             else:
-                feats = st.extract_stage(batch, cfg, device)
+                feats = st.extract_stage(batch, cfg, device, mesh)
                 store.save_features(key, feats)
             print(f"features: {feats.valid.sum(1).tolist()}")
             if args.cmd == "match":
@@ -113,7 +128,7 @@ def main(argv=None):
                     graph = store.load_graph()
                 else:
                     graph = st.match_and_verify_stage(feats, pairs, batch.intrinsics, cfg, device,
-                                                      seed=cfg.seed)
+                                                      seed=cfg.seed, mesh=mesh)
                     store.save_graph(key, graph)
                 print(f"verified edges: {int(graph.ok.sum())}/{len(graph.pairs)}")
         return 0

@@ -177,9 +177,10 @@ class EngineConfig:
 
 @dataclass(frozen=True)
 class ShardConfig:
-    """Multi-device execution (SURVEY.md §2.7, §5.7-5.8). Kept for config
-    compatibility with sfm_tpu; the port runs one device and refuses
-    num_devices > 1 and multihost until dist/ is ported."""
+    """Multi-device execution (SURVEY.md §2.7, §5.7-5.8): one process per
+    device in a torch.distributed group of num_devices processes
+    (sfm_tpu_torch/dist). mesh_axis names sfm_tpu's mesh axis and is not
+    read by the port (a process group has one axis)."""
 
     num_devices: int = 1                # 1 => single-chip, no collectives
     mesh_axis: str = "shard"

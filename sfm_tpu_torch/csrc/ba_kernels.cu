@@ -102,6 +102,19 @@
 // columns' W rows are not zero. The large-camera-count kernels (K4, K6)
 // stay 6-wide (ROADMAP queue 1 item 2b).
 //
+// K3's sharded mode (fused_ne_sums) serves the camera-sharded LM
+// (sfm_tpu/dist/sharded_ba.py): each device holds the observations of its
+// cameras, so a point's rows span devices and its block can be damped and
+// inverted only after the sums of every device are added (sfm_tpu psums
+// Hpp, bp, Hcc and bc before its damping, sfm_tpu/ba/core.py:664-667). The
+// same two launches over the same point segments write the UNDAMPED
+// sums: per point the 6 distinct entries of sym(Jp^T Jp) and -Jp^T r
+// ([P, 9], a point without observations on this device zero), per camera
+// Hcc [C, D, D] and bc [C, D], and W as in the single-device build; no
+// damping, no inversion, no Schur-Jacobi blocks (those need the summed
+// Hpp^-1: the caller runs K7's standalone entry after the all-reduce). A
+// zero block damped on each of D devices would carry D floors.
+//
 // No float atomics anywhere: every sum is taken in an order fixed by the
 // shapes, the tables and the launch widths, so a rerun gives identical bits.
 
@@ -309,6 +322,7 @@ struct NeArgs {
   float* packed;            // [M, row]
   float* hinv;              // [P, 9]
   float* bp;                // [P, 3]
+  float* psums;             // [P, 9] undamped point sums (sharded mode: lam, hinv, bp null)
 };
 
 // Damped point block from its sums t (sym(Jp^T Jp) 6, -Jp^T r 3), inverted
@@ -348,6 +362,19 @@ __device__ __forceinline__ void finish_point(const NeArgs& a, int p, const float
     for (int j = 0; j < 3; ++j) h[3 * i + j] = co[3 * i + j] * inv_det * dinv[i] * dinv[j];
 #pragma unroll
   for (int j = 0; j < 3; ++j) a.bp[3 * (size_t)p + j] = t[6 + j];
+}
+
+// A point's sums t are complete: damped, inverted and written, or in
+// sharded mode written as they are.
+__device__ __forceinline__ void point_done(const NeArgs& a, int p, const float (&t)[9],
+                                           float lam) {
+  if (a.psums == nullptr) {
+    finish_point(a, p, t, lam);
+    return;
+  }
+  float* out = a.psums + 9 * (size_t)p;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k] = t[k];
 }
 
 // The sums over one point's observations [lo, hi) in chunk `chunk`
@@ -390,7 +417,7 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
   __shared__ float carry[2][9];
   const int b = blockIdx.x, G = gridDim.x, tid = threadIdx.x;
   const int O = a.O;
-  const float lam = *a.lam;
+  const float lam = a.lam != nullptr ? *a.lam : 0.0f;
   const int o_lo = a.point_bounds[a.block_points[b]];
   const int o_hi = a.point_bounds[a.block_points[b + 1]];
   for (int chunk = 0, c0 = o_lo; c0 < o_hi; ++chunk, c0 += kSegThreads) {
@@ -420,7 +447,7 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
       float t[9];
       if (segment_total(rows, chunk, c0, c1, a.point_bounds[pt], a.point_bounds[pt + 1], o, carry,
                         t))
-        finish_point(a, pt, t, lam);
+        point_done(a, pt, t, lam);
     }
     __syncthreads();
   }
@@ -455,7 +482,7 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
 #pragma unroll
   for (int k = 0; k < 9; ++k) zero[k] = 0.0f;
   for (int p = b * kSegThreads + tid; p < a.P; p += G * kSegThreads)
-    if (a.point_bounds[p] == a.point_bounds[p + 1]) finish_point(a, p, zero, lam);
+    if (a.point_bounds[p] == a.point_bounds[p + 1]) point_done(a, p, zero, lam);
   const int N = a.point_bounds[a.P];
   for (int o = N + b * kSegThreads + tid; o < O; o += G * kSegThreads) {
 #pragma unroll
@@ -464,7 +491,8 @@ __global__ __launch_bounds__(kSegThreads) void ne_points_kernel(const NeArgs a) 
 }
 
 // Camera c's D^2 + D sums of the packed rows [cam_bounds[c], cam_bounds[c+1]),
-// the diagonal of Hcc damped by lam diag + 1e-6; with whw (rows of
+// the diagonal of Hcc damped by lam diag + 1e-6 (undamped when lam is null:
+// the sharded mode); with whw (rows of
 // kPcgRow<D> floats) also the D (D + 1) / 2 sums of W Hpp^-1 W^T, mirrored
 // to whw [C, D^2]. The columns go in equal tiles of at most kTileRows (64):
 // one pass for the 42 or 63 columns of a 6-wide build, two of 36 or 54 for
@@ -491,11 +519,11 @@ __global__ __launch_bounds__(32 * sfm::kMaxSegmentWarps) void ne_cams_kernel(
                                  min(tile, cols - k0), part, sums + k0);
     __syncthreads();   // part is reused by the next tile; sums read below
   }
-  const float l = *lam;
+  const float l = lam != nullptr ? *lam : 0.0f;
   for (int k = threadIdx.x; k < kCamRows<D>; k += blockDim.x) {
     float v = sums[k];
     if (k < D * D) {
-      if (k % (D + 1) == 0) v = v + (l * v + 1e-6f);
+      if (lam != nullptr && k % (D + 1) == 0) v = v + (l * v + 1e-6f);
       hcc[D * D * (size_t)c + k] = v;
     } else {
       bc[D * (size_t)c + k - D * D] = v;
@@ -797,6 +825,27 @@ int fused_ne_payloads(const int* obs_cam, const int* obs_point, const float* poi
   return (int)cudaGetLastError();
 }
 
+// K3's sharded mode: the same two launches, undamped, no inversion.
+template <int D>
+int fused_ne_sums(const int* obs_cam, const int* obs_point, const float* points,
+                  const float* static_t, const float* cams, const float* intr, const float* zf,
+                  const int* point_bounds, const int* cam_inv_perm, const int* cam_bounds,
+                  const int* block_points, int O, int P, int C, int loss, float scale, int grid,
+                  int cam_warps, float* w_t, float* packed, float* psums, float* hcc, float* bc,
+                  void* stream) {
+  if (grid < 1 || cam_warps < 1 || cam_warps > sfm::kMaxSegmentWarps || psums == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const NeArgs a{obs_cam, obs_point, points, static_t, cams, intr, zf, nullptr, point_bounds,
+                 cam_inv_perm, block_points, O, P, loss, scale, kCamRows<D>, w_t, packed,
+                 nullptr, nullptr, psums};
+  ne_points_kernel<D><<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(a);
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || C == 0) return err;
+  ne_cams_kernel<D><<<C, 32 * cam_warps, 0, (cudaStream_t)stream>>>(packed, cam_bounds, nullptr,
+                                                                     hcc, bc, nullptr);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int fused_cost_sums(const int* obs_cam, const int* obs_point, const float* points,
                     const float* static_t, const float* cams, const float* intr, const float* zf,
@@ -839,6 +888,21 @@ SFM_ENTRY_BOTH_WIDTHS(
     (obs_cam, obs_point, points, static_t, cams, intr, zf, lam, point_bounds, cam_inv_perm,
      cam_bounds, block_points, O, P, C, loss, scale, grid, cam_warps, w_t, packed, hinv, bp, hcc,
      bc, whw, stream))
+
+// K3's sharded mode: K3's arguments without lam, hinv and bp; psums [P, 9]
+// gets each point's undamped sym(Jp^T Jp) (00, 01, 02, 11, 12, 22) and
+// -Jp^T r over this device's observations, hcc [C, D, D] and bc [C, D] the
+// undamped camera sums; packed [M, D^2 + D] is scratch. Two launches. The
+// _w8 entry: cams [C, 8], W [24, O], packed [M, 72], hcc [C, 64], bc [C, 8].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_fused_ne_sums, fused_ne_sums,
+    (const int* obs_cam, const int* obs_point, const float* points, const float* static_t,
+     const float* cams, const float* intr, const float* zf, const int* point_bounds,
+     const int* cam_inv_perm, const int* cam_bounds, const int* block_points, int O, int P, int C,
+     int loss, float scale, int grid, int cam_warps, float* w_t, float* packed, float* psums,
+     float* hcc, float* bc, void* stream),
+    (obs_cam, obs_point, points, static_t, cams, intr, zf, point_bounds, cam_inv_perm, cam_bounds,
+     block_points, O, P, C, loss, scale, grid, cam_warps, w_t, packed, psums, hcc, bc, stream))
 
 // K5. The same plan and tables as K3. dc == nullptr: the cost at (cams,
 // points), and cam_fixed, point_fixed, w_t, hinv, bp, frozen, new_points and

@@ -65,6 +65,14 @@
 // in pcg_solve's camera phases, and a resident slice stages 26 rows (W's 24,
 // the camera, the place): 104 bytes per observation. K8 and K10 (the
 // large-camera-count route) stay 6-wide (ROADMAP queue 1 item 2b).
+//
+// The camera-sharded LM (sfm_tpu/dist/sharded_ba.py) cannot run K11 whole:
+// a point's observations span devices, so g_p must be all-reduced before
+// h_p = Hpp^-1_p g_p. K11's point half (coupling_gather, writing g [P, 3])
+// and camera half (coupling_scatter from a given h [P, 3], then the packed
+// camera sums) are K11's own device code, two entries of their own
+// (coupling_point_half, coupling_camera_half) at both widths; the sharded
+// CG steps run them with an all-reduce after each, at every camera count.
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
@@ -203,18 +211,20 @@ struct ObservationIo {
   }
 };
 
-// One point's share of (W Hpp^-1 W^T) v, by a group of `width` lanes (a
-// power of two <= 32; lane is the lane's place in its group; all 32 lanes of
-// the warp call it together, each group with its own point, so the
-// shuffles see the whole warp; p < 0 with lo = hi for a group without a
-// point): u_o = W_o^T v_o summed over the point's observations [lo, hi)
-// into g_p, h_p = Hpp^-1_p g_p, y_o = W_o h_p written where io puts it.
-// D: the camera width (W's 3D rows, v and y of D values).
+// The point half of one point's share of the coupling, by a group of
+// `width` lanes (a power of two <= 32; lane is the lane's place in its
+// group; all 32 lanes of the warp call it together, each group with its own
+// point, so the shuffles see the whole warp; lo = hi for a group without a
+// point): g_p = sum of u_o = W_o^T v_o over the point's observations
+// [lo, hi), the same bits in every lane of the group. D: the camera width
+// (W's 3D rows, v of D values).
 template <int D, class Obs, class Io>
-__device__ __forceinline__ void coupling_point(
-    const Obs& obs, const Io& io, const float* __restrict__ hinv, int p, int lo, int hi,
-    int lane, int width) {
-  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+__device__ __forceinline__ void coupling_gather(const Obs& obs, const Io& io, int lo, int hi,
+                                                int lane, int width, float& g0, float& g1,
+                                                float& g2) {
+  g0 = 0.0f;
+  g1 = 0.0f;
+  g2 = 0.0f;
   for (int o = lo + lane; o < hi; o += width) {
     float vo[D];
     io.load_v(obs, o, vo);
@@ -236,11 +246,14 @@ __device__ __forceinline__ void coupling_point(
     g1 += __shfl_xor_sync(0xffffffffu, g1, off);
     g2 += __shfl_xor_sync(0xffffffffu, g2, off);
   }
-  if (p < 0) return;
-  const float* h = hinv + 9 * (size_t)p;
-  const float h0 = h[0] * g0 + h[1] * g1 + h[2] * g2;
-  const float h1 = h[3] * g0 + h[4] * g1 + h[5] * g2;
-  const float h2 = h[6] * g0 + h[7] * g1 + h[8] * g2;
+}
+
+// The camera half of one point's share: y_o = W_o h_p for the point's
+// observations [lo, hi), written where io puts it (the same lane groups as
+// coupling_gather).
+template <int D, class Obs, class Io>
+__device__ __forceinline__ void coupling_scatter(const Obs& obs, const Io& io, float h0, float h1,
+                                                 float h2, int lo, int hi, int lane, int width) {
   for (int o = lo + lane; o < hi; o += width) {
     const int dst = io.dest(obs, o);
     if (dst < 0) continue;  // a zero-weight row: of no camera segment
@@ -250,6 +263,58 @@ __device__ __forceinline__ void coupling_point(
       y[i] = obs.w(i * 3, o) * h0 + obs.w(i * 3 + 1, o) * h1 + obs.w(i * 3 + 2, o) * h2;
     io.store_y(dst, y);
   }
+}
+
+// One point's share of (W Hpp^-1 W^T) v (p < 0 with lo = hi for a group
+// without a point): g_p by coupling_gather, h_p = Hpp^-1_p g_p, then
+// y_o = W_o h_p by coupling_scatter.
+template <int D, class Obs, class Io>
+__device__ __forceinline__ void coupling_point(
+    const Obs& obs, const Io& io, const float* __restrict__ hinv, int p, int lo, int hi,
+    int lane, int width) {
+  float g0, g1, g2;
+  coupling_gather<D>(obs, io, lo, hi, lane, width, g0, g1, g2);
+  if (p < 0) return;
+  const float* h = hinv + 9 * (size_t)p;
+  const float h0 = h[0] * g0 + h[1] * g1 + h[2] * g2;
+  const float h1 = h[3] * g0 + h[4] * g1 + h[5] * g2;
+  const float h2 = h[6] * g0 + h[7] * g1 + h[8] * g2;
+  coupling_scatter<D>(obs, io, h0, h1, h2, lo, hi, lane, width);
+}
+
+// K11's point half (the camera-sharded LM): g [P, 3] = sum_{o in p} W_o^T
+// v[cam_o] over this device's observations, one warp per point.
+template <int D>
+__global__ __launch_bounds__(kPointThreads) void coupling_gather_kernel(
+    const float* __restrict__ w_t, const int* __restrict__ obs_cam,
+    const int* __restrict__ point_bounds, const float* __restrict__ v, int O, int P,
+    float* __restrict__ g) {
+  const int p = blockIdx.x * (kPointThreads / 32) + (threadIdx.x >> 5);
+  if (p >= P) return;
+  float g0, g1, g2;
+  coupling_gather<D>(GlobalObs{w_t, obs_cam, nullptr, O}, CameraIo<D>{v, nullptr},
+                     point_bounds[p], point_bounds[p + 1], threadIdx.x & 31, 32, g0, g1, g2);
+  if ((threadIdx.x & 31) == 0) {
+    g[3 * (size_t)p] = g0;
+    g[3 * (size_t)p + 1] = g1;
+    g[3 * (size_t)p + 2] = g2;
+  }
+}
+
+// K11's camera half: y_o = W_o h[p] at the observation's camera-sorted
+// place of y_packed [M, D], one warp per point; the packed pass of the
+// sorted-segment reduction then sums y by camera.
+template <int D>
+__global__ __launch_bounds__(kPointThreads) void coupling_scatter_kernel(
+    const float* __restrict__ w_t, const int* __restrict__ cam_inv_perm,
+    const int* __restrict__ point_bounds, const float* __restrict__ h, int O, int P,
+    float* __restrict__ y_packed) {
+  const int p = blockIdx.x * (kPointThreads / 32) + (threadIdx.x >> 5);
+  if (p >= P) return;
+  const float* hp = h + 3 * (size_t)p;
+  coupling_scatter<D>(GlobalObs{w_t, nullptr, cam_inv_perm, O}, CameraIo<D>{nullptr, y_packed},
+                      hp[0], hp[1], hp[2], point_bounds[p], point_bounds[p + 1],
+                      threadIdx.x & 31, 32);
 }
 
 template <int D>
@@ -725,6 +790,32 @@ int schur_coupling_matvec(const float* w_t, const float* hinv, const int* obs_ca
 }
 
 template <int D>
+int coupling_point_half(const float* w_t, const int* obs_cam, const int* point_bounds,
+                        const float* v, int O, int P, float* g, void* stream) {
+  if (P < 1) return 0;
+  constexpr int kPointsPerBlock = kPointThreads / 32;
+  coupling_gather_kernel<D><<<(P + kPointsPerBlock - 1) / kPointsPerBlock, kPointThreads, 0,
+                              (cudaStream_t)stream>>>(w_t, obs_cam, point_bounds, v, O, P, g);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int coupling_camera_half(const float* w_t, const int* point_bounds, const float* h,
+                         const int* cam_inv_perm, const int* cam_bounds, int O, int P, int C,
+                         int seg_warps, float* y_packed, float* out, void* stream) {
+  if (P > 0) {
+    constexpr int kPointsPerBlock = kPointThreads / 32;
+    coupling_scatter_kernel<D><<<(P + kPointsPerBlock - 1) / kPointsPerBlock, kPointThreads, 0,
+                                 (cudaStream_t)stream>>>(w_t, cam_inv_perm, point_bounds, h, O, P,
+                                                         y_packed);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  return sfm::launch_segment_sum_packed(y_packed, cam_bounds, D, C, seg_warps, out,
+                                        (cudaStream_t)stream);
+}
+
+template <int D>
 int pcg_solve(const float* w_t, const float* hinv, const int* obs_cam, const int* point_bounds,
               const int* cam_inv_perm, const int* cam_bounds, const float* hcc, const float* minv,
               const float* d, const float* rhs, const int* block_points, int O, int C,
@@ -805,6 +896,28 @@ SFM_ENTRY_BOTH_WIDTHS(
      int seg_warps, float* y_packed, float* out, void* stream),
     (w_t, hinv, obs_cam, point_bounds, v, cam_inv_perm, cam_bounds, O, P, C, seg_warps,
      y_packed, out, stream))
+
+// K11 cut at h, for the camera-sharded LM, whose point sums need an
+// all-reduce between the halves. The point half: g [P, 3] = sum over the
+// observations [point_bounds[p], point_bounds[p+1]) of W_o^T v[obs_cam[o]]
+// (v [C, D], 8-byte aligned rows at D = 6, 16-byte at D = 8), one launch.
+// The camera half: out [C, D] = sum over camera c's weighted observations
+// of W_o h[p(o)] for h [P, 3], in the packed order of the sorted-segment
+// reduction (cam_inv_perm [N], cam_bounds [C+1] as for
+// sfm_schur_coupling_matvec; y_packed [M, D] scratch), two launches.
+// Deterministic. The _w8 entries: W [24, O], v and out [C, 8].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_coupling_point_half, coupling_point_half,
+    (const float* w_t, const int* obs_cam, const int* point_bounds, const float* v, int O, int P,
+     float* g, void* stream),
+    (w_t, obs_cam, point_bounds, v, O, P, g, stream))
+
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_coupling_camera_half, coupling_camera_half,
+    (const float* w_t, const int* point_bounds, const float* h, const int* cam_inv_perm,
+     const int* cam_bounds, int O, int P, int C, int seg_warps, float* y_packed, float* out,
+     void* stream),
+    (w_t, point_bounds, h, cam_inv_perm, cam_bounds, O, P, C, seg_warps, y_packed, out, stream))
 
 // Blocks of pcg_solve (streaming mode or resident mode with smem_bytes of
 // staged slice) that one SM holds at once: the plan's grid is this times the

@@ -12,6 +12,12 @@ CAM_FX, CAM_FY, CAM_CX, CAM_CY, CAM_K1, CAM_K2 = 0, 1, 2, 3, 4, 5
 NUM_INTRINSICS = 6
 
 
+def make_intrinsics(fx, fy=None, cx=0.0, cy=0.0, k1=0.0, k2=0.0) -> torch.Tensor:
+    """[fx, fy, cx, cy, k1, k2] float32 (fy defaults to fx)."""
+    fy = fx if fy is None else fy
+    return torch.tensor([fx, fy, cx, cy, k1, k2], dtype=torch.float32)
+
+
 def distort(xy: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
     """Apply radial distortion to normalized camera coords (..., 2)."""
     k1 = intr[..., CAM_K1]

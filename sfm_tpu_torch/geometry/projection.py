@@ -17,6 +17,12 @@ def world_to_camera(x_world: torch.Tensor, rvec: torch.Tensor, t: torch.Tensor) 
     return torch.einsum("...ij,...j->...i", R, x_world) + t
 
 
+def camera_to_world(x_cam: torch.Tensor, rvec: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """x_world = R^T (x_cam - t)."""
+    R = so3_exp(rvec)
+    return torch.einsum("...ji,...j->...i", R, x_cam - t)
+
+
 def camera_center(rvec: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = so3_exp(rvec)
     return -torch.einsum("...ji,...j->...i", R, t)
@@ -30,6 +36,11 @@ def project(x_world, rvec, t, intr) -> torch.Tensor:
 def point_depth(x_world, rvec, t) -> torch.Tensor:
     """Camera-frame z of a world point; positive => in front of the camera."""
     return world_to_camera(x_world, rvec, t)[..., 2]
+
+
+def reprojection_residual(x_world, rvec, t, intr, uv_obs) -> torch.Tensor:
+    """2-vector residual: project(x) - observed pixel."""
+    return project(x_world, rvec, t, intr) - uv_obs
 
 
 def compose_poses(rvec_a, t_a, rvec_b, t_b):

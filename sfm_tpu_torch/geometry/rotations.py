@@ -39,6 +39,11 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
 
 
+def aa_to_matrix(w: torch.Tensor) -> torch.Tensor:
+    """Angle-axis -> rotation matrix (so3_exp)."""
+    return so3_exp(w)
+
+
 def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
     """Right Jacobian Jr(w) of so3_exp, (..., 3) -> (..., 3, 3):
     so3_exp(w + d) ~= so3_exp(w) so3_exp(Jr(w) d), i.e. d so3_exp / d w_k =

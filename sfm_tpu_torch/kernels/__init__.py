@@ -27,7 +27,9 @@ Wrapper contract (one Python function per kernel):
 K3, K5, K7, K11 and ``pcg_solve`` are built at two camera widths, 6 and 8
 (intrinsics refinement): each has a C entry point per width (the 8-wide one
 named ``<entry>_w8``, the same arguments) and counts its 8-wide launches
-under ``<name>_w8``.
+under ``<name>_w8``. So are the camera-sharded LM's two entries of K3 and
+K11: ``fused_ne_sums`` (K3's undamped sums) and ``coupling_point_half`` /
+``coupling_camera_half`` (K11 cut at h).
 """
 
 from __future__ import annotations
@@ -69,6 +71,13 @@ LAUNCHES: dict[str, int] = {
     "whw_cam_reduce_w8": 0,
     "schur_coupling_matvec_w8": 0,
     "pcg_solve_w8": 0,
+    # The camera-sharded LM: K3's sharded mode and K11 cut at h, both widths.
+    "fused_ne_sums": 0,
+    "coupling_point_half": 0,
+    "coupling_camera_half": 0,
+    "fused_ne_sums_w8": 0,
+    "coupling_point_half_w8": 0,
+    "coupling_camera_half_w8": 0,
 }
 
 _P = ctypes.c_void_p
@@ -89,10 +98,14 @@ _SIGNATURES = {
     "sfm_schur_coupling_payloads_big": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "sfm_pcg_blocks_per_sm": (_I, _I, ctypes.POINTER(_I)),
     "sfm_pcg_solve": (_P,) * 11 + (_I, _I, _I, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "sfm_fused_ne_sums": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 6,
+    "sfm_coupling_point_half": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "sfm_coupling_camera_half": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 # The 8-wide twins take the same arguments.
 WIDE_ENTRIES = ("sfm_fused_ne_payloads", "sfm_fused_cost_sums", "sfm_whw_cam_reduce",
-                "sfm_schur_coupling_matvec", "sfm_pcg_blocks_per_sm", "sfm_pcg_solve")
+                "sfm_schur_coupling_matvec", "sfm_pcg_blocks_per_sm", "sfm_pcg_solve",
+                "sfm_fused_ne_sums", "sfm_coupling_point_half", "sfm_coupling_camera_half")
 _SIGNATURES.update({f"{e}_w8": _SIGNATURES[e] for e in WIDE_ENTRIES})
 
 _lib: ctypes.CDLL | None = None

@@ -7,7 +7,11 @@ whole PCG solve over K10's and K11's device code in one launch
 
 Replace the functions of the same names in sfm_tpu/kernels/schur_spmv.py;
 pcg_solve replaces sfm_tpu/ba/core.py _pcg (a fori_loop over K11, or over
-K10 past its two-level kernel's reach) at every camera count. K3 also
+K10 past its two-level kernel's reach) at every camera count. The
+camera-sharded LM (dist/sharded_ba.py) runs K3 in its sharded mode
+(fused_ne_sums: the undamped sums, all-reduced before the damping and
+inversion) and K11 cut at h (coupling_point_half, coupling_camera_half:
+an all-reduce between them), with its CG steps in pcg_loop. K3 also
 takes in the reductions, damping and inversions of sfm_tpu's
 build_normal_equations (the damped normal equations in two launches, for a
 PCG solve with the Schur-Jacobi blocks of K7), and K5 the LM candidate of
@@ -334,6 +338,61 @@ def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bo
         return hcc, hinv, w_t, bc, bp, packed
     LAUNCHES[_wide("whw_cam_reduce", D)] += 1     # the launch ran K7's device code
     return hcc, hinv, w_t, bc, bp, packed, whw
+
+
+def fused_ne_sums_plain(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, cam_perm,
+                        cam_bounds, z_floor, loss: str, scale: float):
+    """Plain K3 in its sharded mode, in the inputs' dtype: the payloads of
+    fused_ne_payloads_plain summed per camera and per point, undamped ->
+    (Hcc [C, D, D], W_t [3D, O], bc [C, D], psums [P, 9]: sym(Jp^T Jp)
+    (00, 01, 02, 11, 12, 22) then -Jp^T r)."""
+    O, C, N, D = obs_cam.shape[0], cams.shape[0], int(point_bounds[-1]), cams.shape[-1]
+    w_t, yp_t, cam_t = _ne_payloads_obs_plain(
+        obs_cam[:N], points[obs_point[:N].long()].T, static_t[:, :N], cams, intr, z_floor, loss,
+        scale)
+    w_t = torch.cat([w_t, w_t.new_zeros((3 * D, O - N))], 1)
+    camred = cam_segment_sum_plain(cam_t[:, cam_perm.long()], None, cam_bounds)   # [C, D^2 + D]
+    psums = cam_segment_sum_plain(yp_t, None, point_bounds)                      # [P, 9]
+    return camred[:, :D * D].reshape(C, D, D), w_t, camred[:, D * D:], psums
+
+
+def fused_ne_sums(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, cam_perm,
+                  cam_bounds, cam_inv_perm, z_floor, loss: str, scale: float, plan=None):
+    """K3's sharded mode: fused_ne_payloads' two launches over the same
+    tables, writing the undamped sums of this device's observations ->
+    (Hcc [C, D, D], W_t [3D, O] (zero past N), bc [C, D], psums [P, 9]:
+    sym(Jp^T Jp) (00, 01, 02, 11, 12, 22) then -Jp^T r per point, zero for
+    a point without observations here). No damping, no inversion, no
+    Schur-Jacobi blocks: with the observations sharded by camera a point's
+    rows span devices, so its block is damped and inverted after the
+    all-reduce (a zero block damped on each device would add D floors).
+    D = 8 launches the 8-wide build (fused_ne_sums_w8). Deterministic."""
+    if not on_cuda(obs_cam):
+        return fused_ne_sums_plain(obs_cam, obs_point, points, static_t, cams, intr, point_bounds,
+                                   cam_perm, cam_bounds, z_floor, loss, scale)
+    O, P, C, D = obs_cam.shape[0], points.shape[0], cams.shape[0], cams.shape[-1]
+    M, N = cam_perm.shape[0], cam_inv_perm.shape[0]
+    dev = obs_cam.device
+    _check_tables(obs_cam, obs_point, points, static_t, cams, intr, point_bounds, z_floor)
+    check(cam_perm, "cam_perm", torch.int32, (M,), dev)
+    check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
+    check(cam_inv_perm, "cam_inv_perm", torch.int32, (N,), dev)
+    if not M <= N <= O:
+        raise ValueError(f"cam_perm lists {M} of {N} observations, obs_cam holds {O}")
+    if plan is None:
+        plan = pcg_launch_plan(point_bounds)
+    check(plan.block_points, "plan.block_points", torch.int32, (plan.grid + 1,), dev)
+    w_t = torch.empty((3 * D, O), dtype=torch.float32, device=dev)
+    packed = torch.empty((M, ne_cam_rows(D)), dtype=torch.float32, device=dev)
+    psums = torch.empty((P, NE_PT_ROWS), dtype=torch.float32, device=dev)
+    hcc = torch.empty((C, D, D), dtype=torch.float32, device=dev)
+    bc = torch.empty((C, D), dtype=torch.float32, device=dev)
+    launch(_wide("sfm_fused_ne_sums", D), _wide("fused_ne_sums", D),
+           ptr(obs_cam), ptr(obs_point), ptr(points), ptr(static_t), ptr(cams), ptr(intr),
+           ptr(z_floor), ptr(point_bounds), ptr(cam_inv_perm), ptr(cam_bounds),
+           ptr(plan.block_points), O, P, C, LOSS_CODES[loss], float(scale), plan.grid,
+           segment_warps(M, C), ptr(w_t), ptr(packed), ptr(psums), ptr(hcc), ptr(bc))
+    return hcc, w_t, bc, psums
 
 
 class LMStep(NamedTuple):
@@ -728,11 +787,85 @@ def schur_coupling_matvec(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_pe
     if not M <= N <= O:
         raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
     y_packed = torch.empty((M, D), dtype=torch.float32, device=dev)
-    if v.data_ptr() % (2 * D - 4):   # v's rows are read as 8-byte pairs (D = 6) or 16-byte quads (D = 8)
-        v = v.clone()
     launch(_wide("sfm_schur_coupling_matvec", D), _wide("schur_coupling_matvec", D),
-           ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(v), ptr(cam_inv_perm),
+           ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(_aligned_rows(v)),
+           ptr(cam_inv_perm),
            ptr(cam_bounds), O, P, C, segment_warps(M, C), ptr(y_packed), ptr(out))
+    return out
+
+
+def _aligned_rows(v: torch.Tensor) -> torch.Tensor:
+    """v itself when its rows can be read as 8-byte pairs (D = 6) or 16-byte
+    quads (D = 8), else an aligned copy."""
+    return v.clone() if v.data_ptr() % (8 if v.shape[-1] == 6 else 16) else v
+
+
+def coupling_point_half_plain(W_t, obs_cam, point_bounds, v):
+    """Plain K11 point half: g [P, 3], in W_t's dtype."""
+    N = int(point_bounds[-1])
+    Wm = W_t[:, :N].reshape(W_t.shape[0] // 3, 3, N)
+    u_t = torch.einsum("iko,io->ko", Wm, v[obs_cam[:N].long()].T)               # [3, N]
+    return cam_segment_sum_plain(u_t, None, point_bounds)
+
+
+def coupling_point_half(W_t, obs_cam, point_bounds, v):
+    """K11's point half, for the camera-sharded LM: g_p = sum over point
+    p's observations here of W_o^T v[cam_o] -> g [P, 3], for v [C, D].
+    Observations sorted by point, point_bounds [P+1] covering [0, N).
+    One launch of K11's point code (a warp per point); deterministic. The
+    caller all-reduces g, then h = Hpp^-1 g goes to coupling_camera_half."""
+    if not on_cuda(W_t):
+        return coupling_point_half_plain(W_t, obs_cam, point_bounds, v)
+    O, D = W_t.shape[1], _width(v.shape[-1])
+    P, C = point_bounds.shape[0] - 1, v.shape[0]
+    dev = W_t.device
+    check(W_t, "W_t", torch.float32, (3 * D, O), dev)
+    check(obs_cam, "obs_cam", torch.int32, (O,), dev)
+    check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
+    check(v, "v", torch.float32, (C, D), dev)
+    g = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    if P == 0:
+        return g
+    launch(_wide("sfm_coupling_point_half", D), _wide("coupling_point_half", D),
+           ptr(W_t), ptr(obs_cam), ptr(point_bounds), ptr(_aligned_rows(v)), O, P, ptr(g))
+    return g
+
+
+def coupling_camera_half_plain(W_t, obs_point, cam_perm, cam_bounds, h):
+    """Plain K11 camera half: [C, D], in W_t's dtype."""
+    Wm = W_t.reshape(W_t.shape[0] // 3, 3, -1)
+    y_t = torch.einsum("iko,ko->io", Wm, h[obs_point.long()].T)                  # [D, O]
+    return cam_segment_sum_plain(y_t, cam_perm, cam_bounds)
+
+
+def coupling_camera_half(W_t, obs_point, point_bounds, cam_perm, cam_bounds, cam_inv_perm, h):
+    """K11's camera half, for the camera-sharded LM: per camera the sum of
+    W_o h[p(o)] over its weighted observations here -> [C, D], for h
+    [P, 3]: y_o at the observation's camera-sorted place (a warp per point
+    over point_bounds, K11's code), then the packed pass of the
+    sorted-segment reduction (cam_perm, cam_bounds and cam_inv_perm as for
+    schur_coupling_matvec). Two launches; deterministic."""
+    if not on_cuda(W_t):
+        return coupling_camera_half_plain(W_t, obs_point, cam_perm, cam_bounds, h)
+    O, D = W_t.shape[1], _width(W_t.shape[0] // 3)
+    P, C = point_bounds.shape[0] - 1, cam_bounds.shape[0] - 1
+    M, N = cam_perm.shape[0], cam_inv_perm.shape[0]
+    dev = W_t.device
+    check(W_t, "W_t", torch.float32, (3 * D, O), dev)
+    check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
+    check(cam_perm, "cam_perm", torch.int32, (M,), dev)
+    check(cam_bounds, "cam_bounds", torch.int32, (C + 1,), dev)
+    check(cam_inv_perm, "cam_inv_perm", torch.int32, (N,), dev)
+    check(h, "h", torch.float32, (P, 3), dev)
+    if not M <= N <= O:
+        raise ValueError(f"cam_perm lists {M} of {N} observations, W_t holds {O}")
+    out = torch.empty((C, D), dtype=torch.float32, device=dev)
+    if C == 0 or M == 0:
+        return out.zero_()
+    y_packed = torch.empty((M, D), dtype=torch.float32, device=dev)
+    launch(_wide("sfm_coupling_camera_half", D), _wide("coupling_camera_half", D),
+           ptr(W_t), ptr(point_bounds), ptr(h), ptr(cam_inv_perm), ptr(cam_bounds), O, P, C,
+           segment_warps(M, C), ptr(y_packed), ptr(out))
     return out
 
 

@@ -125,6 +125,47 @@ def project_essential(E: torch.Tensor) -> torch.Tensor:
     return sm[..., None, None] * (_outer(U[..., 0], V[..., 0]) + _outer(U[..., 1], V[..., 1]))
 
 
+def refine_essential_gn(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor,
+                        iters: int = 5) -> torch.Tensor:
+    """Gauss-Newton polish of one E [3, 3] on weighted correspondences x1, x2
+    [N, 2] (normalized camera coordinates), w [N], minimizing the weighted
+    Sampson error: the full 9-vector, projected back to the essential
+    manifold each step, the best iterate kept (sfm_tpu's refine_essential_gn,
+    the Jacobian by forward-mode autodiff as there)."""
+    ones = torch.ones_like(x1[:, :1])
+    x1h, x2h = torch.cat([x1, ones], -1), torch.cat([x2, ones], -1)
+
+    def sampson_res(evec):
+        Em = evec.reshape(3, 3)
+        Fx1 = x1h @ Em.T
+        Ftx2 = x2h @ Em
+        num = (x2h * Fx1).sum(-1)
+        den = torch.sqrt(Fx1[:, 0] ** 2 + Fx1[:, 1] ** 2 + Ftx2[:, 0] ** 2 + Ftx2[:, 1] ** 2 + 1e-12)
+        return w * num / den
+
+    def project_manifold(evec):
+        U, _, V = svd3_twoview(evec.reshape(3, 3))
+        return (_outer(U[:, 0], V[:, 0]) + _outer(U[:, 1], V[:, 1])).reshape(9)
+
+    def cost(evec):
+        r = sampson_res(evec)
+        return (r * r).sum()
+
+    evec = project_manifold(E.reshape(9))
+    best, best_cost = evec, cost(evec)
+    eye = torch.eye(9, dtype=E.dtype, device=E.device)
+    for _ in range(iters):
+        J = torch.func.jacfwd(sampson_res)(evec)    # [N, 9]
+        r = sampson_res(evec)
+        step = torch.linalg.solve(J.T @ J + 1e-8 * eye, J.T @ r)
+        evec = project_manifold(evec - step)
+        c = cost(evec)
+        take = c < best_cost
+        best = torch.where(take, evec, best)
+        best_cost = torch.where(take, c, best_cost)
+    return best.reshape(3, 3)
+
+
 def _inv3(M: torch.Tensor) -> torch.Tensor:
     """Closed-form 3x3 inverse (adjugate / det)."""
     m = [[M[..., i, j] for j in range(3)] for i in range(3)]

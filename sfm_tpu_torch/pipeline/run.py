@@ -8,8 +8,20 @@ incremental engine, the global engine (engine_mode="global") or the
 divide-and-conquer pipeline (partition.enabled, either engine inside the
 clusters). With artifact_dir each stage's output is saved under a key of
 its own config scope and the input, and a rerun resumes from the last
-completed stage. Multi-device execution (shard.*) raises
-NotImplementedError naming its ROADMAP.md item.
+completed stage.
+
+Several devices (shard.num_devices > 1): one process per device, every
+process running this function with the same inputs in a torch.distributed
+group of shard.num_devices processes (shard.multihost joins it here, from
+the shard.* coordinator fields or a launcher's env:// variables; without a
+group of that size this raises a ValueError, where sfm_tpu falls back to
+one chip). The stages share their device work over the group (DP feature
+extraction, the ring matcher with shard.ring_matching on exhaustive pairs,
+pair-sharded verification, the camera-sharded BA with shard.shard_ba) and
+every process returns the same reconstruction (clusters one at a time:
+partition.parallel_clusters > 1 raises). The process of local rank
+0 on each host writes the artifacts and stage_timings.json (sfm_tpu's
+processes each write theirs; on one host that would race).
 """
 
 from __future__ import annotations
@@ -35,10 +47,23 @@ def _stage_keys(cfg: PipelineConfig, ikey: str) -> tuple[str, str, str]:
     return tuple(stage_config_hash(cfg, s) + "-" + ikey for s in ("features", "matches", "reconstruction"))
 
 
+def is_writer(mesh) -> bool:
+    """Whether this process writes the run's files: the only process, or
+    the process of local rank 0 of a multi-device run."""
+    return mesh is None or mesh.local_rank == 0
+
+
 def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) -> Reconstruction:
-    if cfg.shard.multihost or cfg.shard.num_devices > 1:
-        raise NotImplementedError(
-            "multi-device execution (shard.*) is not ported yet (ROADMAP.md queue 1 item 6: dist/)")
+    from sfm_tpu_torch.dist.mesh import initialize_multihost, mesh_for
+
+    if cfg.shard.multihost:
+        initialize_multihost(cfg.shard, device)
+    mesh = mesh_for(cfg.shard, device)
+    if mesh is not None and cfg.partition.enabled and cfg.partition.parallel_clusters > 1:
+        # Clusters on threads would issue their BAs' collectives in an order
+        # that differs from process to process.
+        raise ValueError("partition.parallel_clusters > 1 cannot run with shard.num_devices > 1: "
+                         "every process must issue its collectives in the same order")
     if cfg.pair_mode not in ("exhaustive", "vocab_tree"):
         raise ValueError(f"unknown pair_mode: {cfg.pair_mode}")
 
@@ -46,7 +71,7 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
     paths = ingest.resolve_paths(images)
     streaming = paths is not None and len(paths) >= _STREAMING_MIN_IMAGES
 
-    store = ArtifactStore(cfg.artifact_dir) if cfg.artifact_dir else None
+    store = ArtifactStore(cfg.artifact_dir, writable=is_writer(mesh)) if cfg.artifact_dir else None
     if streaming:
         if store:
             fkey, mkey, rkey = _stage_keys(cfg, path_hash(paths))
@@ -57,7 +82,8 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
                 intrinsics, names = meta["intrinsics"], [str(n) for n in meta["names"]]
                 valid_hw = meta["valid_hw"]
             else:
-                feats, intrinsics, valid_hw, names = stages.extract_stage_streaming(paths, cfg, device)
+                feats, intrinsics, valid_hw, names = stages.extract_stage_streaming(paths, cfg, device,
+                                                                                    mesh)
                 if store:
                     store.save_features(fkey, feats)
                     store.save("meta", fkey, dict(intrinsics=intrinsics, valid_hw=valid_hw,
@@ -72,7 +98,7 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
             if store and store.is_complete("features", fkey):
                 feats = store.load_features()
             else:
-                feats = stages.extract_stage(batch, cfg, device)
+                feats = stages.extract_stage(batch, cfg, device, mesh)
                 if store:
                     store.save_features(fkey, feats)
         del batch
@@ -92,13 +118,20 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
         if store and store.is_complete("matches", mkey):
             graph = store.load_graph()
         else:
-            graph = stages.match_and_verify_stage(feats, pairs, intrinsics, cfg, device, seed=cfg.seed)
+            prematched = None
+            if mesh is not None and cfg.shard.ring_matching and cfg.pair_mode == "exhaustive":
+                # The all-pairs sweep as the ring matcher over the group;
+                # verification consumes its matches.
+                pairs, pi, pj, pv = stages.ring_match_pairs(feats, cfg, device, mesh)
+                prematched = (pi, pj, pv) if pi is not None else None
+            graph = stages.match_and_verify_stage(feats, pairs, intrinsics, cfg, device, seed=cfg.seed,
+                                                  prematched=prematched, mesh=mesh)
             if cfg.pair_mode != "exhaustive" and cfg.match.densify_scales > 0:
                 # Pruned pair modes leave a narrow band graph on sequential
                 # captures; densify along the graph-distance ladder so
                 # loop-scale drift has constraints to push against.
                 graph = stages.densify_graph(feats, graph, intrinsics, cfg, num_images, device,
-                                             seed=cfg.seed + 1)
+                                             seed=cfg.seed + 1, mesh=mesh)
             if store:
                 store.save_graph(mkey, graph)
 
@@ -145,7 +178,7 @@ def run_pipeline(images: Sequence, cfg: PipelineConfig, device: torch.device) ->
     rec.image_names = names
     rec.image_sizes = np.asarray(valid_hw)[:, ::-1].astype(np.int32)  # (w, h)
     rec.stage_seconds = {**timer.durations, **engine_seconds}
-    if cfg.artifact_dir:
+    if cfg.artifact_dir and is_writer(mesh):
         timer.dump(os.path.join(cfg.artifact_dir, "stage_timings.json"))
     if cfg.verbose:
         print(f"[sfm_tpu_torch] {rec.summary()}")

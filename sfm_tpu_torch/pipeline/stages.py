@@ -1,15 +1,32 @@
-"""Stage drivers (port of sfm_tpu/pipeline/stages.py, single device):
-feature extraction over image chunks (eager, or streamed from a path list
-while a decode thread prepares the next chunk), exhaustive pairs, match +
-verification over pair blocks (with the guided re-match under the verified
-E), and the graph-distance-ladder densification of pruned pair graphs.
-Stages return plain numpy for the host bookkeeping between them.
+"""Stage drivers (port of sfm_tpu/pipeline/stages.py): feature extraction
+over image chunks (eager, or streamed from a path list while a decode
+thread prepares the next chunk), exhaustive pairs, the ring matcher's
+all-pairs route, match + verification over pair blocks (with the guided
+re-match under the verified E), and the graph-distance-ladder
+densification of pruned pair graphs. Stages return plain numpy for the
+host bookkeeping between them.
 
-Divergences from the JAX package: the last image chunk and the last pair
-block are not padded to a fixed size (that padding only fixed jit shapes);
-outputs are the same per image and per pair. The guided re-match runs its
-[P, N1, N2] matrices in slices of pairs (ops/match.guided_match_block);
-each pair's result is its own.
+Given a dist.mesh.Mesh (shard.num_devices > 1: one process per device,
+every process calling the stage with the same inputs) the device work is
+shared and the outputs gathered, so every process returns the
+single-device result:
+  - extraction: chunks of 8 images per process; process r extracts images
+    [8 r, 8 r + 8) of each chunk (K1), then all_gather;
+  - ring_match_pairs: the ring matcher (dist/ring_match.py) over row blocks
+    of the all-pairs table, compacted to the pairs i < j with at least
+    match.min_matches matches;
+  - match + verify: each pair block (its size rounded up to a multiple of
+    the process count) split into contiguous shares, one per process, then
+    all_gather; the RANSAC draws are keyed by the global pair index.
+
+Divergences from the JAX package: on one device the last image chunk and
+the last pair block are not padded to a fixed size (that padding only
+fixed jit shapes); outputs are the same per image and per pair. The guided
+re-match runs its [P, N1, N2] matrices in slices of pairs
+(ops/match.guided_match_block); each pair's result is its own. The ring
+matcher works on the match stage's keypoint bucket (sfm_tpu matches the
+whole budget there); the matches are the same, the tail being invalid
+slots.
 """
 
 from __future__ import annotations
@@ -20,7 +37,8 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch.config import PipelineConfig
-from sfm_tpu_torch.ops.match import guided_match_block, match_block
+from sfm_tpu_torch.dist.mesh import Mesh, all_gather_rows
+from sfm_tpu_torch.ops.match import PairMatches, guided_match_block, match_block
 from sfm_tpu_torch.ops.sift import extract_features
 from sfm_tpu_torch.ops.verify import verify_block
 from sfm_tpu_torch.pipeline.ingest import ImageBatch, iter_image_chunks
@@ -61,31 +79,51 @@ class MatchGraph:
 
 
 def _extract_chunk(canvases: np.ndarray, valid_hw: np.ndarray, cfg: PipelineConfig,
-                   device: torch.device) -> list:
-    f = extract_features(torch.from_numpy(canvases).to(device), cfg.sift,
-                         torch.from_numpy(valid_hw).to(device))
+                   device: torch.device, mesh: Mesh | None = None) -> list:
+    """Features of a chunk of images. With a mesh the chunk holds up to
+    8 x mesh.size images: this process extracts its 8 (the share padded
+    with empty canvases, as sfm_tpu pads a chunk), then every share is
+    gathered."""
+    n = canvases.shape[0]
+    if mesh is not None:
+        share = slice(mesh.rank * _FEATURE_CHUNK, (mesh.rank + 1) * _FEATURE_CHUNK)
+        canvases, valid_hw = canvases[share], valid_hw[share]
+        pad = _FEATURE_CHUNK - canvases.shape[0]
+        if pad:
+            canvases = np.concatenate([canvases, np.zeros((pad, *canvases.shape[1:]), canvases.dtype)])
+            valid_hw = np.concatenate([valid_hw, np.zeros((pad, 2), valid_hw.dtype)])
+    f = extract_features(torch.from_numpy(np.ascontiguousarray(canvases)).to(device), cfg.sift,
+                         torch.from_numpy(np.ascontiguousarray(valid_hw)).to(device))
+    if mesh is not None:
+        f = [all_gather_rows(a, mesh)[:n] for a in f]
     return [a.cpu().numpy() for a in f]
+
+
+def _chunk_size(mesh: Mesh | None) -> int:
+    return _FEATURE_CHUNK * (mesh.size if mesh is not None else 1)
 
 
 def _feature_set(outs: list) -> FeatureSet:
     return FeatureSet(*(np.concatenate([o[k] for o in outs]) for k in range(6)))
 
 
-def extract_stage(batch: ImageBatch, cfg: PipelineConfig, device: torch.device) -> FeatureSet:
+def extract_stage(batch: ImageBatch, cfg: PipelineConfig, device: torch.device,
+                  mesh: Mesh | None = None) -> FeatureSet:
     B = batch.canvases.shape[0]
+    chunk = _chunk_size(mesh)
     return _feature_set([
-        _extract_chunk(batch.canvases[s:s + _FEATURE_CHUNK], batch.valid_hw[s:s + _FEATURE_CHUNK],
-                       cfg, device)
-        for s in range(0, B, _FEATURE_CHUNK)])
+        _extract_chunk(batch.canvases[s:s + chunk], batch.valid_hw[s:s + chunk], cfg, device, mesh)
+        for s in range(0, B, chunk)])
 
 
-def extract_stage_streaming(paths: list, cfg: PipelineConfig, device: torch.device):
+def extract_stage_streaming(paths: list, cfg: PipelineConfig, device: torch.device,
+                            mesh: Mesh | None = None):
     """Feature extraction over a path list without holding every canvas:
     the decode thread prepares the next chunk while the device extracts
     this one. Returns (FeatureSet, intrinsics [B, 6], valid_hw [B, 2], names)."""
     outs, intr, hw, names = [], [], [], []
-    for batch in iter_image_chunks(paths, cfg.sift, _FEATURE_CHUNK):
-        outs.append(_extract_chunk(batch.canvases, batch.valid_hw, cfg, device))
+    for batch in iter_image_chunks(paths, cfg.sift, _chunk_size(mesh)):
+        outs.append(_extract_chunk(batch.canvases, batch.valid_hw, cfg, device, mesh))
         intr.append(batch.intrinsics)
         hw.append(batch.valid_hw)
         names.extend(batch.names)
@@ -106,16 +144,72 @@ def exhaustive_pairs(num_images: int) -> np.ndarray:
     return np.stack([ii, jj], axis=1).astype(np.int32)
 
 
+# Host budget of one streamed ring row block ([Br, B, M] x 3 arrays).
+_RING_BLOCK_BYTES = 1 << 30
+
+
+def ring_match_pairs(feats: FeatureSet, cfg: PipelineConfig, device: torch.device, mesh: Mesh):
+    """All-pairs matching through the ring matcher (dist/ring_match.py):
+    (pairs [E, 2] with i < j, idx_i, idx_j, valid [E, M]) in the block
+    matcher's layout, for match_and_verify_stage's `prematched`; the pairs
+    are those with at least cfg.match.min_matches matches ((pairs, None,
+    None, None) with no pair left). The [B, B, M] table is streamed in row
+    blocks (ring_match_rows), each compacted to its surviving pairs before
+    the next is computed: host memory stays within _RING_BLOCK_BYTES."""
+    from sfm_tpu_torch.dist.ring_match import ring_match_rows
+
+    B = len(feats.xy)
+    D = mesh.size
+    M = cfg.match.max_matches
+    N_eff = _bucket_keypoints(int(feats.valid.sum(axis=1).max()), feats.valid.shape[1])
+    padB = -(-B // D) * D
+    desc = np.zeros((padB, N_eff, feats.desc.shape[2]), feats.desc.dtype)
+    valid = np.zeros((padB, N_eff), bool)
+    desc[:B] = feats.desc[:, :N_eff]
+    valid[:B] = feats.valid[:, :N_eff]
+    desc_d, valid_d = torch.from_numpy(desc).to(device), torch.from_numpy(valid).to(device)
+
+    # Row blocks: 3 x [Br, padB, M] int32 / bool within the budget, Br a
+    # multiple of D; the tail block is padded with wrapped rows.
+    per_row = padB * M * (4 + 4 + 1)
+    chunk = max(D, min(padB, (_RING_BLOCK_BYTES // max(per_row, 1)) // D * D))
+    pairs_l, pi_l, pj_l, pv_l = [], [], [], []
+    for r0 in range(0, padB, chunk):
+        rows = torch.arange(r0, r0 + chunk, device=device) % padB
+        ii, jj, ok = (t.cpu().numpy() for t in ring_match_rows(desc_d[rows], valid_d[rows], desc_d,
+                                                               valid_d, cfg.match, mesh))
+        gi = r0 + np.arange(chunk)[:, None]
+        gj = np.arange(padB)[None, :]
+        keep = (gi < gj) & (gi < B) & (gj < B) & (ok.sum(-1) >= cfg.match.min_matches)
+        a, b = np.nonzero(keep)
+        if len(a) == 0:
+            continue
+        pairs_l.append(np.stack([a + r0, b], 1).astype(np.int32))
+        pi_l.append(ii[a, b])
+        pj_l.append(jj[a, b])
+        pv_l.append(ok[a, b])
+    if not pairs_l:
+        return np.zeros((0, 2), np.int32), None, None, None
+    return (np.concatenate(pairs_l), np.concatenate(pi_l), np.concatenate(pj_l),
+            np.concatenate(pv_l))
+
+
 def match_and_verify_stage(feats: FeatureSet, pairs: np.ndarray, intrinsics: np.ndarray,
-                           cfg: PipelineConfig, device: torch.device, seed: int = 0) -> MatchGraph:
+                           cfg: PipelineConfig, device: torch.device, seed: int = 0,
+                           prematched: tuple | None = None, mesh: Mesh | None = None) -> MatchGraph:
     """Match + geometric verification over pair blocks. Each pair's RANSAC
     draws are keyed by its global pair index, so results do not depend on
     the block size. With cfg.match.guided, each verified pair with a usable
     pose is re-matched inside the epipolar band of its E; those matches are
-    its inliers."""
+    its inliers. prematched: (idx_i, idx_j, valid) [E, M] from the ring
+    matcher, verified in place of the block matcher's matches. With a mesh
+    each process verifies its contiguous share of each block (the block
+    size rounded up to a multiple of the process count), then all_gather."""
     E = len(pairs)
     P = cfg.match.block_pairs
     M = cfg.match.max_matches
+    if mesh is not None:
+        P = -(-P // mesh.size) * mesh.size
     out_idx_i = np.zeros((E, M), np.int32)
     out_idx_j = np.zeros((E, M), np.int32)
     out_inlier = np.zeros((E, M), bool)
@@ -142,20 +236,31 @@ def match_and_verify_stage(feats: FeatureSet, pairs: np.ndarray, intrinsics: np.
 
     for s in range(0, E, P):
         e = min(s + P, E)
+        lo, rows = s, np.arange(s, e)
+        if mesh is not None:
+            # This process's share of the block; a short or empty share is
+            # padded with the block's last pair (its rows are dropped).
+            share = -(-(e - s) // mesh.size)
+            lo = s + mesh.rank * share
+            rows = np.minimum(np.arange(lo, lo + share), e - 1)
         if on_device:
-            bi = torch.from_numpy(pairs[s:e, 0].astype(np.int64)).to(device)
-            bj = torch.from_numpy(pairs[s:e, 1].astype(np.int64)).to(device)
+            bi = torch.from_numpy(pairs[rows, 0].astype(np.int64)).to(device)
+            bj = torch.from_numpy(pairs[rows, 1].astype(np.int64)).to(device)
             di, vi, dj, vj = desc_all[bi], valid_all[bi], desc_all[bj], valid_all[bj]
             xy_i, xy_j, intr_i, intr_j = xy_all[bi], xy_all[bj], intr_all[bi], intr_all[bj]
         else:
-            bi, bj = pairs[s:e, 0], pairs[s:e, 1]
+            bi, bj = pairs[rows, 0], pairs[rows, 1]
             di, vi, dj, vj, xy_i, xy_j, intr_i, intr_j = (
                 torch.from_numpy(a).to(device)
                 for a in (desc[bi], valid[bi], desc[bj], valid[bj], xy[bi], xy[bj], intr[bi], intr[bj]))
-        pm = match_block(di, vi, dj, vj, cfg.match)
+        if prematched is not None:
+            pm = PairMatches(*(torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)
+                               for a in prematched))
+        else:
+            pm = match_block(di, vi, dj, vj, cfg.match)
         uv_i = torch.gather(xy_i, 1, pm.idx_i.long()[..., None].expand(-1, -1, 2))
         uv_j = torch.gather(xy_j, 1, pm.idx_j.long()[..., None].expand(-1, -1, 2))
-        geom = verify_block(s, uv_i, uv_j, pm.valid, intr_i, intr_j, cfg.ransac, seed)
+        geom = verify_block(lo, uv_i, uv_j, pm.valid, intr_i, intr_j, cfg.ransac, seed)
         idx_i, idx_j, inliers, ninl = pm.idx_i, pm.idx_j, geom.inliers, geom.num_inliers
         if cfg.match.guided:
             pm_g = guided_match_block(di, vi, xy_i, dj, vj, xy_j, geom.E, intr_i, intr_j, cfg.match)
@@ -166,15 +271,13 @@ def match_and_verify_stage(feats: FeatureSet, pairs: np.ndarray, intrinsics: np.
             inliers = torch.where(use[:, None], pm_g.valid, inliers)
             ninl = torch.where(use, pm_g.valid.sum(-1).to(ninl.dtype), ninl)
 
-        out_idx_i[s:e] = idx_i.cpu().numpy()
-        out_idx_j[s:e] = idx_j.cpu().numpy()
-        out_inlier[s:e] = inliers.cpu().numpy()
-        out_ninl[s:e] = ninl.cpu().numpy()
-        out_nh[s:e] = geom.num_h_inliers.cpu().numpy()
-        out_rvec[s:e] = geom.rvec.cpu().numpy()
-        out_tvec[s:e] = geom.tvec.cpu().numpy()
-        out_ok[s:e] = geom.ok.cpu().numpy()
-        out_pose_ok[s:e] = geom.pose_ok.cpu().numpy()
+        outs = (idx_i, idx_j, inliers, ninl, geom.num_h_inliers, geom.rvec, geom.tvec, geom.ok,
+                geom.pose_ok)
+        if mesh is not None:   # the shares in rank order: pairs [s, e) then padding
+            outs = tuple(all_gather_rows(t, mesh) for t in outs)
+        for dst, t in zip((out_idx_i, out_idx_j, out_inlier, out_ninl, out_nh, out_rvec, out_tvec,
+                           out_ok, out_pose_ok), outs):
+            dst[s:e] = t[:e - s].cpu().numpy()
 
     enough = out_ninl >= cfg.ransac.min_inliers
     return MatchGraph(
@@ -281,6 +384,7 @@ def append_match_graph(g: MatchGraph, g_new: MatchGraph) -> tuple[MatchGraph, in
 def densify_graph(
     feats: FeatureSet, graph: MatchGraph, intrinsics: np.ndarray,
     cfg: PipelineConfig, num_images: int, device: torch.device, seed: int = 1,
+    mesh: Mesh | None = None,
 ) -> MatchGraph:
     """Graph-distance-ladder densification pass: propose, verify, append.
     See densify_candidate_pairs for why pruned pair modes need this."""
@@ -290,7 +394,7 @@ def densify_graph(
     )
     if len(cand) == 0:
         return graph
-    g_new = match_and_verify_stage(feats, cand, intrinsics, cfg, device, seed=seed)
+    g_new = match_and_verify_stage(feats, cand, intrinsics, cfg, device, seed=seed, mesh=mesh)
     graph, added = append_match_graph(graph, g_new)
     if cfg.verbose:
         print(f"[sfm_tpu_torch] densify: {added}/{len(cand)} ladder pairs verified "

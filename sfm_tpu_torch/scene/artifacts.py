@@ -21,8 +21,14 @@ from sfm_tpu_torch.scene.state import Reconstruction
 
 
 class ArtifactStore:
-    def __init__(self, root: str):
+    """writable False: a reader of a store another process writes (the
+    processes of a multi-device run other than local rank 0); save() only
+    records the key in this process's manifest, so the stages it saved are
+    complete for this process too."""
+
+    def __init__(self, root: str, writable: bool = True):
         self.root = root
+        self.writable = writable
         os.makedirs(root, exist_ok=True)
         self.manifest_path = os.path.join(root, "manifest.json")
         self.manifest = {}
@@ -31,6 +37,8 @@ class ArtifactStore:
                 self.manifest = json.load(f)
 
     def _flush(self):
+        if not self.writable:
+            return
         with open(self.manifest_path, "w") as f:
             json.dump(self.manifest, f, indent=2)
 
@@ -41,7 +49,8 @@ class ArtifactStore:
         return os.path.join(self.root, f"{stage}.npz")
 
     def save(self, stage: str, key: str, arrays: dict) -> None:
-        np.savez_compressed(self._path(stage), **arrays)
+        if self.writable:
+            np.savez_compressed(self._path(stage), **arrays)
         self.manifest[stage] = key
         self._flush()
 

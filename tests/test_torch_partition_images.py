@@ -47,9 +47,9 @@ def shared_features():
     """stages.extract_stage, computed once for the module's runs."""
     inner, memo = stages.extract_stage, []
 
-    def once(batch, cfg, device):
+    def once(batch, cfg, device, mesh=None):
         if not memo:
-            memo.append(inner(batch, cfg, device))
+            memo.append(inner(batch, cfg, device, mesh))
         return memo[0]
 
     stages.extract_stage = once

@@ -123,14 +123,16 @@ def test_bootstrap_from_jax_stage_outputs(fixture):
 
 
 def test_unported_branches_raise(fixture, tmp_path, monkeypatch):
-    """Multi-device execution (shard.*) is the one pipeline branch still
-    refused; artifact_dir and pair_mode="vocab_tree", refused before they
-    were ported, now reach the feature stage."""
+    """Multi-device execution (shard.*), refused before dist/ was ported,
+    now needs a process group of shard.num_devices processes and raises a
+    ValueError without one (sfm_tpu falls back to one chip: a recorded
+    divergence); artifact_dir and pair_mode="vocab_tree", refused before
+    they were ported, now reach the feature stage."""
     from sfm_tpu_torch.pipeline import stages
 
     imgs = fixture[0]
     three = [imgs[0], imgs[1], imgs[0]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="process group"):
         sfm_tpu_torch.reconstruct(three, device="cpu", verbose=False, **{"shard.num_devices": 2})
     with pytest.raises(ValueError, match="pair_mode"):
         sfm_tpu_torch.reconstruct(three, device="cpu", pair_mode="nearest", verbose=False)

@@ -15,6 +15,15 @@ reprojection error, camera-centre RMSE after Sim(3) alignment (% of the
 radius), mean refined focal against the rendered one, the largest |k1|,
 seconds. sfm_tpu is the reference: the port should agree with it to fp32
 rounding.
+
+    JAX_PLATFORMS=cpu python3 tools/refine_parity.py --features F.npz [...] [--no-refine]
+
+runs both packages' incremental engines on features of rendered views
+instead: the files tools/torch_perf.py ringfeatures writes (chip_smoke.py
+phase 11's 46-view ring at a focal offset, extracted and matched once by
+the port on the card), the same keypoints and verified graph for both. Each
+line adds every bundle adjustment's width and LM iterations (how many
+stopped at the iteration cap).
 """
 
 from __future__ import annotations
@@ -75,6 +84,85 @@ def run(package: str, cameras: int, points: int, offset: float, refine: bool) ->
                 k1_worst=float(np.abs(rec.intrinsics[reg, 4]).max()), seconds=seconds)
 
 
+class _BALog:
+    """Every bundle_adjust of a package's engine: (width, cameras, LM
+    iterations), by wrapping the package's BA entry for the duration."""
+
+    def __init__(self, module):
+        self.module, self.rows = module, []
+
+    def __enter__(self):
+        inner = self.inner = self.module.bundle_adjust
+
+        def wrapped(prob, cfg):
+            out, stats = inner(prob, cfg)
+            self.rows.append((int(prob.cam_params.shape[-1]), int(prob.cam_params.shape[0]),
+                              int(stats.iterations)))
+            return out, stats
+
+        self.module.bundle_adjust = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.bundle_adjust = self.inner
+
+    def summary(self, cap: int) -> dict:
+        its = [r[2] for r in self.rows]
+        return dict(bas=len(self.rows), bas_8_wide=sum(r[0] == 8 for r in self.rows), lm_iterations=sum(its),
+                    bas_at_cap=sum(i >= cap for i in its), global_ba_iterations=[r[2] for r in self.rows if r[0] == 8])
+
+
+def run_features(package: str, path: str, refine: bool) -> dict:
+    import numpy as np
+    import torch
+
+    import sfm_tpu.ba as jba
+    from sfm_tpu.config import BAConfig, PipelineConfig, config_to_dict
+    from sfm_tpu.pipeline import engine as jengine
+    from sfm_tpu.pipeline.stages import FeatureSet as JFeatureSet, MatchGraph as JMatchGraph
+    import sfm_tpu_torch.ba as tba
+    from sfm_tpu_torch import config as tconfig
+    from sfm_tpu_torch.geometry.rotations import so3_exp
+    from sfm_tpu_torch.geometry.similarity import umeyama_np
+    from sfm_tpu_torch.pipeline import engine
+    from sfm_tpu_torch.utils.interop import from_numpy_feature_set, from_numpy_graph
+
+    z = np.load(path)
+    B, N = z["valid"].shape
+    feats = JFeatureSet(xy=z["xy"], sigma=np.zeros((B, N), np.float32), angle=np.zeros((B, N), np.float32),
+                        response=np.zeros((B, N), np.float32), desc=np.zeros((B, N, 128), np.float32),
+                        valid=z["valid"])
+    graph = JMatchGraph(**{k[len("graph_"):]: z[k] for k in z.files if k.startswith("graph_")})
+    cfg = PipelineConfig(ba=BAConfig(refine_focal=refine, refine_distortion=refine), verbose=False)
+    t0 = time.perf_counter()
+    with _BALog(jba if package == "jax" else tba) as log:
+        if package == "jax":
+            rec = jengine.incremental_reconstruct(feats, graph, z["intrinsics"], cfg)
+        else:
+            rec = engine.incremental_reconstruct(
+                from_numpy_feature_set(feats), from_numpy_graph(graph), z["intrinsics"],
+                tconfig.config_from_dict(tconfig.PipelineConfig, config_to_dict(cfg)), "cpu")
+    seconds = time.perf_counter() - t0
+    reg = np.where(rec.registered)[0]
+
+    def centres(rv, tv):
+        R = so3_exp(torch.from_numpy(np.asarray(rv[reg], np.float32))).numpy()
+        return -np.einsum("kji,kj->ki", R, np.asarray(tv[reg], np.float64))
+
+    est, gt = centres(rec.rvecs, rec.tvecs), centres(z["true_rvecs"], z["true_tvecs"])
+    s, R, t = umeyama_np(est, gt)
+    rmse = float(np.sqrt((((s * est @ R.T + t) - gt) ** 2).sum(-1).mean()))
+    rendered = float(z["rendered_focal"])
+    return dict(package=package, features=os.path.basename(path), refine=refine, rendered_focal=rendered,
+                prior_focal=float(z["intrinsics"][0, 0]), registered=len(reg), views=B,
+                mean_reproj_px=float(rec.mean_reprojection_error()),
+                camera_rmse_pct_radius=100 * rmse / float(z["radius"]),
+                focal_mean=float(rec.intrinsics[reg, 0].mean()),
+                focal_rel=float(rec.intrinsics[reg, 0].mean()) / rendered - 1.0,
+                k1_worst=float(np.abs(rec.intrinsics[reg, 4]).max()), seconds=seconds,
+                **log.summary(cfg.ba.max_iterations))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cameras", type=int, default=20)
@@ -82,12 +170,19 @@ def main() -> int:
     parser.add_argument("--offset", type=float, default=0.04)
     parser.add_argument("--no-refine", action="store_true")
     parser.add_argument("--package", choices=("both", "jax", "port"), default="both")
+    parser.add_argument("--features", nargs="+", metavar="NPZ",
+                        help="run the engines on these files of tools/torch_perf.py ringfeatures")
     args = parser.parse_args()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     for package in (("jax", "port") if args.package == "both" else (args.package,)):
-        print(json.dumps(run(package, args.cameras, args.points, args.offset, not args.no_refine)), flush=True)
+        if args.features:
+            for path in args.features:
+                print(json.dumps(run_features(package, path, not args.no_refine)), flush=True)
+        else:
+            print(json.dumps(run(package, args.cameras, args.points, args.offset, not args.no_refine)),
+                  flush=True)
     return 0
 
 

@@ -106,6 +106,28 @@
         with the focal prior off by each offset (run_refined_reconstruct,
         its bars reported, not enforced; --baseline: each offset also
         without refinement).
+    python3 tools/torch_perf.py dist [--polish]
+        the multi-device routes without the reconstructions: first which
+        collectives gloo runs on CUDA tensors (two processes on the one
+        card: all_reduce, all_gather, the ring's send/recv); then, in a
+        one-process NCCL group (chip_smoke.join_group), K3's sharded mode and
+        both halves of K11 held and timed (chip_smoke.check_sharded_kernels)
+        and the sharded BA against the single-card one
+        (chip_smoke.check_sharded_ba) on the C = 128 orbit at 6 and 8 wide,
+        and the sharded LM's steps (chip_smoke.sharded_lm_report); with
+        --polish also on the merged model (C = 10,240) for 3 iterations;
+        with --phase12 (no probe, no orbit) chip_smoke.py's phase 12 alone
+        on its inputs, made as phases 5, 8 and 11 make them (the ring's
+        reconstruction, the merged polish, the 46 views).
+    python3 tools/torch_perf.py ringfeatures [--offsets 0 0.04] [--out DIR]
+        chip_smoke.py phase 11's 46-view ring rendered at (1 + offset) x
+        the focal prior, through the feature stage and the exhaustive
+        match + verify stage with the default config; writes what the
+        incremental engine reads (keypoints, validity, the verified graph,
+        the prior intrinsics) and the ground truth to
+        DIR/ring46_<offset>.npz (default DIR chiprun_out) for
+        tools/refine_parity.py --features, which runs both packages'
+        engines on them on the CPU.
 
 Every line names the card and its power limit. Needs a CUDA device.
 """
@@ -898,6 +920,127 @@ def refined_cmd(device, source: str, offsets, baseline: bool):
                   flush=True)
 
 
+def ringfeatures_cmd(device, offsets, out_dir: str):
+    import numpy as np
+
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.pipeline import ingest, stages
+
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = PipelineConfig(verbose=False)
+    for offset in offsets:
+        focal = (1.0 + offset) * cs.INC_FOCAL
+        t0 = time.perf_counter()
+        imgs, scene = cs.render_ring(cs.REFINED_IMAGES, cs.INC_BLOBS, cs.REFINED_ARC, focal)
+        batch = ingest.load_images(list(imgs), cfg.sift)
+        feats = stages.extract_stage(batch, cfg, device)
+        graph = stages.match_and_verify_stage(feats, stages.exhaustive_pairs(len(imgs)), batch.intrinsics, cfg,
+                                              device, seed=cfg.seed)
+        path = os.path.join(out_dir, f"ring46_{offset:g}.npz")
+        np.savez_compressed(path, xy=feats.xy, valid=feats.valid, intrinsics=batch.intrinsics,
+                            **{f"graph_{k}": getattr(graph, k) for k in ("pairs", "idx_i", "idx_j", "inlier",
+                                                                        "num_inliers", "num_h_inliers", "rvec",
+                                                                        "tvec", "ok", "pose_ok")},
+                            true_rvecs=scene.rvecs, true_tvecs=scene.tvecs, rendered_focal=focal,
+                            radius=cs.INC_RADIUS)
+        print(f"[ringfeatures] {card()} offset {offset:g}: {len(imgs)} views, {int(feats.valid.sum())} keypoints, "
+              f"{int(graph.ok.sum())} of {len(graph.pairs)} pairs verified, {time.perf_counter() - t0:.1f}s "
+              f"-> {path} ({os.path.getsize(path) / 2 ** 20:.1f} MiB)", flush=True)
+
+
+def _gloo_probe(mesh) -> dict:
+    """Which of the collectives the multi-device routes use gloo runs on
+    CUDA tensors (this process's card): each tried in turn, its result
+    checked; an exception is reported, not raised."""
+    import torch
+
+    from sfm_tpu_torch.dist.mesh import all_gather_rows, ring_shift
+
+    D, r = mesh.size, mesh.rank
+    t = torch.full((4,), float(r + 1), device=mesh.device)
+    checks = {
+        "all_reduce": (lambda: _reduced(t.clone(), mesh), float(D * (D + 1) // 2)),
+        "all_gather": (lambda: float(all_gather_rows(t, mesh).sum()), float(4 * D * (D + 1) // 2)),
+        "send_recv": (lambda: float(ring_shift((t,), mesh)[0][0]), float((r - 1) % D + 1)),
+    }
+    out = {}
+    for name, (fn, want) in checks.items():
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+            out[name] = "ok" if got == want else f"wrong value {got}, expected {want}"
+        except Exception as e:  # reported, not raised: the probe asks what works
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def _reduced(t, mesh) -> float:
+    import torch.distributed as dist
+
+    dist.all_reduce(t, group=mesh.group)
+    return float(t[0])
+
+
+def phase12_cmd(device):
+    t0 = time.perf_counter()
+    ring, _ = cs.render_ring(cs.INC_IMAGES, cs.INC_BLOBS, cs.INC_ARC)
+    rec, _, ba_log, _, _ = cs.run_reconstruct(device, ring)
+    del ring
+    final = ba_log[-1]
+    polish = cs.run_polish(device)
+    first = polish["ba_log"][0]
+    views, _ = cs.render_ring(cs.REFINED_IMAGES, cs.INC_BLOBS, cs.REFINED_ARC,
+                              (1.0 + cs.REFINED_FOCAL_OFFSET) * cs.INC_FOCAL)
+    print(f"[dist] {card()} phase 12's inputs made in {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    out = cs.run_sharded(views, (final["problem"], final["cfg"], rec), (first["problem"], first["cfg"]), device)
+    cs.log_results(f"{card()} sharded BA", out["results"])
+    for k in cs.SHARDED_KERNELS:
+        cs.log_shapes(k, out["results"][k]["shapes"])
+    print(f"[dist] {card()} phase 12 {time.perf_counter() - t0:.1f}s; launches {json.dumps(out['launches'])}",
+          flush=True)
+
+
+def dist_cmd(device, polish: bool):
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.ba import build_problem
+    from sfm_tpu_torch.config import BAConfig
+    from sfm_tpu_torch.dist.launch import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            probe = run_ranks(_gloo_probe, 2, init_file=os.path.join(tmp, "init"), device="cuda:0",
+                              backend="gloo", timeout=180)
+        except Exception as e:  # a process that died is the answer too
+            probe = f"{type(e).__name__}: {str(e)[-600:]}"
+    print(f"[dist] {card()} gloo, two processes on the one card, CUDA tensors: {json.dumps(probe)}", flush=True)
+
+    mesh = cs.join_group(device)
+    try:
+        cfg = BAConfig()
+        prob = cs.schur_problem(device)
+        prob8, _, _ = build_problem(cs.orbit_reconstruction(100, 500), refine_intrinsics=True, device=device)
+        cases = [(prob, cfg, "orbit"), (prob8, cs.refine_config(cfg), "orbit, 8 wide")]
+        for p, c, what in cases:
+            cs.log_results(f"{card()} {what}", cs.check_sharded_kernels(p, c, device, what))
+            print(f"[dist] {card()} sharded BA: " + json.dumps(cs.check_sharded_ba(p, c, device, mesh, what)),
+                  flush=True)
+        print(f"[lm] {card()} sharded LM, orbit: " + json.dumps(cs.sharded_lm_report(prob, cfg, device, mesh)),
+              flush=True)
+        if polish:
+            rec, _ = cs.arc_ring_reconstruction(cs.POLISH_CAMERAS, cs.POLISH_POINTS, cs.POLISH_TRACKS, seed=3,
+                                                centre_noise=cs.POLISH_CENTRE_NOISE)
+            big, _, _ = build_problem(rec, device=device)
+            cs.log_results(f"{card()} merged model", cs.check_sharded_kernels(big, cfg, device, "merged model"))
+            print(f"[dist] {card()} sharded BA: " + json.dumps(cs.check_sharded_ba(
+                big, cfg, device, mesh, "merged model", iterations=cs.DIST_POLISH_ITERATIONS)), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -943,6 +1086,12 @@ def main() -> int:
     p.add_argument("--source", choices=("ring", "orbit"), default="ring")
     p.add_argument("--offsets", type=float, nargs="*", default=[cs.REFINED_FOCAL_OFFSET])
     p.add_argument("--baseline", action="store_true", help="each offset also without refinement")
+    p = sub.add_parser("ringfeatures")
+    p.add_argument("--offsets", type=float, nargs="+", default=[0.0, cs.REFINED_FOCAL_OFFSET])
+    p.add_argument("--out", default="chiprun_out")
+    p = sub.add_parser("dist")
+    p.add_argument("--polish", action="store_true", help="also on the merged model (C = 10,240)")
+    p.add_argument("--phase12", action="store_true", help="chip_smoke.py's phase 12 alone")
     args = parser.parse_args()
     if getattr(args, "root", None):
         sys.path.insert(0, os.path.abspath(args.root))
@@ -978,6 +1127,13 @@ def main() -> int:
         ptxas_cmd()
     elif args.cmd == "refined":
         refined_cmd(device, args.source, args.offsets, args.baseline)
+    elif args.cmd == "ringfeatures":
+        ringfeatures_cmd(device, args.offsets, args.out)
+    elif args.cmd == "dist":
+        if args.phase12:
+            phase12_cmd(device)
+        else:
+            dist_cmd(device, args.polish)
     else:
         crossover_cmd(device)
     return 0
