@@ -127,7 +127,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      (coupling_point_half, coupling_camera_half) launched; (f) those three
      entries against their plain versions in float64 at (d)'s and (e)'s
      shapes, timed; (g) the sharded LM's steps and one sharded solve under
-     torch.profiler (the "[lm] sharded LM" lines).
+     torch.profiler (the "[lm] sharded LM" lines);
+ 13. the refined polish, 8-wide camera blocks past 4,096 cameras (run
+     before phase 12, which shards its problem): (a) phase 8's merged
+     model as it was built, every focal at 0.96 x the rendered 400, through
+     the engine's global BA with ba.refine_focal and ba.refine_distortion
+     (pipeline/engine.py _run_ba's three calls: build_problem with
+     refine_intrinsics, dispatch_bundle_adjust, writeback), default BA
+     config: the 8-wide K4, K6, K8, pcg_solve_big and K9 launched and
+     nothing else, no plain version on the card, the cost falls, the
+     observations that are not gross outliers < 1 px afterwards; the focal
+     error (median, worst), max |k1| and the camera RMSE reported with no
+     bar; (b) the 8-wide K4, K6, K8 and K10 on that BA's problem against
+     their plain versions at phase 8's bars (check_big), each timed beside
+     the 6-wide twin of phase 8, and pcg_solve_big 8 wide as check_pcg
+     holds it (x after PCG_X_STEPS steps, beside the loop over K10 and K9);
+     (c) in phase 12's group, bundle_adjust_sharded on that problem for 3
+     LM iterations against bundle_adjust, at phase 12's bars.
 Each kernel check holds the kernel against its plain version with the
 tolerance stated and takes the median time of the kernel, the plain version
 and (where one PyTorch call computes the same function) that call (CUDA
@@ -139,18 +155,19 @@ camera side (a permutation) for K = 6, 36 and 42 rows, the point side
 against its plain version in float64 and timed beside `loop_ms`, the same
 solve as Python steps over the coupling-only K11 (K10 then K9 for
 pcg_solve_big). Every row also carries its device time per call
-(`device_ms`, torch.profiler). The record (24 rows) reports K1-K3,
+(`device_ms`, torch.profiler). The record (29 rows) reports K1-K3,
 K5, K7, K9, K11 and pcg_solve at the incremental slice's shapes, K4, K6,
 K8, K10 and pcg_solve_big at the merged polish's, the 8-wide K3, K5, K7,
-K11 and pcg_solve (`*_w8`) at phase 11's, K3's sharded mode and the two
+K11 and pcg_solve (`*_w8`) at phase 11's, the 8-wide K4, K6, K8, K10 and
+pcg_solve_big at phase 13's, K3's sharded mode and the two
 halves of K11 at both widths at phase 12's (the 6-wide ones at the merged
 polish's too, under `shapes`), every kernel's launches on each
 path (two_view, incremental, partition, global, vocab, options,
-merged_polish, refined_ba, refined_orbit_ba, refined, sharded; `launches`
-is the largest of them;
+merged_polish, refined_ba, refined_orbit_ba, refined, refined_polish,
+sharded; `launches` is the largest of them;
 K11's rows count the launches of pcg_solve and K10's those of
-pcg_solve_big, which run their code; K7's count K3's launches that build
-the Schur-Jacobi blocks), K7's
+pcg_solve_big, which run their code, at either width; K7's count K3's
+launches that build the Schur-Jacobi blocks), K7's
 K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
 K1, K2, K9 and pcg_solve a row per timed shape under `shapes`.
 The line before the last two is the kernels' JSON record, then the card's
@@ -209,7 +226,10 @@ KERNELS.update({f"{k}_w8": KERNELS[k] for k in ("fused_ne_sums", "coupling_point
 # serves the engines' problems; K9 cam_segment_sum reduces for both.
 BIG_KERNELS = ("fused_ne_payloads_big", "fused_cost_sums_big", "whw_payloads_big",
                "schur_coupling_payloads_big", "pcg_solve_big")
-SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS + WIDE_KERNELS
+# Their 8-wide builds, which only phase 13 (the refined polish) runs.
+BIG_WIDE_KERNELS = tuple(f"{k}_w8" for k in BIG_KERNELS)
+KERNELS.update({k: KERNELS[k.removesuffix("_w8")] for k in BIG_WIDE_KERNELS})
+SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS + WIDE_KERNELS + BIG_WIDE_KERNELS
                       and not k.startswith(("fused_ne_sums", "coupling_")))
 # Kernels whose device code runs inside another launch on the main path, by
 # the count of that launch: K11's coupling inside pcg_solve, K10's inside
@@ -217,7 +237,8 @@ SMALL_KERNELS = tuple(k for k in KERNELS if k not in BIG_KERNELS + WIDE_KERNELS
 # runs inside K3's launches for a PCG solve, and fused_ne_payloads counts
 # those launches for whw_cam_reduce itself.)
 INSIDE = {"schur_coupling_matvec": "pcg_solve", "schur_coupling_payloads_big": "pcg_solve_big",
-          "schur_coupling_matvec_w8": "pcg_solve_w8"}
+          "schur_coupling_matvec_w8": "pcg_solve_w8",
+          "schur_coupling_payloads_big_w8": "pcg_solve_big_w8"}
 # An 8-wide global BA on the PCG branch: K3 with the blocks (counted for
 # K7 too), K5 and pcg_solve at width 8.
 REFINED_PCG_KERNELS = ("fused_ne_payloads_w8", "fused_cost_sums_w8", "whw_cam_reduce_w8", "pcg_solve_w8")
@@ -227,6 +248,8 @@ ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k not in INSIDE)
 # The merged polish: the large-C set, the CG solve in one pcg_solve_big
 # launch, K9.
 POLISH_KERNELS = tuple(k for k in BIG_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
+# The refined polish (phase 13): the same at width 8.
+REFINED_POLISH_KERNELS = tuple(k for k in BIG_WIDE_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
 TWO_VIEW_KERNELS = ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums",
                     "cam_segment_sum")
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
@@ -1208,6 +1231,10 @@ def check_k9(prob, cfg, device):
 # and the payload with the Schur-Jacobi entries (108), the widths that
 # ne_cams_kernel sums in one and two 64-column tiles.
 WIDE_K9_SIDES = (("camera", 8), ("camera", 72), ("camera", 108))
+# K9 at the rows the 8-wide large-camera route gives it: K10's y (8), K8's
+# payload (64), K4's camera payload (72); K10's u (3) and K4's point
+# payload (9) on the point side.
+BIG_WIDE_K9_SIDES = (("camera", 8), ("camera", 64), ("camera", 72), ("point", 3), ("point", 9))
 
 
 def check_segment_sum(inv, O: int, C: int, P: int, device,
@@ -1335,8 +1362,10 @@ def check_big(prob, cfg, device):
     checked once more with the near-plane floor raised. The route's
     whole-block damping and inversion (core._sym3_big, _damp_big,
     _sym_solve3_big) must give the bits of sym3, damp and sym_solve3 on this
-    problem's blocks. Returns (results of
-    the four, twin timings, K9's rows on this problem's segment tables)."""
+    problem's blocks. An 8-wide problem (phase 13) runs the `_w8` builds of
+    all eight, at the same bars, and K9 at its rows (BIG_WIDE_K9_SIDES).
+    Returns (results of the four by launch name, twin timings, K9's rows on
+    this problem's segment tables)."""
     import torch
 
     from sfm_tpu_torch.ba import core
@@ -1346,7 +1375,9 @@ def check_big(prob, cfg, device):
         raise AssertionError(f"big-C check: C={prob.num_cameras} takes the small-C kernels")
     inv, ne = first_iteration_inputs(prob, cfg)
     O, C, P, N = prob.obs_w.shape[0], prob.num_cameras, prob.num_points, inv.cam_perm.numel()
-    shape = f"O={O} ({N} weighted) C={C} P={P}"
+    D = prob.cam_params.shape[-1]
+    suffix = "" if D == 6 else "_w8"
+    shape = f"O={O} ({N} weighted) C={C} P={P}" + (f" D={D}" if D != 6 else "")
     pts_t = core._pts_t(prob, prob.points)
     cams = prob.cam_params.contiguous()
     cams_t = core._rows_t(cams, prob.obs_cam)
@@ -1379,31 +1410,31 @@ def check_big(prob, cfg, device):
         # The same device code as K3's: W, and the camera rows in K3's packed order.
         k3 = kb.fused_ne_payloads(*small_args(zf), plan=plan)
         twin = [max_rel(out[0], k3[2]), max_rel(out[2][:, inv.cam_perm.long()].T, k3[5])]
-        if max(e[1] for e in errs) > 1e-3 or max(e[1] for e in twin) > 1e-6:
-            raise AssertionError(f"fused_ne_payloads_big{tag}: relative errors {errs}, vs K3 (W, camera "
-                                 f"rows) {twin}")
+        if max(e[1] for e in errs) > MERGED_NE_BAR or max(e[1] for e in twin) > 1e-6:
+            raise AssertionError(f"fused_ne_payloads_big{suffix}{tag}: relative errors {errs}, vs K3 (W, "
+                                 f"camera rows) {twin}")
         sums = kb.fused_cost_sums_big(*big_args(zf))
         sums_ref = kb.fused_cost_sums_big_plain(*big_args64(zf))
         if not torch.allclose(sums.double(), sums_ref, rtol=1e-5, atol=0.0):
-            raise AssertionError(f"fused_cost_sums_big{tag}: {sums.tolist()} vs {sums_ref.tolist()}")
+            raise AssertionError(f"fused_cost_sums_big{suffix}{tag}: {sums.tolist()} vs {sums_ref.tolist()}")
         sums5 = kb.fused_cost_sums(*cost_args(zf), plan=plan)[2]
         if not torch.allclose(sums5[:2].double(), sums_ref, rtol=1e-5, atol=0.0):
-            raise AssertionError(f"fused_cost_sums_big{tag}: K5 gives {sums5.tolist()}")
+            raise AssertionError(f"fused_cost_sums_big{suffix}{tag}: K5 gives {sums5.tolist()}")
         if not torch.equal(sums, kb.fused_cost_sums_big(*big_args(zf))):
-            raise AssertionError(f"fused_cost_sums_big{tag}: two runs differ (must be deterministic)")
+            raise AssertionError(f"fused_cost_sums_big{suffix}{tag}: two runs differ (must be deterministic)")
         if raised and not float(sums[1]) < float(prob.obs_w.sum()):
             raise AssertionError("fused_cost_sums_big: the near-plane gate removed nothing")
     a4, a3, a5 = big_args(inv.z_floor), small_args(inv.z_floor), cost_args(inv.z_floor)
     obs_in = nbytes(*a4[:4])
-    results["fused_ne_payloads_big"] = dict(
+    results["fused_ne_payloads_big" + suffix] = dict(
         max_abs_err=max(e[0] for e in errs),
         ms=time_ms(lambda: kb.fused_ne_payloads_big(*a4), device),
         plain_ms=time_ms(lambda: kb.fused_ne_payloads_big_plain(*a4), device),
-        library_ms=None, **bound(obs_in + nbytes(*out), 300 * O, FP32_OPS_PER_S),
+        library_ms=None, **bound(obs_in + nbytes(*out), (300 if D == 6 else 420) * O, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.fused_ne_payloads_big(*a4), device),
         note=f"{shape}, rel err {max(e[1] for e in errs):.2e} (vs K3's W and camera rows "
              f"{max(e[1] for e in twin):.2e}); also with the gate raised")
-    results["fused_cost_sums_big"] = dict(
+    results["fused_cost_sums_big" + suffix] = dict(
         max_abs_err=float((sums - sums_ref).abs().max()),
         ms=time_ms(lambda: kb.fused_cost_sums_big(*a4), device),
         plain_ms=time_ms(lambda: kb.fused_cost_sums_big_plain(*a4), device),
@@ -1415,10 +1446,10 @@ def check_big(prob, cfg, device):
     # K3 builds the whole damped normal equations (point sums, inversions,
     # camera sums); K4 its per-observation payloads only.
     twins["K4 vs K3"] = dict(
-        big_ms=results["fused_ne_payloads_big"]["ms"], gather_ms=gather_ms,
+        big_ms=results["fused_ne_payloads_big" + suffix]["ms"], gather_ms=gather_ms,
         small_ms=time_ms(lambda: kb.fused_ne_payloads(*a3, plan=plan), device))
     twins["K6 vs K5"] = dict(
-        big_ms=results["fused_cost_sums_big"]["ms"], gather_ms=gather_ms,
+        big_ms=results["fused_cost_sums_big" + suffix]["ms"], gather_ms=gather_ms,
         small_ms=time_ms(lambda: kb.fused_cost_sums(*a5, plan=plan), device))
 
     # The route's whole-block damping and inversion give the bits of the
@@ -1426,7 +1457,7 @@ def check_big(prob, cfg, device):
     # sym_solve3) on this problem's point and camera blocks.
     _, yp_t, cam_t = kb.fused_ne_payloads_big(*big_args(inv.z_floor))
     red6 = kb.cam_segment_sum(yp_t, None, inv.point_bounds)[:, :6]
-    hcc = kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)[:, :36].reshape(C, 6, 6)
+    hcc = kb.cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)[:, :D * D].reshape(C, D, D)
     hpp = kb.damp(kb.sym3(red6), lam)
     if not (torch.equal(core._sym3_big(red6), kb.sym3(red6))
             and torch.equal(core._damp_big(kb.sym3(red6), lam), hpp)
@@ -1440,59 +1471,67 @@ def check_big(prob, cfg, device):
     out = kb.whw_payloads_big(*k8)
     err, rel = max_rel(out, kb.whw_payloads_big_plain(W_t.double(), Hinv.double(), prob.obs_point))
     if rel > 1e-5:
-        raise AssertionError(f"whw_payloads_big: relative error {rel} ({shape})")
+        raise AssertionError(f"whw_payloads_big{suffix}: relative error {rel} ({shape})")
     if not torch.equal(out, kb.whw_payloads_big(*k8)):
-        raise AssertionError("whw_payloads_big: two runs differ (must be deterministic)")
+        raise AssertionError(f"whw_payloads_big{suffix}: two runs differ (must be deterministic)")
     k7 = (W_t, Hinv, prob.obs_point, inv.cam_perm, inv.cam_bounds)
     whw7 = kb.whw_cam_reduce(*k7, inv.cam_inv_perm)
     rel7 = max_rel(kb.cam_segment_sum(out, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), whw7.double())[1]
     if rel7 > 1e-5:
-        raise AssertionError(f"whw_payloads_big + cam_segment_sum vs whw_cam_reduce: {rel7}")
-    results["whw_payloads_big"] = dict(
+        raise AssertionError(f"whw_payloads_big{suffix} + cam_segment_sum vs whw_cam_reduce: {rel7}")
+    # Bytes: W's 3D rows, the point ids, the point blocks, D^2 rows out.
+    # Operations: u = W Hinv (18 D), then D^2 three-term dot products.
+    results["whw_payloads_big" + suffix] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.whw_payloads_big(*k8), device),
         plain_ms=time_ms(lambda: kb.whw_payloads_big_plain(*k8), device),
-        library_ms=None, **bound(4 * (18 * O + O + 9 * P + 36 * O), 324 * O, FP32_OPS_PER_S),
+        library_ms=None, **bound(4 * (3 * D * O + O + 9 * P + D * D * O), (18 * D + 6 * D * D) * O,
+                                 FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.whw_payloads_big(*k8), device),
         note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic; "
              f"reduced by K9 it is K7's output to {rel7:.2e}")
     twins["K8 (+K9) vs K7"] = dict(
-        big_ms=results["whw_payloads_big"]["ms"],
+        big_ms=results["whw_payloads_big" + suffix]["ms"],
         reduce_ms=time_ms(lambda: kb.cam_segment_sum(out, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), device),
         small_ms=time_ms(lambda: kb.whw_cam_reduce(*k7, inv.cam_inv_perm), device))
 
-    v = torch.randn((C, 6), generator=torch.Generator(device=device).manual_seed(7), device=device)
+    v = torch.randn((C, D), generator=torch.Generator(device=device).manual_seed(7), device=device)
     v_obs_t = core._rows_t(v, prob.obs_cam)
     k10 = (W_t, Hinv, prob.obs_point, inv.point_bounds, inv.cam_inv_perm.numel(), v_obs_t)
     y_t = kb.schur_coupling_payloads_big(*k10)
     err, rel = max_rel(y_t, kb.schur_coupling_payloads_big_plain(
         W_t.double(), Hinv.double(), *k10[2:5], v_obs_t.double()))
     if rel > 1e-5:
-        raise AssertionError(f"schur_coupling_payloads_big: relative error {rel} ({shape})")
+        raise AssertionError(f"schur_coupling_payloads_big{suffix}: relative error {rel} ({shape})")
     if not torch.equal(y_t, kb.schur_coupling_payloads_big(*k10)):
-        raise AssertionError("schur_coupling_payloads_big: two runs differ (must be deterministic)")
+        raise AssertionError(f"schur_coupling_payloads_big{suffix}: two runs differ (must be deterministic)")
     k11 = (W_t, Hinv, prob.obs_cam, prob.obs_point, inv.point_bounds, inv.cam_perm, inv.cam_bounds, v,
            inv.cam_inv_perm)
     out11 = kb.schur_coupling_matvec(*k11)
     rel11 = max_rel(kb.cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), out11.double())[1]
     if rel11 > 1e-5:
-        raise AssertionError(f"schur_coupling_payloads_big + cam_segment_sum vs schur_coupling_matvec: {rel11}")
-    results["schur_coupling_payloads_big"] = dict(
+        raise AssertionError(f"schur_coupling_payloads_big{suffix} + cam_segment_sum vs schur_coupling_matvec: "
+                             f"{rel11}")
+    # Bytes: W's 3D rows, the point ids and segments, the point blocks, v
+    # and y (D rows each). Operations: W^T v and W h (6 D each) and the
+    # point sums per observation, Hinv g per point.
+    results["schur_coupling_payloads_big" + suffix] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.schur_coupling_payloads_big(*k10), device),
         plain_ms=time_ms(lambda: kb.schur_coupling_payloads_big_plain(*k10), device),
         library_ms=None,
-        **bound(4 * (18 * O + O + P + 1 + 9 * P + 6 * O + 6 * O), 81 * O + 18 * P, FP32_OPS_PER_S),
+        **bound(4 * (3 * D * O + O + P + 1 + 9 * P + D * O + D * O), (12 * D + 9) * O + 18 * P, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.schur_coupling_payloads_big(*k10), device),
         note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic; "
              f"reduced by K9 it is K11's output to {rel11:.2e}")
     twins["K10 (+K9) vs K11"] = dict(
-        big_ms=results["schur_coupling_payloads_big"]["ms"],
+        big_ms=results["schur_coupling_payloads_big" + suffix]["ms"],
         gather_ms=time_ms(lambda: core._rows_t(v, prob.obs_cam), device),
         reduce_ms=time_ms(lambda: kb.cam_segment_sum(y_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm), device),
         small_ms=time_ms(lambda: kb.schur_coupling_matvec(*k11), device))
     del out, y_t, v_obs_t, out11, whw7
-    return results, twins, check_segment_sum(inv, O, C, P, device)
+    return results, twins, (check_segment_sum(inv, O, C, P, device) if D == 6 else
+                            check_segment_sum(inv, O, C, P, device, BIG_WIDE_K9_SIDES))
 
 
 def arc_ring_reconstruction(num_cameras: int, num_points: int, track_range: tuple[int, int],
@@ -2133,7 +2172,10 @@ def run_polish(device):
     config; returns what check_polish and the kernel checks need: the model
     and its ground truth, (mean reprojection px, camera RMSE) before and
     after, the observation count, the BA log (each solve's problem and
-    config), the launch counts and the wall seconds of the polish."""
+    config), the launch counts and the wall seconds of the polish; and a
+    copy of the model as it was built (`model`, phase 13's input)."""
+    import copy
+
     from sfm_tpu_torch import kernels
     from sfm_tpu_torch.config import PipelineConfig
     from sfm_tpu_torch.pipeline.partition import _merged_polish
@@ -2144,6 +2186,7 @@ def run_polish(device):
     n_obs = rec.num_observations
     tl = rec.track_lengths()
     before = (rec.mean_reprojection_error(), camera_rmse(rec, truth))
+    model = copy.deepcopy(rec)
     log(f"[polish] merged model built in {time.perf_counter() - t0:.2f}s: C={POLISH_CAMERAS} "
         f"P={POLISH_POINTS} O={n_obs}, tracks of {int(tl.min())}-{int(tl.max())} views, "
         f"{len(truth.outlier_rows)} gross outliers; before: {before[0]:.4f} px, camera RMSE "
@@ -2161,7 +2204,7 @@ def run_polish(device):
         f"{n_obs - rec.num_observations} observations dropped")
     log(f"[polish] launches {json.dumps(launches)}")
     return dict(rec=rec, truth=truth, before=before, after=after, n_obs=n_obs, ba_log=ba_log,
-                launches=launches, wall=wall)
+                launches=launches, wall=wall, model=model)
 
 
 def check_polish(r):
@@ -2739,6 +2782,93 @@ def check_refined_reconstruct(run) -> dict:
     return r
 
 
+# ---- phase 13: the refined polish (8-wide, past 4,096 cameras) -----------------
+
+
+def inlier_reprojection_px(rec, truth) -> float:
+    """Mean reprojection error of the observations that are not gross
+    outliers (truth.outlier_rows: obs_kp holds each row's number)."""
+    import numpy as np
+
+    err = rec.reprojection_errors()
+    return float(err[~np.isin(rec.obs_kp, truth.outlier_rows)].mean())
+
+
+def run_refined_polish(model, truth, device) -> dict:
+    """Phase 13 (a): phase 8's merged model as it was built (10,240 cameras,
+    ~1.5 M observations), every focal at REFINED_BA_FOCAL of the rendered
+    400 and k1 0, through the engine's global BA with ba.refine_focal and
+    ba.refine_distortion (pipeline/engine.py _run_ba's three calls:
+    build_problem with refine_intrinsics, dispatch_bundle_adjust, writeback)
+    at the default BA config; the launch counts set to 0 just before and
+    read just after, every plain version handed a CUDA tensor recorded
+    (forbid_plain). Returns the readings (check_refined_polish holds them
+    to their bars), the problem and its BA config."""
+    import copy
+
+    import numpy as np
+
+    from sfm_tpu_torch import kernels
+    from sfm_tpu_torch.ba import build_problem, dispatch_bundle_adjust, writeback
+    from sfm_tpu_torch.config import PipelineConfig, apply_overrides
+
+    rec = copy.deepcopy(model)
+    focal = float(rec.intrinsics[0, 0])
+    rec.intrinsics[:, :2] *= REFINED_BA_FOCAL
+    rec.intrinsics[:, 4] = 0.0
+    cfg = apply_overrides(PipelineConfig(verbose=False), REFINED_OVERRIDES)
+    before = dict(px=rec.mean_reprojection_error(), inlier_px=inlier_reprojection_px(rec, truth),
+                  camera_rmse=camera_rmse(rec, truth))
+    with forbid_plain() as plain:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        prob, cams, pids = build_problem(rec, refine_intrinsics=True, device=device)
+        out, stats = dispatch_bundle_adjust(prob, cfg)
+        writeback(rec, out, cams, pids)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    f, k1 = rec.intrinsics[cams[1:], 0], rec.intrinsics[cams, 4]
+    rel = np.abs(f / focal - 1.0)
+    r = dict(C=prob.num_cameras, O=int(prob.obs_w.shape[0]), width=prob.cam_params.shape[-1],
+             lm_iterations=int(stats.iterations), initial_cost=float(stats.initial_cost),
+             final_cost=float(stats.final_cost), wall_s=wall, before=before,
+             after=dict(px=rec.mean_reprojection_error(), inlier_px=inlier_reprojection_px(rec, truth),
+                        camera_rmse=camera_rmse(rec, truth)),
+             radius=truth.radius, rendered_focal=focal, prior_focal=REFINED_BA_FOCAL * focal,
+             focal_median_rel=float(np.median(rel)), focal_worst_rel=float(rel.max()),
+             focal_mean=float(f.mean()), k1_worst=float(np.abs(k1).max()),
+             launches=launches, plain_calls=sorted(set(plain)), device=device.type)
+    return dict(readings=r, problem=prob, cfg=cfg.ba)
+
+
+def check_refined_polish(r: dict) -> None:
+    """Phase 13 (a)'s bars on run_refined_polish's readings: the 8-wide K4,
+    K6, K8, K9 and pcg_solve_big launched and nothing else (no 6-wide
+    `_big` entry, no small-C kernel, not the coupling-only K10 entry); no
+    plain version on the card; the cost falls; the mean reprojection error
+    of the observations that are not gross outliers < 1 px afterwards (no
+    filter runs, and the 1% gross outliers of 60-200 px keep the mean over
+    all rows above it). Reported with no bar: the focal error of the
+    non-gauge cameras against the rendered focal (median, worst), max |k1|,
+    the camera RMSE before and after."""
+    launches = r["launches"]
+    missing = [k for k in REFINED_POLISH_KERNELS if launches.get(k, 0) == 0]
+    stray = [k for k in KERNELS if k not in REFINED_POLISH_KERNELS and launches.get(k, 0) != 0]
+    bad = []
+    if r["device"] == "cuda" and (missing or stray):
+        bad.append(f"never launched {missing}, launched but not of this path {stray}")
+    if r["width"] != 8 or r["C"] <= 4096:
+        bad.append("not an 8-wide problem past 4,096 cameras")
+    if r["plain_calls"]:
+        bad.append("plain versions on the card")
+    if not r["final_cost"] < r["initial_cost"]:
+        bad.append("cost")
+    if not r["after"]["inlier_px"] < 1.0:
+        bad.append("reprojection")
+    if bad:
+        raise AssertionError(f"refined polish: {bad}: {r}")
+
+
 # ---- phase 12: several devices, one process on the card ---------------------
 
 # The camera-sharded LM's two kernel entries (K3's sharded mode, K11 cut at
@@ -3177,15 +3307,16 @@ def sharded_lm_report(prob, cfg, device, mesh) -> dict:
     return rows
 
 
-def run_sharded(imgs, ring_ba, polish_ba, device) -> dict:
+def run_sharded(imgs, ring_ba, polish_ba, device, refined_polish_ba=None) -> dict:
     """Phase 12: one process joins a one-process NCCL group on the card
     through dist.mesh and runs every multi-device route against the
     single-card one: (a)-(c) on the refined phase's 46 views, (d) on phase
     5's final global BA problem at 6 and 8 wide, (e) on phase 8's merged
-    polish problem for DIST_POLISH_ITERATIONS iterations, (f) the new
-    kernel entries at (d)'s and (e)'s shapes, (g) the sharded LM
-    iteration's launches, each logged as it is done. Returns the rows of
-    the kernels' record and the launches of the sharded routes (one
+    polish problem for DIST_POLISH_ITERATIONS iterations, and on phase 13's
+    refined polish problem (8 wide, past 4,096 cameras: phase 13 (c)) as
+    long, (f) the new kernel entries at (d)'s and (e)'s shapes, (g) the
+    sharded LM iteration's launches, each logged as it is done. Returns the
+    rows of the kernels' record and the launches of the sharded routes (one
     path)."""
     import torch.distributed as dist
 
@@ -3211,11 +3342,15 @@ def run_sharded(imgs, ring_ba, polish_ba, device) -> dict:
         prob8, _, _ = build_problem(rec, refine_intrinsics=True, device=device)
         cfg8 = refine_config(cfg)
         polish, polish_cfg = polish_ba
-        for args in ((prob, cfg, "final global BA"), (prob8, cfg8, "final global BA, 8 wide"),
-                     (polish, polish_cfg, "merged polish", DIST_POLISH_ITERATIONS)):
+        cases = [(prob, cfg, "final global BA"), (prob8, cfg8, "final global BA, 8 wide"),
+                 (polish, polish_cfg, "merged polish", DIST_POLISH_ITERATIONS)]
+        if refined_polish_ba is not None:
+            cases.append((*refined_polish_ba, "refined polish", DIST_POLISH_ITERATIONS))
+        for args in cases:
             r = check_sharded_ba(args[0], args[1], device, mesh, *args[2:])
             add_launches(launches, r["launches"])
-            log(f"[dist] ({'e' if r['what'] == 'merged polish' else 'd'}) sharded BA: " + json.dumps(r))
+            tag = {"merged polish": "(e)", "refined polish": "(13c)"}.get(r["what"], "(d)")
+            log(f"[dist] {tag} sharded BA: " + json.dumps(r))
         t0 = time.perf_counter()
         results = {**check_sharded_kernels(prob, cfg, device, "final global BA"),
                    **check_sharded_kernels(prob8, cfg8, device, "final global BA, 8 wide")}
@@ -3455,6 +3590,7 @@ def main() -> int:
     results["cam_segment_sum"]["shapes"] = results["cam_segment_sum"]["shapes"] + k9_big
     log(f"[kernel] twins on the merged polish's problem (ms): {json.dumps(twins)}")
     polish_ba = (first["problem"], first["cfg"])   # phase 12 shards this BA
+    refined_model = (polish["model"], polish["truth"])   # phase 13 refines this model
     del polish, first
 
     # Intrinsics refinement at full width, the only path of 8-wide camera
@@ -3487,11 +3623,37 @@ def main() -> int:
     ring_views = refined["imgs"]
     del refined, inc_rec
 
+    # The refined polish (phase 13, before phase 12, which shards its
+    # problem): phase 8's merged model from a focal 4% off through the
+    # engine's global BA with focal and k1 refined, the 8-wide large-camera
+    # kernels on its problem, each beside its 6-wide twin of phase 8.
+    t0 = time.perf_counter()
+    rp = run_refined_polish(*refined_model, device)
+    del refined_model
+    log("[refined polish] (a) " + json.dumps(rp["readings"]))
+    check_refined_polish(rp["readings"])
+    paths["refined_polish"] = rp["readings"]["launches"]
+    big8, twins8, k9_big8 = check_big(rp["problem"], rp["cfg"], device)
+    log_results("refined polish", big8)
+    log_shapes("cam_segment_sum", k9_big8)
+    results.update(big8)
+    results["cam_segment_sum"]["shapes"] += k9_big8
+    results["pcg_solve_big_w8"] = check_pcg(rp["problem"], rp["cfg"], device, "refined polish",
+                                            x_steps=PCG_X_STEPS)
+    log_results("", {"pcg_solve_big_w8": results["pcg_solve_big_w8"]})
+    log(f"[kernel] twins on the refined polish's problem (ms): {json.dumps(twins8)}")
+    log("[refined polish] (b) 8 wide beside 6 wide (kernel ms, device ms): " + json.dumps(
+        {k: {w: [results[k + s][f] for f in ("ms", "device_ms")] for w, s in (("6", ""), ("8", "_w8"))}
+         for k in BIG_KERNELS}))
+    refined_polish_ba = (rp["problem"], rp["cfg"])   # phase 12 shards this BA too
+    del rp
+    log(f"[refined polish] phase 13 (a), (b) wall {time.perf_counter() - t0:.2f}s")
+
     # Several devices: the multi-device routes in a one-process NCCL group
     # on the card, each against the single-card route.
     t0 = time.perf_counter()
-    sharded = run_sharded(ring_views, ring_ba, polish_ba, device)
-    del ring_views, ring_ba, polish_ba
+    sharded = run_sharded(ring_views, ring_ba, polish_ba, device, refined_polish_ba)
+    del ring_views, ring_ba, polish_ba, refined_polish_ba
     log_results("sharded BA", sharded["results"])
     for k in SHARDED_KERNELS:
         log_shapes(k, sharded["results"][k]["shapes"])
@@ -3501,7 +3663,8 @@ def main() -> int:
     log("[lm] launches by path: " + json.dumps(
         {k: {name: p.get(k, 0) for name, p in paths.items()}
          for k in ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce",
-                   "pcg_solve", "pcg_solve_big") + WIDE_KERNELS + SHARDED_KERNELS + SHARDED_WIDE}))
+                   "pcg_solve", "pcg_solve_big") + WIDE_KERNELS + SHARDED_KERNELS + SHARDED_WIDE
+         + BIG_WIDE_KERNELS}))
 
     # K10's and K11's rows count the launches that run their code (INSIDE).
     by_path = {k: {name: p.get(INSIDE.get(k, k), 0) for name, p in paths.items()} for k in KERNELS}

@@ -37,9 +37,11 @@ The JAX package switches its coupling matvec later (past 16384 cameras or on
 unaligned tiles, where its two-level in-kernel matvec cannot run); this
 package has no two-level kernel, so the whole set switches at one threshold.
 
-8-wide camera blocks run through the same kernels at width 8 up to MAX_CAMS
-cameras (sfm_tpu runs them as plain XLA: its kernels take six columns only);
-past MAX_CAMS they raise NotImplementedError (ROADMAP.md queue 1 item 2b).
+8-wide camera blocks run through the same kernels at width 8 on both sides
+of MAX_CAMS (each kernel's `_w8` build; sfm_tpu runs them as plain XLA: its
+kernels take six columns only). Past MAX_CAMS the candidate zeroes the
+columns the config does not refine in torch ops, after the
+back-substitution and the cam_fixed mask, in sfm_tpu's order.
 
 The camera-sharded LM (dist/sharded_ba.py) passes `group`, the
 torch.distributed process group whose processes each hold the observations
@@ -64,7 +66,7 @@ from typing import NamedTuple
 
 import torch
 
-from sfm_tpu_torch.ba.problem import BAProblem, CAM_DIM, PT_DIM
+from sfm_tpu_torch.ba.problem import BAProblem, PT_DIM
 from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.geometry.rotations import so3_hat, so3_right_jacobian
 from sfm_tpu_torch.kernels import on_cuda
@@ -142,15 +144,9 @@ class SolveInvariants(NamedTuple):
 
 
 def uses_big_kernels(prob: BAProblem) -> bool:
-    """Whether a solve of `prob` takes the large-camera-count kernel set,
-    which is 6-wide only: an 8-wide problem past MAX_CAMS raises."""
-    if prob.num_cameras <= MAX_CAMS:
-        return False
-    if prob.cam_params.shape[-1] != CAM_DIM:
-        raise NotImplementedError(
-            f"intrinsics refinement (8-wide camera blocks) past {MAX_CAMS} cameras is not ported "
-            "yet (ROADMAP.md queue 1 item 2b: the 8-wide large-camera-count route)")
-    return True
+    """Whether a solve of `prob` takes the large-camera-count kernel set
+    (more than MAX_CAMS cameras, at either camera width)."""
+    return prob.num_cameras > MAX_CAMS
 
 
 def _rows_t(table: torch.Tensor, obs_cam: torch.Tensor) -> torch.Tensor:
@@ -247,15 +243,15 @@ def build_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConf
             lam, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px, plan=inv.pcg_plan,
             schur_jacobi=schur_jacobi)
         return NormalEq(*out[:5], whw=out[6] if schur_jacobi else None)
-    C = prob.num_cameras
+    C, D = prob.num_cameras, cam_params.shape[-1]
     w_t, yp_t, cam_t = fused_ne_payloads_big(
         _pts_t(prob, points), inv.static_t, _rows_t(cam_params, prob.obs_cam), inv.intr_t,
         inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
-    camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)  # [C, 42]
+    camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)  # [C, D^2 + D]
     red = cam_segment_sum(yp_t, None, inv.point_bounds)                 # [P, 9]
-    return NormalEq(Hcc=_damp_big(camred[:, :36].reshape(C, CAM_DIM, CAM_DIM), lam),
+    return NormalEq(Hcc=_damp_big(camred[:, :D * D].reshape(C, D, D), lam),
                     Hpp_inv=_sym_solve3_big(_damp_big(_sym3_big(red[:, :6]), lam)), W_t=w_t,
-                    bc=camred[:, 36:42], bp=red[:, 6:9])
+                    bc=camred[:, D * D:D * D + D], bp=red[:, 6:9])
 
 
 def _sharded_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAConfig,
@@ -277,7 +273,7 @@ def _sharded_normal_equations(prob: BAProblem, cam_params, points, lam, cfg: BAC
         W_t, yp_t, cam_t = fused_ne_payloads_big(
             _pts_t(prob, points), inv.static_t, _rows_t(cam_params, prob.obs_cam), inv.intr_t,
             inv.z_floor, cfg.robust_loss, cfg.robust_scale_px)
-        camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)  # [C, 42]
+        camred = cam_segment_sum(cam_t, inv.cam_perm, inv.cam_bounds, inv.cam_inv_perm)  # [C, D^2 + D]
         red = cam_segment_sum(yp_t, None, inv.point_bounds)                           # [P, 9]
         sums = torch.cat([camred[:, :D * D].reshape(-1), camred[:, D * D:].reshape(-1), red.reshape(-1)])
     sums = _psum(sums, group)
@@ -506,15 +502,13 @@ def lm_candidate(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, cam_params, po
     the config does not refine (6: focal unless cfg.refine_focal, 7: k1
     unless cfg.refine_distortion) are zeroed in the camera update only,
     after dp has read the whole dc, as sfm_tpu's bundle_adjust_impl does
-    (their W rows are not zero). Up to MAX_CAMS cameras one K5 launch; past
-    it the back-substitution, masks and K6 as before (dc masked by
-    cam_fixed after the back-substitution, as sfm_tpu does: a frozen
-    camera's W rows are zero, so the two orders agree on any finite step).
-    With a group (the camera-sharded LM): sfm_tpu's order at every camera
-    count: dp from the whole dc through the all-reduced point half, then
-    the fixed and frozen columns zeroed, then the cost (K5 in its cost mode,
-    or K6) summed over the group."""
-    if group is not None:
+    (their W rows are not zero). Up to MAX_CAMS cameras on one device: one
+    K5 launch. Past MAX_CAMS, and with a group (the camera-sharded LM) at
+    every camera count, sfm_tpu's order in torch ops: dp from the whole dc
+    (with a group through the all-reduced point half), then the fixed
+    cameras' and points' steps and the frozen columns zeroed, then the cost
+    (K6, or with a group K5 in its cost mode, summed over the group)."""
+    if group is not None or uses_big_kernels(prob):
         dp = _back_substitute(ne, prob, dc, inv, group)
         zero = torch.zeros((), dtype=dc.dtype, device=dc.device)
         dc = torch.where(prob.cam_fixed[:, None], zero, dc)
@@ -528,18 +522,13 @@ def lm_candidate(ne: NormalEq, prob: BAProblem, dc: torch.Tensor, cam_params, po
                 dc[:, 7] = 0.0
         new_cams, new_points = cam_params + dc, points + dp
         return new_cams, new_points, compute_cost(prob, new_cams, new_points, cfg, inv, group)
-    if not uses_big_kernels(prob):
-        new_cams, new_points, sums = fused_cost_sums(
-            prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
-            prob.intrinsics, inv.point_bounds, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px,
-            step=LMStep(dc.contiguous(), ne.W_t, ne.Hpp_inv, ne.bp, prob.cam_fixed, prob.point_fixed,
-                        **frozen_columns(cfg, cam_params.shape[-1])),
-            plan=inv.pcg_plan)
-        return new_cams, new_points, sums[2]
-    dp = _back_substitute(ne, prob, dc, inv)
-    new_cams = torch.where(prob.cam_fixed[:, None], cam_params, cam_params + dc)
-    new_points = torch.where(prob.point_fixed[:, None], points, points + dp)
-    return new_cams, new_points, compute_cost(prob, new_cams, new_points, cfg, inv)
+    new_cams, new_points, sums = fused_cost_sums(
+        prob.obs_cam, prob.obs_point, points.contiguous(), inv.static_t, cam_params.contiguous(),
+        prob.intrinsics, inv.point_bounds, inv.z_floor, cfg.robust_loss, cfg.robust_scale_px,
+        step=LMStep(dc.contiguous(), ne.W_t, ne.Hpp_inv, ne.bp, prob.cam_fixed, prob.point_fixed,
+                    **frozen_columns(cfg, cam_params.shape[-1])),
+        plan=inv.pcg_plan)
+    return new_cams, new_points, sums[2]
 
 
 def uses_dense_solver(prob: BAProblem, cfg: BAConfig) -> bool:

@@ -99,8 +99,12 @@
 // 64-column tiles. K5 takes a column mask for the candidate cameras (focal
 // or k1 frozen by the config), applied after its back-substitution, which
 // reads the whole step as sfm_tpu's bundle_adjust_impl does: the frozen
-// columns' W rows are not zero. The large-camera-count kernels (K4, K6)
-// stay 6-wide (ROADMAP queue 1 item 2b).
+// columns' W rows are not zero. The large-camera-count kernels K4 and K6
+// are templates on D too (the `_w8` entries: cams_t [8, O]; K4 writes W
+// [24, O] and the camera payload [72, O]): 88 bytes in and 420 out per
+// observation for K4 at D = 8, 88 in for K6. sfm_tpu runs that case as
+// plain XLA (its large-C kernels ask for six columns); the LM candidate of
+// that route zeroes the frozen columns in torch ops (ba/core.py).
 //
 // K3's sharded mode (fused_ne_sums) serves the camera-sharded LM
 // (sfm_tpu/dist/sharded_ba.py): each device holds the observations of its
@@ -721,13 +725,15 @@ __global__ __launch_bounds__(kSegThreads) void cost_points_kernel(const CostArgs
 
 // ---- K4 and K6: rows gathered per observation -------------------------------
 
-// Row k of a feature-major [6, O] table at observation o, for k = 0..5.
-__device__ __forceinline__ void load_rows6(const float* __restrict__ rows_t,
-                                           int O, int o, float out[6]) {
+// Rows 0..K-1 of a feature-major [K, O] table at observation o.
+template <int K>
+__device__ __forceinline__ void load_rows(const float* __restrict__ rows_t, int O, int o,
+                                          float (&out)[K]) {
 #pragma unroll
-  for (int k = 0; k < 6; ++k) out[k] = rows_t[(size_t)k * O + o];
+  for (int k = 0; k < K; ++k) out[k] = rows_t[(size_t)k * O + o];
 }
 
+template <int D>
 __global__ __launch_bounds__(kNeThreads) void fused_ne_big_kernel(
     const float* __restrict__ pts_t, const float* __restrict__ static_t,
     const float* __restrict__ cams_t, const float* __restrict__ intr_t,
@@ -736,18 +742,18 @@ __global__ __launch_bounds__(kNeThreads) void fused_ne_big_kernel(
     float* __restrict__ cam_t) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= O) return;
-  float cam[6], in[6];
-  load_rows6(cams_t, O, o, cam);
-  load_rows6(intr_t, O, o, in);
-  const NeRows<6> J = ne_rows<6>(cam, in, pts_t[o], pts_t[O + o], pts_t[(size_t)2 * O + o],
+  float cam[D], in[6];
+  load_rows<D>(cams_t, O, o, cam);
+  load_rows<6>(intr_t, O, o, in);
+  const NeRows<D> J = ne_rows<D>(cam, in, pts_t[o], pts_t[O + o], pts_t[(size_t)2 * O + o],
                                   static_t[o], static_t[O + o], static_t[(size_t)2 * O + o],
                                   static_t[(size_t)3 * O + o], static_t[(size_t)4 * O + o], zf,
                                   loss, scale);
-  store_w<6>(J, w_t, O, o);
+  store_w<D>(J, w_t, O, o);
 #pragma unroll
-  for (int k = 0; k < kCamRows<6>; ++k) cam_t[(size_t)k * O + o] = cam_entry<6>(J, k);
+  for (int k = 0; k < kCamRows<D>; ++k) cam_t[(size_t)k * O + o] = cam_entry<D>(J, k);
 #pragma unroll
-  for (int k = 0; k < 9; ++k) yp_t[(size_t)k * O + o] = point_entry<6>(J, k);
+  for (int k = 0; k < 9; ++k) yp_t[(size_t)k * O + o] = point_entry<D>(J, k);
 }
 
 // Fixed-shape tree sum of (c, w) over the block into sc[0], sw[0].
@@ -765,6 +771,7 @@ __device__ __forceinline__ void cost_block_sum(float c, float w, float* sc,
   }
 }
 
+template <int D>
 __global__ __launch_bounds__(kCostThreads) void cost_partials_big_kernel(
     const float* __restrict__ pts_t, const float* __restrict__ static_t,
     const float* __restrict__ cams_t, const float* __restrict__ intr_t,
@@ -775,10 +782,10 @@ __global__ __launch_bounds__(kCostThreads) void cost_partials_big_kernel(
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   float c = 0.0f, w = 0.0f;
   if (o < O) {
-    float cam[6], in[6];
-    load_rows6(cams_t, O, o, cam);
-    load_rows6(intr_t, O, o, in);
-    cost_term<6>(cam, in, pts_t[o], pts_t[O + o], pts_t[(size_t)2 * O + o], static_t[o],
+    float cam[D], in[6];
+    load_rows<D>(cams_t, O, o, cam);
+    load_rows<6>(intr_t, O, o, in);
+    cost_term<D>(cam, in, pts_t[o], pts_t[O + o], pts_t[(size_t)2 * O + o], static_t[o],
               static_t[O + o], static_t[(size_t)2 * O + o], zf, loss, scale, &c, &w);
   }
   cost_block_sum(c, w, sc, sw);
@@ -866,6 +873,30 @@ int fused_cost_sums(const int* obs_cam, const int* obs_point, const float* point
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int fused_ne_payloads_big(const float* pts_t, const float* static_t, const float* cams_t,
+                          const float* intr_t, const float* zf, int O, int loss, float scale,
+                          float* w_t, float* yp_t, float* cam_t, void* stream) {
+  if (O < 1) return 0;
+  const int blocks = (O + kNeThreads - 1) / kNeThreads;
+  fused_ne_big_kernel<D><<<blocks, kNeThreads, 0, (cudaStream_t)stream>>>(
+      pts_t, static_t, cams_t, intr_t, zf, O, loss, scale, w_t, yp_t, cam_t);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int fused_cost_sums_big(const float* pts_t, const float* static_t, const float* cams_t,
+                        const float* intr_t, const float* zf, int O, int loss, float scale,
+                        float* partials, int num_partials, float* out, void* stream) {
+  if (num_partials < 1) return (int)cudaErrorInvalidValue;
+  cost_partials_big_kernel<D><<<num_partials, kCostThreads, 0, (cudaStream_t)stream>>>(
+      pts_t, static_t, cams_t, intr_t, zf, O, loss, scale, partials);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  cost_finish_kernel<<<1, kCostThreads, 0, (cudaStream_t)stream>>>(partials, num_partials, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K3. block_points [grid+1] cuts the points into the blocks' slices
@@ -926,35 +957,26 @@ SFM_ENTRY_BOTH_WIDTHS(
      cam_fixed, point_fixed, w_t, hinv, bp, O, P, C, loss, scale, grid, frozen, new_points,
      new_cams, partials, ticket, out, stream))
 
-extern "C" int sfm_fused_ne_payloads_big(const float* pts_t,
-                                         const float* static_t,
-                                         const float* cams_t,
-                                         const float* intr_t, const float* zf,
-                                         int O, int loss, float scale,
-                                         float* w_t, float* yp_t, float* cam_t,
-                                         void* stream) {
-  const int blocks = (O + kNeThreads - 1) / kNeThreads;
-  fused_ne_big_kernel<<<blocks, kNeThreads, 0, (cudaStream_t)stream>>>(
-      pts_t, static_t, cams_t, intr_t, zf, O, loss, scale, w_t, yp_t, cam_t);
-  return (int)cudaGetLastError();
-}
+// K4. pts_t [3, O], static_t [5, O], cams_t [6, O], intr_t [6, O] (rows
+// gathered per observation), zf 0-d or null -> w_t [18, O], yp_t [9, O],
+// cam_t [42, O]. One launch. The _w8 entry: cams_t [8, O], w_t [24, O],
+// cam_t [72, O].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_fused_ne_payloads_big, fused_ne_payloads_big,
+    (const float* pts_t, const float* static_t, const float* cams_t, const float* intr_t,
+     const float* zf, int O, int loss, float scale, float* w_t, float* yp_t, float* cam_t,
+     void* stream),
+    (pts_t, static_t, cams_t, intr_t, zf, O, loss, scale, w_t, yp_t, cam_t, stream))
 
-extern "C" int sfm_fused_cost_sums_big(const float* pts_t,
-                                       const float* static_t,
-                                       const float* cams_t,
-                                       const float* intr_t, const float* zf,
-                                       int O, int loss, float scale,
-                                       float* partials, int num_partials,
-                                       float* out, void* stream) {
-  cost_partials_big_kernel<<<num_partials, kCostThreads, 0,
-                             (cudaStream_t)stream>>>(
-      pts_t, static_t, cams_t, intr_t, zf, O, loss, scale, partials);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  cost_finish_kernel<<<1, kCostThreads, 0, (cudaStream_t)stream>>>(
-      partials, num_partials, out);
-  return (int)cudaGetLastError();
-}
+// K6. K4's inputs -> out [2] (sum cost * w, sum w); partials
+// [2 * num_partials] is scratch, num_partials = ceil(O / 256). Two launches.
+// The _w8 entry: cams_t [8, O].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_fused_cost_sums_big, fused_cost_sums_big,
+    (const float* pts_t, const float* static_t, const float* cams_t, const float* intr_t,
+     const float* zf, int O, int loss, float scale, float* partials, int num_partials, float* out,
+     void* stream),
+    (pts_t, static_t, cams_t, intr_t, zf, O, loss, scale, partials, num_partials, out, stream))
 
 // inv_perm null: sorted segments, `width` lanes per segment. Otherwise
 // inv_perm [N] places observation o at its segment-sorted position (-1: of

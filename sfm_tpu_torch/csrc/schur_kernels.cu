@@ -64,7 +64,10 @@
 // (two 16-byte accesses), a lane group of 8 owns all eight rows of a camera
 // in pcg_solve's camera phases, and a resident slice stages 26 rows (W's 24,
 // the camera, the place): 104 bytes per observation. K8 and K10 (the
-// large-camera-count route) stay 6-wide (ROADMAP queue 1 item 2b).
+// large-camera-count route) are templates on D too, with `_w8` entries: at
+// D = 8, K8 reads W [24, O] and writes [64, O] (100 bytes in, 256 out per
+// observation) and K10 reads v_obs_t and writes y_t [8, O]; pcg_solve past
+// 4,096 cameras runs K10's coupling code at either width.
 //
 // The camera-sharded LM (sfm_tpu/dist/sharded_ba.py) cannot run K11 whole:
 // a point's observations span devices, so g_p must be all-reduced before
@@ -192,22 +195,23 @@ struct CameraIo {
   }
 };
 
-// K10's (6-wide only): v gathered per observation (v_obs_t [6, O]), y_o
-// written in observation order (y_t [6, O]).
+// K10's: v gathered per observation (v_obs_t [D, O]), y_o written in
+// observation order (y_t [D, O]).
+template <int D>
 struct ObservationIo {
   const float* __restrict__ v_obs_t;
   float* __restrict__ y_t;
   int O;
   template <class Obs>
-  __device__ __forceinline__ void load_v(const Obs&, int o, float (&vo)[6]) const {
+  __device__ __forceinline__ void load_v(const Obs&, int o, float (&vo)[D]) const {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) vo[i] = v_obs_t[(size_t)i * O + o];
+    for (int i = 0; i < D; ++i) vo[i] = v_obs_t[(size_t)i * O + o];
   }
   template <class Obs>
   __device__ __forceinline__ int dest(const Obs&, int o) const { return o; }
-  __device__ __forceinline__ void store_y(int dst, const float (&y)[6]) const {
+  __device__ __forceinline__ void store_y(int dst, const float (&y)[D]) const {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) y_t[(size_t)i * O + dst] = y[i];
+    for (int i = 0; i < D; ++i) y_t[(size_t)i * O + dst] = y[i];
   }
 };
 
@@ -334,45 +338,48 @@ __global__ __launch_bounds__(kPointThreads) void coupling_point_kernel(
 // K10: a group of `lanes` lanes per point, consecutive groups on
 // consecutive points; then the unweighted tail [N, O) of y_t, each block its
 // share.
+template <int D>
 __global__ __launch_bounds__(kPointThreads) void coupling_big_kernel(
     const float* __restrict__ w_t, const float* __restrict__ hinv,
     const int* __restrict__ point_bounds, const float* __restrict__ v_obs_t, int O, int P,
     int N, int lanes, float* __restrict__ y_t) {
   const int p = blockIdx.x * (kPointThreads / lanes) + (int)threadIdx.x / lanes;
   const bool has = p < P;
-  coupling_point<6>(GlobalObs{w_t, nullptr, nullptr, O}, ObservationIo{v_obs_t, y_t, O}, hinv,
-                 has ? p : -1, has ? point_bounds[p] : 0, has ? point_bounds[p + 1] : 0,
-                 threadIdx.x & (lanes - 1), lanes);
+  coupling_point<D>(GlobalObs{w_t, nullptr, nullptr, O}, ObservationIo<D>{v_obs_t, y_t, O}, hinv,
+                    has ? p : -1, has ? point_bounds[p] : 0, has ? point_bounds[p + 1] : 0,
+                    threadIdx.x & (lanes - 1), lanes);
   for (int o = N + blockIdx.x * kPointThreads + threadIdx.x; o < O;
        o += gridDim.x * kPointThreads) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) y_t[(size_t)i * O + o] = 0.0f;
+    for (int i = 0; i < D; ++i) y_t[(size_t)i * O + o] = 0.0f;
   }
 }
 
+// K8: vec(W_o Hinv_p W_o^T) [D^2] per observation, feature-major [D^2, O].
+template <int D>
 __global__ __launch_bounds__(kObsThreads) void whw_payloads_kernel(
     const float* __restrict__ w_t, const float* __restrict__ hinv,
     const int* __restrict__ obs_point, int O, float* __restrict__ out_t) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= O) return;
   const float* h = hinv + 9 * (size_t)obs_point[o];
-  float W[18], H[9], u[18];
+  float W[3 * D], H[9], u[3 * D];
 #pragma unroll
-  for (int k = 0; k < 18; ++k) W[k] = w_t[(size_t)k * O + o];
+  for (int k = 0; k < 3 * D; ++k) W[k] = w_t[(size_t)k * O + o];
 #pragma unroll
   for (int k = 0; k < 9; ++k) H[k] = h[k];
   // u[i, l] = sum_k W[i, k] Hinv[k, l];  whw[i, j] = sum_l u[i, l] W[j, l].
 #pragma unroll
-  for (int r = 0; r < 6; ++r)
+  for (int r = 0; r < D; ++r)
 #pragma unroll
     for (int l = 0; l < 3; ++l)
       u[r * 3 + l] = W[r * 3] * H[l] + W[r * 3 + 1] * H[3 + l] +
                      W[r * 3 + 2] * H[6 + l];
 #pragma unroll
-  for (int r = 0; r < 6; ++r)
+  for (int r = 0; r < D; ++r)
 #pragma unroll
-    for (int j = 0; j < 6; ++j)
-      out_t[(size_t)(r * 6 + j) * O + o] =
+    for (int j = 0; j < D; ++j)
+      out_t[(size_t)(r * D + j) * O + o] =
           u[r * 3] * W[j * 3] + u[r * 3 + 1] * W[j * 3 + 1] +
           u[r * 3 + 2] * W[j * 3 + 2];
 }
@@ -843,31 +850,47 @@ int pcg_solve(const float* w_t, const float* hinv, const int* obs_cam, const int
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int sfm_whw_payloads_big(const float* w_t, const float* hinv,
-                                    const int* obs_point, int O, float* out_t,
-                                    void* stream) {
+template <int D>
+int whw_payloads_big(const float* w_t, const float* hinv, const int* obs_point, int O,
+                     float* out_t, void* stream) {
+  if (O < 1) return 0;
   const int blocks = (O + kObsThreads - 1) / kObsThreads;
-  whw_payloads_kernel<<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(
-      w_t, hinv, obs_point, O, out_t);
+  whw_payloads_kernel<D><<<blocks, kObsThreads, 0, (cudaStream_t)stream>>>(w_t, hinv, obs_point, O,
+                                                                         out_t);
   return (int)cudaGetLastError();
 }
 
-// point_bounds [P+1] covers the observations [0, N) (sorted by point);
-// `lanes` (a power of two <= 32) lanes walk one point. One launch; rows
-// [N, O) of y_t are zero.
-extern "C" int sfm_schur_coupling_payloads_big(
-    const float* w_t, const float* hinv, const int* point_bounds, const float* v_obs_t,
-    int O, int P, int N, int lanes, float* y_t, void* stream) {
+template <int D>
+int schur_coupling_payloads_big(const float* w_t, const float* hinv, const int* point_bounds,
+                                const float* v_obs_t, int O, int P, int N, int lanes, float* y_t,
+                                void* stream) {
   if (P < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const int per_block = kPointThreads / lanes;
   const int blocks = (P + per_block - 1) / per_block;
-  coupling_big_kernel<<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
+  coupling_big_kernel<D><<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
       w_t, hinv, point_bounds, v_obs_t, O, P, N, lanes, y_t);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// K8. W [18, O], hinv [P, 9], obs_point [O] -> out_t [36, O]. One launch.
+// The _w8 entry: W [24, O] -> out_t [64, O].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_whw_payloads_big, whw_payloads_big,
+    (const float* w_t, const float* hinv, const int* obs_point, int O, float* out_t, void* stream),
+    (w_t, hinv, obs_point, O, out_t, stream))
+
+// K10. point_bounds [P+1] covers the observations [0, N) (sorted by point);
+// `lanes` (a power of two <= 32) lanes walk one point; v_obs_t and y_t are
+// [6, O]. One launch; rows [N, O) of y_t are zero. The _w8 entry: W
+// [24, O], v_obs_t and y_t [8, O].
+SFM_ENTRY_BOTH_WIDTHS(
+    sfm_schur_coupling_payloads_big, schur_coupling_payloads_big,
+    (const float* w_t, const float* hinv, const int* point_bounds, const float* v_obs_t, int O,
+     int P, int N, int lanes, float* y_t, void* stream),
+    (w_t, hinv, point_bounds, v_obs_t, O, P, N, lanes, y_t, stream))
 
 // The weighted observations of [0, N): cam_inv_perm [N] gives each one's
 // place among the M of them in their stable camera sort (-1: a zero-weight

@@ -24,12 +24,14 @@ Wrapper contract (one Python function per kernel):
   coupling phase is ``schur_coupling_payloads_big``'s device code, as
   ``pcg_solve``'s is ``schur_coupling_matvec``'s).
 
-K3, K5, K7, K11 and ``pcg_solve`` are built at two camera widths, 6 and 8
-(intrinsics refinement): each has a C entry point per width (the 8-wide one
-named ``<entry>_w8``, the same arguments) and counts its 8-wide launches
-under ``<name>_w8``. So are the camera-sharded LM's two entries of K3 and
-K11: ``fused_ne_sums`` (K3's undamped sums) and ``coupling_point_half`` /
-``coupling_camera_half`` (K11 cut at h).
+Every BA kernel is built at two camera widths, 6 and 8 (intrinsics
+refinement): K3, K5, K7, K11 and ``pcg_solve``, the large-camera-count set
+K4, K6, K8 and K10, and the camera-sharded LM's entries of K3 and K11
+(``fused_ne_sums``, K3's undamped sums; ``coupling_point_half`` /
+``coupling_camera_half``, K11 cut at h). Each has a C entry point per width
+(the 8-wide one named ``<entry>_w8``, the same arguments) and counts its
+8-wide launches under ``<name>_w8`` (``pcg_solve_big_w8`` past
+``MAX_CAMS``).
 """
 
 from __future__ import annotations
@@ -71,6 +73,11 @@ LAUNCHES: dict[str, int] = {
     "whw_cam_reduce_w8": 0,
     "schur_coupling_matvec_w8": 0,
     "pcg_solve_w8": 0,
+    "fused_ne_payloads_big_w8": 0,
+    "fused_cost_sums_big_w8": 0,
+    "whw_payloads_big_w8": 0,
+    "schur_coupling_payloads_big_w8": 0,
+    "pcg_solve_big_w8": 0,
     # The camera-sharded LM: K3's sharded mode and K11 cut at h, both widths.
     "fused_ne_sums": 0,
     "coupling_point_half": 0,
@@ -105,7 +112,9 @@ _SIGNATURES = {
 # The 8-wide twins take the same arguments.
 WIDE_ENTRIES = ("sfm_fused_ne_payloads", "sfm_fused_cost_sums", "sfm_whw_cam_reduce",
                 "sfm_schur_coupling_matvec", "sfm_pcg_blocks_per_sm", "sfm_pcg_solve",
-                "sfm_fused_ne_sums", "sfm_coupling_point_half", "sfm_coupling_camera_half")
+                "sfm_fused_ne_sums", "sfm_coupling_point_half", "sfm_coupling_camera_half",
+                "sfm_fused_ne_payloads_big", "sfm_fused_cost_sums_big", "sfm_whw_payloads_big",
+                "sfm_schur_coupling_payloads_big")
 _SIGNATURES.update({f"{e}_w8": _SIGNATURES[e] for e in WIDE_ENTRIES})
 
 _lib: ctypes.CDLL | None = None

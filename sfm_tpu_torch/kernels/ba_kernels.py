@@ -20,7 +20,7 @@ parameters and their cost in one launch); both walk the point segments on
 pcg_solve's plan.
 The `_big` set serves problems of more than MAX_CAMS cameras, as in the JAX
 package: camera, intrinsic and v rows arrive gathered per observation
-([6, O], plain indexing by the caller) and every result stays per
+([D, O] or [6, O], plain indexing by the caller) and every result stays per
 observation for the caller's K9 reduction. Layouts are
 feature-major ([rows, O]) wherever a kernel reads or writes per-observation
 rows, so a warp touches contiguous memory.
@@ -35,12 +35,12 @@ Inputs shared by K3 and K5:
   intr     [C, 6] f32     fx fy cx cy k1 k2
   point_bounds [P+1] int32  point segments covering the observations [0, N)
   z_floor  0-d f32 tensor or None: near-plane gate at the current parameters
-K3, K5, K7, K11 and pcg_solve take the camera width D from their inputs'
-shapes (cams, W_t [3D, O], v, rhs), 6 or 8, and launch the kernel built
-for it (kernels/__init__.py: the `_w8` entries); sfm_tpu runs an 8-wide BA
-as plain XLA. K4 and K6 take pts_t [3, O] (each observation's point) and
-cams_t / intr_t [6, O] (those rows gathered per observation) in place of
-obs_cam, points, cams and intr; they and K8, K10 are 6-wide only.
+Every kernel takes the camera width D from its inputs' shapes (cams,
+cams_t [D, O], W_t [3D, O], v, v_obs_t [D, O], rhs), 6 or 8, and launches
+the kernel built for it (kernels/__init__.py: the `_w8` entries); sfm_tpu
+runs an 8-wide BA as plain XLA. K4 and K6 take pts_t [3, O] (each
+observation's point), cams_t [D, O] and intr_t [6, O] (those rows gathered
+per observation) in place of obs_cam, points, cams and intr.
 """
 
 from __future__ import annotations
@@ -81,8 +81,7 @@ def upper(D: int) -> list[int]:
     return [i * D + j for i in range(D) for j in range(i, D)]
 
 
-NE_CAM_ROWS = ne_cam_rows(6)   # 42 (72 at D = 8)
-NE_W_ROWS = 18     # vec(W = Jc^T Jp), row-major 6x3 (3D rows at width D)
+NE_CAM_ROWS = ne_cam_rows(6)   # 42 at D = 6: the wrappers read D from their inputs
 NE_PT_ROWS = 9     # sym(Jp^T Jp) (00, 01, 02, 11, 12, 22) then -Jp^T r
 NE_PCG_ROWS = ne_pcg_rows(6)   # 64: the camera row, 21 entries of W Hpp^-1 W^T, one unused (112 at D = 8)
 _STATIC_ROWS = 5
@@ -500,16 +499,17 @@ def fused_cost_sums(obs_cam, obs_point, points, static_t, cams, intr, point_boun
     return new_cams, new_points, out
 
 
-def _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor):
-    O = pts_t.shape[1]
+def _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor) -> tuple[int, int]:
+    """K4's and K6's inputs checked -> (O, the camera width D of cams_t)."""
+    O, D = pts_t.shape[1], _width(cams_t.shape[0])
     dev = pts_t.device
     check(pts_t, "pts_t", torch.float32, (3, O), dev)
     check(static_t, "static_t", torch.float32, (_STATIC_ROWS, O), dev)
-    check(cams_t, "cams_t", torch.float32, (6, O), dev)
+    check(cams_t, "cams_t", torch.float32, (D, O), dev)
     check(intr_t, "intr_t", torch.float32, (6, O), dev)
     if z_floor is not None:
         check(z_floor, "z_floor", torch.float32, (), dev)
-    return O
+    return O, D
 
 
 def _as_table(cams_t, intr_t):
@@ -520,26 +520,27 @@ def _as_table(cams_t, intr_t):
 
 
 def fused_ne_payloads_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
-    """Plain K4: (w_t [18, O], yp_t [9, O], cam_t [42, O])."""
+    """Plain K4 for cams_t [D, O]: (w_t [3D, O], yp_t [9, O], cam_t [D^2 + D, O])."""
     obs_cam, cams, intr = _as_table(cams_t, intr_t)
     return _ne_payloads_obs_plain(obs_cam, pts_t, static_t, cams, intr, z_floor, loss, scale)
 
 
 def fused_ne_payloads_big(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
     """Per-observation normal-equation payloads (each observation's point
-    pts_t [3, O], camera rows cams_t [6, O] and intrinsic rows intr_t
-    [6, O] gathered per observation), feature-major: W = Jc^T Jp [18, O],
+    pts_t [3, O], camera rows cams_t [D, O] and intrinsic rows intr_t
+    [6, O] gathered per observation), feature-major: W = Jc^T Jp [3D, O],
     point payload sym(Jp^T Jp), -Jp^T r [9, O], camera payload
-    vec(Jc^T Jc), -Jc^T r [42, O] (IRLS-weighted, near-plane gated, freeze
-    masks applied), for the caller's K9 reductions."""
+    vec(Jc^T Jc), -Jc^T r [D^2 + D, O] (IRLS-weighted, near-plane gated,
+    freeze masks applied), for the caller's K9 reductions. D = 8 launches
+    the 8-wide build (fused_ne_payloads_big_w8)."""
     if not on_cuda(pts_t):
         return fused_ne_payloads_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss, scale)
-    O = _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor)
+    O, D = _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor)
     dev = pts_t.device
-    w_t = torch.empty((NE_W_ROWS, O), dtype=torch.float32, device=dev)
+    w_t = torch.empty((3 * D, O), dtype=torch.float32, device=dev)
     yp_t = torch.empty((NE_PT_ROWS, O), dtype=torch.float32, device=dev)
-    cam_t = torch.empty((NE_CAM_ROWS, O), dtype=torch.float32, device=dev)
-    launch("sfm_fused_ne_payloads_big", "fused_ne_payloads_big",
+    cam_t = torch.empty((ne_cam_rows(D), O), dtype=torch.float32, device=dev)
+    launch(_wide("sfm_fused_ne_payloads_big", D), _wide("fused_ne_payloads_big", D),
            ptr(pts_t), ptr(static_t), ptr(cams_t), ptr(intr_t), ptr(z_floor),
            O, LOSS_CODES[loss], float(scale), ptr(w_t), ptr(yp_t), ptr(cam_t))
     return w_t, yp_t, cam_t
@@ -556,15 +557,16 @@ _COST_THREADS = 256
 
 def fused_cost_sums_big(pts_t, static_t, cams_t, intr_t, z_floor, loss: str, scale: float):
     """Robustified cost and weight sums over observations on rows gathered
-    per observation (as for fused_ne_payloads_big) -> tensor [2]."""
+    per observation (as for fused_ne_payloads_big) -> tensor [2]. D = 8
+    launches the 8-wide build (fused_cost_sums_big_w8)."""
     if not on_cuda(pts_t):
         return fused_cost_sums_big_plain(pts_t, static_t, cams_t, intr_t, z_floor, loss, scale)
-    O = _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor)
+    O, D = _check_big_inputs(pts_t, static_t, cams_t, intr_t, z_floor)
     dev = pts_t.device
     nblocks = max(1, -(-O // _COST_THREADS))
     partials = torch.empty((nblocks, 2), dtype=torch.float32, device=dev)
     out = torch.empty((2,), dtype=torch.float32, device=dev)
-    launch("sfm_fused_cost_sums_big", "fused_cost_sums_big",
+    launch(_wide("sfm_fused_cost_sums_big", D), _wide("fused_cost_sums_big", D),
            ptr(pts_t), ptr(static_t), ptr(cams_t), ptr(intr_t), ptr(z_floor),
            O, LOSS_CODES[loss], float(scale), ptr(partials), nblocks, ptr(out))
     return out
@@ -717,25 +719,26 @@ def whw_cam_reduce(W_t, Hpp_inv, obs_point, cam_perm, cam_bounds, cam_inv_perm):
 
 
 def whw_payloads_big_plain(W_t, Hpp_inv, obs_point):
-    """Plain K8: vec(W_o Hpp_inv[p(o)] W_o^T) per observation -> [36, O]."""
+    """Plain K8: vec(W_o Hpp_inv[p(o)] W_o^T) per observation -> [D^2, O]."""
     return _whw_rows_t(W_t, Hpp_inv[obs_point.long()])
 
 
 def whw_payloads_big(W_t, Hpp_inv, obs_point):
     """Per-observation Schur-Jacobi payloads vec(W_o Hpp^-1_{p(o)} W_o^T):
-    W_t [18, O], Hpp_inv [P, 3, 3], obs_point [O] int32 -> [36, O], for the
-    caller's camera reduction (cam_segment_sum)."""
+    W_t [3D, O], Hpp_inv [P, 3, 3], obs_point [O] int32 -> [D^2, O], for the
+    caller's camera reduction (cam_segment_sum). D = 8 launches the 8-wide
+    build (whw_payloads_big_w8)."""
     if not on_cuda(W_t):
         return whw_payloads_big_plain(W_t, Hpp_inv, obs_point)
-    O = W_t.shape[1]
+    O, D = W_t.shape[1], _width(W_t.shape[0] // 3)
     dev = W_t.device
-    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(W_t, "W_t", torch.float32, (3 * D, O), dev)
     check(Hpp_inv, "Hpp_inv", torch.float32, (None, 3, 3), dev)
     check(obs_point, "obs_point", torch.int32, (O,), dev)
-    out_t = torch.empty((36, O), dtype=torch.float32, device=dev)
+    out_t = torch.empty((D * D, O), dtype=torch.float32, device=dev)
     if O == 0:
         return out_t
-    launch("sfm_whw_payloads_big", "whw_payloads_big",
+    launch(_wide("sfm_whw_payloads_big", D), _wide("whw_payloads_big", D),
            ptr(W_t), ptr(Hpp_inv), ptr(obs_point), O, ptr(out_t))
     return out_t
 
@@ -1014,9 +1017,10 @@ def pcg_solve(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_boun
     contract). Hcc, M_inv [C, D, D], d, rhs [C, D] -> x [C, D]. The dot
     products are summed in a fixed per-block order: deterministic. plan
     (pcg_launch_plan, at the width D) is made here when missing. Any camera
-    count at D = 6: past MAX_CAMS (the merged polish) the launch counts as
+    count: past MAX_CAMS (the merged polish) the launch counts as
     pcg_solve_big, and the plan's streaming mode reads W from device memory
-    every step; D = 8 launches the 8-wide build (pcg_solve_w8). The kernel
+    every step; D = 8 launches the 8-wide build (pcg_solve_w8, past
+    MAX_CAMS pcg_solve_big_w8). The kernel
     applies the preconditioner in float64 (the plain version in the inputs'
     dtype): fp32 loses ~4 digits there on the merged polish's blocks."""
     if not on_cuda(W_t):
@@ -1053,7 +1057,7 @@ def pcg_solve(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_boun
         raise ValueError(f"plan: made for {plan.cam_dim}-wide cameras, the solve is {D}-wide")
     y_packed = torch.empty((M, D), dtype=torch.float32, device=dev)
     work = torch.empty((6 * D * C + 3 * plan.grid,), dtype=torch.float32, device=dev)
-    launch(_wide("sfm_pcg_solve", D), "pcg_solve_big" if C > MAX_CAMS else _wide("pcg_solve", D),
+    launch(_wide("sfm_pcg_solve", D), _wide("pcg_solve_big" if C > MAX_CAMS else "pcg_solve", D),
            ptr(W_t), ptr(Hpp_inv), ptr(obs_cam), ptr(point_bounds), ptr(cam_inv_perm),
            ptr(cam_bounds), ptr(Hcc), ptr(M_inv), ptr(d), ptr(rhs), ptr(plan.block_points),
            O, C, int(iterations), float(tolerance), int(plan.streaming), plan.grid, plan.lanes,
@@ -1064,41 +1068,42 @@ def pcg_solve(W_t, Hpp_inv, obs_cam, obs_point, point_bounds, cam_perm, cam_boun
 
 def schur_coupling_payloads_big_plain(W_t, Hpp_inv, obs_point, point_bounds, num_obs, v_obs_t):
     """Plain K10: y_o = W_o Hpp^-1_{p(o)} sum_{o' in p(o)} W_o'^T v_o' ->
-    [6, O], in W_t's dtype (zero past num_obs)."""
-    Wm = W_t.reshape(6, 3, -1)
+    [D, O], in W_t's dtype (zero past num_obs)."""
+    Wm = W_t.reshape(v_obs_t.shape[0], 3, -1)
     u_t = torch.einsum("iko,io->ko", Wm, v_obs_t)                              # [3, O]
     g = cam_segment_sum_plain(u_t, None, point_bounds)                         # [P, 3]
     h = torch.einsum("pij,pj->pi", Hpp_inv, g)
-    y_t = torch.einsum("iko,ko->io", Wm, h[obs_point.long()].T)                # [6, O]
+    y_t = torch.einsum("iko,ko->io", Wm, h[obs_point.long()].T)                # [D, O]
     y_t[:, num_obs:] = 0.0
     return y_t
 
 
 def schur_coupling_payloads_big(W_t, Hpp_inv, obs_point, point_bounds, num_obs: int, v_obs_t):
-    """Per-observation rows of the Schur coupling term: v_obs_t [6, O] is v
+    """Per-observation rows of the Schur coupling term: v_obs_t [D, O] is v
     gathered per observation (v.T[:, obs_cam]); u_o = W_o^T v_o, g_p the sum
-    of u over point p's segment, y_o = W_o Hpp^-1_p g_p -> y_t [6, O], for
+    of u over point p's segment, y_o = W_o Hpp^-1_p g_p -> y_t [D, O], for
     the caller's camera reduction. Observations are sorted by point and
     point_bounds [P+1] covers [0, num_obs); rows past num_obs are zero. One
     launch of the coupling code that pcg_solve runs past MAX_CAMS cameras
-    (the solver's path takes that solve). Deterministic."""
+    (the solver's path takes that solve). D = 8 launches the 8-wide build
+    (schur_coupling_payloads_big_w8). Deterministic."""
     if not on_cuda(W_t):
         return schur_coupling_payloads_big_plain(W_t, Hpp_inv, obs_point, point_bounds,
                                                  num_obs, v_obs_t)
-    O = W_t.shape[1]
+    O, D = W_t.shape[1], _width(v_obs_t.shape[0])
     P = Hpp_inv.shape[0]
     dev = W_t.device
-    check(W_t, "W_t", torch.float32, (NE_W_ROWS, O), dev)
+    check(W_t, "W_t", torch.float32, (3 * D, O), dev)
     check(Hpp_inv, "Hpp_inv", torch.float32, (P, 3, 3), dev)
     check(obs_point, "obs_point", torch.int32, (O,), dev)
     check(point_bounds, "point_bounds", torch.int32, (P + 1,), dev)
-    check(v_obs_t, "v_obs_t", torch.float32, (6, O), dev)
+    check(v_obs_t, "v_obs_t", torch.float32, (D, O), dev)
     if not 0 <= num_obs <= O:
         raise ValueError(f"num_obs: expected 0..{O}, got {num_obs}")
-    y_t = torch.empty((6, O), dtype=torch.float32, device=dev)
+    y_t = torch.empty((D, O), dtype=torch.float32, device=dev)
     if O == 0 or P == 0:
         return y_t.zero_()
-    launch("sfm_schur_coupling_payloads_big", "schur_coupling_payloads_big",
+    launch(_wide("sfm_schur_coupling_payloads_big", D), _wide("schur_coupling_payloads_big", D),
            ptr(W_t), ptr(Hpp_inv), ptr(point_bounds), ptr(v_obs_t),
            O, P, int(num_obs), segment_lanes(O, P), ptr(y_t))
     return y_t

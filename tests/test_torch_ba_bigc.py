@@ -232,10 +232,12 @@ def _orbit_model(C=4224, P=4096, V=16, seed=7):
     dict(tight=True),
     dict(tight=True, obs_capacity=20480, point_capacity=1280),
     dict(cam_indices=np.arange(100, 400), free_cams=np.arange(200, 400)),
-], ids=["tight", "tight-caps", "window"])
+    dict(tight=True, refine_intrinsics=True),
+], ids=["tight", "tight-caps", "window", "tight-refined"])
 def test_build_problem_matches_jax(arc_model, kw):
     """The polish's problems (tight one-shot capacities, reused capacities,
-    an anchored camera window): every array equal."""
+    an anchored camera window, 8-wide cameras for intrinsics refinement):
+    every array equal."""
     rec, jrec = arc_model
     jprob, jcams, jpids = jbuild_problem(jrec, **kw)
     prob, cams, pids = build_problem(rec, device="cpu", **kw)

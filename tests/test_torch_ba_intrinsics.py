@@ -31,8 +31,10 @@ tests/test_torch_ba.py and tests/test_torch_ba_fused.py):
 - (g) the engine's global BA (_run_ba) with refine_focal on a small engine
   state (6 cameras, the prior 4% under the rendered focal): the refined
   focal within 1e-3 relative of sfm_tpu's and within 1.5% of the truth;
-- (h) an 8-wide problem past MAX_CAMS cameras raises NotImplementedError
-  naming ROADMAP item 2b.
+- (h) an 8-wide problem past MAX_CAMS cameras takes the large-camera-count
+  route at width 8 (K4, K6, K8 and pcg_solve) and one LM iteration gives
+  finite cameras and points, the frozen k1 column unmoved
+  (tests/test_torch_ba_bigc_wide.py holds that route against sfm_tpu).
 """
 
 import jax
@@ -374,10 +376,10 @@ def test_engine_global_ba_refines_focal_like_jax():
     np.testing.assert_allclose(tst.rvecs, jst.rvecs, atol=1e-3)
 
 
-# ---- (h) past MAX_CAMS: ROADMAP item 2b --------------------------------------
+# ---- (h) past MAX_CAMS: the large-camera-count route at width 8 -------------
 
 
-def test_wide_problem_past_max_cams_raises_item_2b():
+def test_wide_problem_past_max_cams_takes_big_route(monkeypatch):
     C, P, O = kb.MAX_CAMS + 1, 4, 8
     stub = BAProblem(
         cam_params=torch.zeros(C, 8), intrinsics=torch.tensor([[500.0, 500.0, 0, 0, 0, 0]]).repeat(C, 1),
@@ -385,8 +387,15 @@ def test_wide_problem_past_max_cams_raises_item_2b():
         obs_cam=torch.arange(O, dtype=torch.int32), obs_point=(torch.arange(O) // 2).to(torch.int32),
         obs_uv=torch.zeros(O, 2), obs_w=torch.ones(O), cam_fixed=torch.zeros(C, dtype=torch.bool),
         point_fixed=torch.zeros(P, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        core.uses_big_kernels(stub)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        core.bundle_adjust(stub, BAConfig(refine_focal=True))
-    assert core.uses_big_kernels(stub._replace(cam_params=torch.zeros(C, 6)))   # 6-wide: the big route
+    assert core.uses_big_kernels(stub)
+    calls = []
+    for name in ("fused_ne_payloads_big", "fused_cost_sums_big", "whw_payloads_big", "pcg_solve",
+                 "fused_ne_payloads", "fused_cost_sums"):
+        fn = getattr(core, name)
+        monkeypatch.setattr(core, name, lambda *a, _fn=fn, _name=name, **k: calls.append(_name) or _fn(*a, **k))
+    out, stats = core.bundle_adjust(stub, BAConfig(refine_focal=True, refine_distortion=False, max_iterations=1))
+    assert stats.iterations == 1 and sorted(set(calls)) == [
+        "fused_cost_sums_big", "fused_ne_payloads_big", "pcg_solve", "whw_payloads_big"]
+    assert torch.isfinite(out.cam_params).all() and torch.isfinite(out.points).all()
+    assert torch.isfinite(stats.final_cost) and out.cam_params.shape == (C, 8)
+    assert torch.equal(out.cam_params[:, 7], stub.cam_params[:, 7])

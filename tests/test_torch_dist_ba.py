@@ -9,7 +9,8 @@ branch the sharded route mirrors; the dense branch takes this problem) and
 of sfm_tpu's bundle_adjust_sharded at D = 2; two runs bit-identical; every
 process returns the same bits. The 8-wide problem (intrinsics refinement)
 and the large-camera-count route (MAX_CAMS set to 4 in the processes: K4,
-K6, K8 and K9 in place of K3, K5 and K7) are held to the same bars.
+K6, K8 and K9 in place of K3, K5 and K7), at both widths, are held to the
+same bars.
 
 The plain versions of K3's sharded mode and of K11's two halves, summed
 over the shards of shard_problem_by_camera (each shard's rows sorted by
@@ -93,10 +94,12 @@ CFG8_FROZEN = dict(CFG, refine_focal=False, refine_distortion=True)   # column 6
 
 def _runs(mesh, arrays, refined):
     """Every case of one group size in one spawn: 6 wide twice (the
-    determinism check), 8 wide, the large-camera-count route, and the LM's
-    pieces on each route (8 wide with the focal column frozen)."""
+    determinism check), 8 wide, the large-camera-count route at both
+    widths, and the LM's pieces on each route (8 wide with the focal column
+    frozen)."""
     return {"six": _solve(mesh, arrays, CFG, None), "again": _solve(mesh, arrays, CFG, None),
             "eight": _solve(mesh, refined, CFG8, None), "big": _solve(mesh, arrays, CFG, 4),
+            "big8": _solve(mesh, refined, CFG8, 4),
             "pieces": {"six": _pieces(mesh, arrays, CFG, None), "eight": _pieces(mesh, refined, CFG8_FROZEN, None),
                        "big": _pieces(mesh, arrays, CFG, 4)}}
 
@@ -167,10 +170,17 @@ def test_sharded_ba_large_camera_route(sharded, problems, D):
     assert_agrees(sharded(D)[0]["big"], *single(problems[0], CFG, max_cams=4))
 
 
+def test_sharded_ba_large_camera_route_8_wide(sharded, problems):
+    """The same at width 8 (focal and k1 refined) on two processes: K4, K6
+    and K8 at D = 8 with their all_reduces, against the single-process
+    large-camera route at width 8."""
+    assert_agrees(sharded(2)[0]["big8"], *single(problems[1], CFG8, max_cams=4))
+
+
 @pytest.mark.parametrize("D", [2, 4])
 def test_sharded_ba_deterministic_and_replicated(sharded, D):
     runs = sharded(D)
-    for case in ("six", "eight", "big"):
+    for case in ("six", "eight", "big", "big8"):
         for r in runs[1:]:
             np.testing.assert_array_equal(r[case][0], runs[0][case][0])
             np.testing.assert_array_equal(r[case][1], runs[0][case][1])

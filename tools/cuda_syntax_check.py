@@ -10,7 +10,7 @@ directory with its kernel launches (`<<<...>>>`) and inline PTX (`asm
 volatile`) stripped, then parsed by `g++ -std=c++17 -fsyntax-only` against
 a shim header that declares the CUDA keywords, vector types, intrinsics and
 runtime calls the sources use. The C entry points instantiate every
-template the library builds (both camera widths of K3, K5, K7, K11 and
+template the library builds (both camera widths of K3-K8, K10, K11 and
 pcg_solve), so template errors show up here. It proves nothing about code
 generation, registers or results: that takes nvcc and the card
 (chip_smoke.py, tools/torch_perf.py ptxas).

@@ -24,6 +24,20 @@ phase 11's 46-view ring at a focal offset, extracted and matched once by
 the port on the card), the same keypoints and verified graph for both. Each
 line adds every bundle adjustment's width and LM iterations (how many
 stopped at the iteration cap).
+
+    JAX_PLATFORMS=cpu python3 tools/refine_parity.py --merged [--cameras 4224] [--points 6600]
+
+runs both packages' refined global BA (the engine's build_problem with
+refine_intrinsics, then bundle_adjust at the default BA config, focal and
+k1 refined) on chip_smoke.py phase 13's geometry cut in camera count: its
+merged ring model (chip_smoke.arc_ring_reconstruction, tracks of 40-150
+views, 1% gross outliers) with every focal at 0.96x the rendered 400; at
+the defaults ~150 observations a camera, as on the card's 10,240 cameras,
+and past 4,096 cameras, so the port takes its 8-wide large-camera route.
+One JSON line per package: the focal error of the non-gauge cameras
+against the rendered focal (median, worst), the largest |k1|, the mean
+reprojection error of the non-outlier observations, the camera-centre
+RMSE after Sim(3) alignment, the cost, LM iterations and seconds.
 """
 
 from __future__ import annotations
@@ -163,26 +177,72 @@ def run_features(package: str, path: str, refine: bool) -> dict:
                 **log.summary(cfg.ba.max_iterations))
 
 
+def run_merged(package: str, cameras: int, points: int) -> dict:
+    import numpy as np
+
+    import chip_smoke as cs
+    from sfm_tpu.ba import build_problem as jbuild_problem
+    from sfm_tpu.ba import core as jcore
+    from sfm_tpu.ba import writeback as jwriteback
+    from sfm_tpu.config import BAConfig, config_to_dict
+    from sfm_tpu.scene.state import Reconstruction as JReconstruction
+    from sfm_tpu_torch import config as tconfig
+    from sfm_tpu_torch.ba import build_problem, core, writeback
+
+    rec, truth = cs.arc_ring_reconstruction(cameras, points, cs.POLISH_TRACKS, seed=3,
+                                            centre_noise=cs.POLISH_CENTRE_NOISE)
+    focal = float(rec.intrinsics[0, 0])
+    rec.intrinsics[:, :2] *= cs.REFINED_BA_FOCAL
+    cfg = BAConfig(refine_focal=True, refine_distortion=True)
+    t0 = time.perf_counter()
+    if package == "jax":
+        fields = ("intrinsics", "rvecs", "tvecs", "registered", "points", "point_errors", "point_valid",
+                  "obs_point", "obs_image", "obs_kp", "obs_uv")
+        jrec = JReconstruction(**{f: np.copy(getattr(rec, f)) for f in fields})
+        prob, cams, pids = jbuild_problem(jrec, refine_intrinsics=True)
+        out, stats = jcore.bundle_adjust(prob, cfg)
+        jwriteback(jrec, out, cams, pids)
+        for f in ("intrinsics", "rvecs", "tvecs", "points"):
+            setattr(rec, f, np.asarray(getattr(jrec, f)))
+    else:
+        prob, cams, pids = build_problem(rec, refine_intrinsics=True, device="cpu")
+        out, stats = core.bundle_adjust(prob, tconfig.config_from_dict(tconfig.BAConfig, config_to_dict(cfg)))
+        writeback(rec, out, cams, pids)
+    seconds = time.perf_counter() - t0
+    rel = np.abs(rec.intrinsics[cams[1:], 0] / focal - 1.0)
+    return dict(package=package, cameras=cameras, padded_cameras=int(prob.num_cameras),
+                observations=int(np.asarray(prob.obs_w).sum()), rendered_focal=focal,
+                prior_focal=cs.REFINED_BA_FOCAL * focal, focal_median_rel=float(np.median(rel)),
+                focal_worst_rel=float(rel.max()), k1_worst=float(np.abs(rec.intrinsics[cams, 4]).max()),
+                inlier_px=cs.inlier_reprojection_px(rec, truth),
+                camera_rmse_pct_radius=100 * cs.camera_rmse(rec, truth) / truth.radius,
+                initial_cost=float(stats.initial_cost), final_cost=float(stats.final_cost),
+                lm_iterations=int(stats.iterations), seconds=seconds)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--cameras", type=int, default=20)
-    parser.add_argument("--points", type=int, default=300)
+    parser.add_argument("--cameras", type=int, help="default 20, with --merged 4224")
+    parser.add_argument("--points", type=int, help="default 300, with --merged 6600")
     parser.add_argument("--offset", type=float, default=0.04)
     parser.add_argument("--no-refine", action="store_true")
     parser.add_argument("--package", choices=("both", "jax", "port"), default="both")
     parser.add_argument("--features", nargs="+", metavar="NPZ",
                         help="run the engines on these files of tools/torch_perf.py ringfeatures")
+    parser.add_argument("--merged", action="store_true", help="phase 13's refined global BA, cut in cameras")
     args = parser.parse_args()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     for package in (("jax", "port") if args.package == "both" else (args.package,)):
-        if args.features:
+        if args.merged:
+            print(json.dumps(run_merged(package, args.cameras or 4224, args.points or 6600)), flush=True)
+        elif args.features:
             for path in args.features:
                 print(json.dumps(run_features(package, path, not args.no_refine)), flush=True)
         else:
-            print(json.dumps(run(package, args.cameras, args.points, args.offset, not args.no_refine)),
-                  flush=True)
+            print(json.dumps(run(package, args.cameras or 20, args.points or 300, args.offset,
+                                 not args.no_refine)), flush=True)
     return 0
 
 

@@ -95,7 +95,7 @@
         each kernel source compiled as the package builds it, with
         -Xptxas -v: registers, spill stores and loads, shared memory and
         stack of every kernel, by name (the 6-wide and 8-wide builds of K3,
-        K5, K7, K11 and pcg_solve apart);
+        K4, K5, K6, K7, K8, K10, K11 and pcg_solve apart);
     python3 tools/torch_perf.py refined [--source ring|orbit] [--offsets 0.04 ...]
         chip_smoke.py's phase 11 without the other phases: the 8-wide
         builds held and timed (check_refined_kernels) on the final global
@@ -119,6 +119,14 @@
         with --phase12 (no probe, no orbit) chip_smoke.py's phase 12 alone
         on its inputs, made as phases 5, 8 and 11 make them (the ring's
         reconstruction, the merged polish, the 46 views).
+    python3 tools/torch_perf.py refinedpolish [--sharded]
+        chip_smoke.py's phase 13 without the other phases: phase 8's merged
+        model (10,240 cameras) from a focal 4% off through the refined
+        global BA (run_refined_polish; its bars reported, not enforced),
+        then the 8-wide K4, K6, K8, K10 and K9 held and timed on its
+        problem (check_big) and pcg_solve_big 8 wide (check_pcg); with
+        --sharded also the sharded LM on that problem for 3 iterations in a
+        one-process NCCL group (check_sharded_ba);
     python3 tools/torch_perf.py ringfeatures [--offsets 0 0.04] [--out DIR]
         chip_smoke.py phase 11's 46-view ring rendered at (1 + offset) x
         the focal prior, through the feature stage and the exhaustive
@@ -920,6 +928,37 @@ def refined_cmd(device, source: str, offsets, baseline: bool):
                   flush=True)
 
 
+def refinedpolish_cmd(device, sharded: bool):
+    t0 = time.perf_counter()
+    model, truth = cs.arc_ring_reconstruction(cs.POLISH_CAMERAS, cs.POLISH_POINTS, cs.POLISH_TRACKS, seed=3,
+                                              centre_noise=cs.POLISH_CENTRE_NOISE)
+    print(f"[refinedpolish] {card()} model built in {time.perf_counter() - t0:.1f}s", flush=True)
+    rp = cs.run_refined_polish(model, truth, device)
+    print(f"[refinedpolish] {card()} (a) " + json.dumps(rp["readings"]), flush=True)
+    try:
+        cs.check_refined_polish(rp["readings"])
+    except AssertionError as e:   # reported, not enforced
+        print(f"[refinedpolish] {card()} (a) bars: {e}", flush=True)
+    t0 = time.perf_counter()
+    rows, twins, k9 = cs.check_big(rp["problem"], rp["cfg"], device)
+    rows["pcg_solve_big_w8"] = cs.check_pcg(rp["problem"], rp["cfg"], device, "refined polish",
+                                            x_steps=cs.PCG_X_STEPS)
+    print(f"[refinedpolish] {card()} (b) kernel checks {time.perf_counter() - t0:.1f}s", flush=True)
+    cs.log_results(f"{card()} refined polish", rows)
+    cs.log_shapes("cam_segment_sum", k9)
+    print(f"[refinedpolish] {card()} twins (ms): {json.dumps(twins)}", flush=True)
+    if sharded:
+        import torch.distributed as dist
+
+        mesh = cs.join_group(device)
+        try:
+            r = cs.check_sharded_ba(rp["problem"], rp["cfg"], device, mesh, "refined polish",
+                                    cs.DIST_POLISH_ITERATIONS)
+            print(f"[refinedpolish] {card()} (c) sharded BA: " + json.dumps(r), flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
 def ringfeatures_cmd(device, offsets, out_dir: str):
     import numpy as np
 
@@ -1086,6 +1125,8 @@ def main() -> int:
     p.add_argument("--source", choices=("ring", "orbit"), default="ring")
     p.add_argument("--offsets", type=float, nargs="*", default=[cs.REFINED_FOCAL_OFFSET])
     p.add_argument("--baseline", action="store_true", help="each offset also without refinement")
+    p = sub.add_parser("refinedpolish")
+    p.add_argument("--sharded", action="store_true", help="also the sharded LM (phase 13 (c))")
     p = sub.add_parser("ringfeatures")
     p.add_argument("--offsets", type=float, nargs="+", default=[0.0, cs.REFINED_FOCAL_OFFSET])
     p.add_argument("--out", default="chiprun_out")
@@ -1127,6 +1168,8 @@ def main() -> int:
         ptxas_cmd()
     elif args.cmd == "refined":
         refined_cmd(device, args.source, args.offsets, args.baseline)
+    elif args.cmd == "refinedpolish":
+        refinedpolish_cmd(device, args.sharded)
     elif args.cmd == "ringfeatures":
         ringfeatures_cmd(device, args.offsets, args.out)
     elif args.cmd == "dist":
