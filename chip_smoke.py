@@ -66,7 +66,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      LM iteration (device launches and device time per LM iteration: the
      "[lm] merged polish" line);
   9. config #3 from image files: the incremental ring's scene at its
-     spacing with 128 views (arc fraction 0.64), each written as an 8-bit
+     spacing with 96 views (arc fraction 0.48; 128, South Building's count,
+     before phase 14 joined the time limit), each written as an 8-bit
      binary PGM into a temporary directory, through
      sfm_tpu_torch.cli.main(["reconstruct", DIR, "--out", OUT,
      'pair_mode="vocab_tree"']) in this process, every other field default:
@@ -143,11 +144,30 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      the 6-wide twin of phase 8, and pcg_solve_big 8 wide as check_pcg
      holds it (x after PCG_X_STEPS steps, beside the loop over K10 and K9);
      (c) in phase 12's group, bundle_adjust_sharded on that problem for 3
-     LM iterations against bundle_adjust, at phase 12's bars.
+     LM iterations against bundle_adjust, at phase 12's bars;
+ 14. config #4 from files (BASELINE.json: a landmark scene of 1-2k views):
+     (a) benchmarks/ladder.py's scene at 1,000 views (256^2, 600 blobs,
+     focal 307.2, a full orbit of radius 4) written as PGM files and run
+     through cli.main(["reconstruct", DIR, "--out", OUT, ...]) with the
+     ladder's fields as overrides (vocab pairs, partition into clusters of
+     62 + 16, four threads of global-engine clusters, ba.max_iterations 15,
+     the n-scaled capacities), inside forbid_plain (every kernel module's
+     plain versions); (b) >= 990 of 1,000 registered, < 1.0 px, camera
+     RMSE < 0.5% of the radius, the global_sfm and partition.* stages
+     timed, >= 8 clusters reconstructed on more than one thread, the
+     polish on the PCG branch over >= 950 cameras, K1, K2, K3 (with K7's
+     blocks), K5, K9 and pcg_solve launched and neither the coupling-only
+     K11 nor any large-camera kernel, no plain version on the card, the
+     COLMAP binary read back equal; (c) K1 on every stack and K2 on the
+     first pair block of each shape the run handed them, K3, K5, K9 and
+     pcg_solve on the polish's own problem, each held and timed; (d) the
+     "[config4]" line: stage seconds, pairs, clusters built, reconstructed,
+     gated in and merged, rescued images, the idle share of the largest
+     cluster BA and of one match block, the phase's seconds.
 Each kernel check holds the kernel against its plain version with the
 tolerance stated and takes the median time of the kernel, the plain version
 and (where one PyTorch call computes the same function) that call (CUDA
-events, 21 runs), and the least time the card could take (bytes over
+events, TIMED_RUNS runs), and the least time the card could take (bytes over
 3.35 TB/s or operations over the peak rate, whichever is larger). K9 is
 held and timed on each BA problem's own segment tables on both sides: the
 camera side (a permutation) for K = 6, 36 and 42 rows, the point side
@@ -163,13 +183,14 @@ pcg_solve_big at phase 13's, K3's sharded mode and the two
 halves of K11 at both widths at phase 12's (the 6-wide ones at the merged
 polish's too, under `shapes`), every kernel's launches on each
 path (two_view, incremental, partition, global, vocab, options,
-merged_polish, refined_ba, refined_orbit_ba, refined, refined_polish,
+merged_polish, refined_ba, refined_orbit_ba, refined, refined_polish, config4,
 sharded; `launches` is the largest of them;
 K11's rows count the launches of pcg_solve and K10's those of
 pcg_solve_big, which run their code, at either width; K7's count K3's
 launches that build the Schur-Jacobi blocks), K7's
 K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
-K1, K2, K9 and pcg_solve a row per timed shape under `shapes`.
+K1, K2, K3, K5, K9 and pcg_solve a row per timed shape under `shapes` (phase
+14's among them).
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -333,7 +354,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, device, runs: int = 21) -> float:
+# Timed calls per CUDA-event median, and calls per profiled device time:
+# 21 and 10 until phase 14 (config #4 at 1,000 views) joined the script's
+# time limit.
+TIMED_RUNS = 11
+PROFILED_CALLS = 5
+
+
+def time_ms(fn, device, runs: int = TIMED_RUNS) -> float:
     """Median milliseconds of fn() over `runs` timed calls (after a warm-up)."""
     import torch
 
@@ -360,9 +388,13 @@ def time_ms(fn, device, runs: int = 21) -> float:
 # Traced sessions that recorded fewer device launches than another session
 # of the same calls, and all traced sessions (main prints them).
 TRACE_SESSIONS = {"short": 0, "all": 0}
+# Profiler sessions merged per traced measurement (each costs its profiler's
+# set-up and report besides the calls; two keep the script inside its time
+# limit with phase 14 in it).
+PROFILE_SESSIONS = 2
 
 
-def profiled_sessions(fn, calls: int = 1, sessions: int = 3, pad_s: float = 0.1):
+def profiled_sessions(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = 0.1):
     """torch.profiler over `calls` calls of fn(), `sessions` times: each
     session runs the calls twice, the first step (device tracing already
     on) discarded, the kept one between pad_s of idle card on each side.
@@ -387,7 +419,7 @@ def profiled_sessions(fn, calls: int = 1, sessions: int = 3, pad_s: float = 0.1)
         yield prof, wall, out
 
 
-def traced(fn, calls: int = 1, sessions: int = 3, pad_s: float = 0.1):
+def traced(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = 0.1):
     """Device rows of profiled_sessions. A trace can miss launches near its
     ends, up to half of a session's in a process that has run many kernels
     (PERF.md section 7). So each device row counts the most launches any
@@ -427,7 +459,7 @@ def per_call(rows, calls: int) -> tuple[float, float, list]:
     return sum(r[1] for r in top), sum(r[2] for r in top), top
 
 
-def device_ms(fn, device, calls: int = 10) -> float | None:
+def device_ms(fn, device, calls: int = PROFILED_CALLS) -> float | None:
     """Device time per call of fn() after a warm-up (traced, per_call over
     `calls` calls); None off the card or when no session recorded a device
     row (not measured)."""
@@ -668,7 +700,7 @@ def part_rows(prof) -> dict:
     return out
 
 
-def feature_breakdown(images, cfg, valid_hw, sessions: int = 3) -> dict:
+def feature_breakdown(images, cfg, valid_hw, sessions: int = PROFILE_SESSIONS) -> dict:
     """Where one warm extract_features call on a chunk spends the card:
     device ms, launches, wall ms and idle share of the call as the pipeline
     runs it (chip_smoke.traced); then device launches and ms by part
@@ -731,16 +763,17 @@ def _compare_topk2(out, ref, what: str):
     return int(clear.sum()), max(float((d1 - r1).abs().max()), float((d2 - r2).abs().max()))
 
 
-def check_match_shape(device, shape):
+def check_match_shape(device, shape, inputs=None):
     """K2 at one (pairs, n1, n2): the kernel held against the plain version
-    on planted descriptors, then both timed. The bf16 Gram is tensor-core
-    work: 2 * pairs * n1 * n2 * 128 operations; bytes: the operands (as
-    bf16), the validity and the three outputs."""
+    on planted descriptors (or on `inputs`, a block the pipeline handed
+    it), then both timed. The bf16 Gram is tensor-core work: 2 * pairs *
+    n1 * n2 * 128 operations; bytes: the operands (as bf16), the validity
+    and the three outputs."""
     from sfm_tpu_torch.kernels import match_topk as k2
 
     p, n1, n2 = shape
     what = f"{p} x {n1} x {n2}"
-    da, db, vb = _planted_descriptors(device, n1, n2, seed=10 + p, pairs=p)
+    da, db, vb = inputs if inputs is not None else _planted_descriptors(device, n1, n2, seed=10 + p, pairs=p)
     out = k2.match_topk2(da, db, vb)
     n_clear, err = _compare_topk2(out, k2.match_topk2_plain(da, db, vb), what)
     moved = nbytes(vb, *out) + 2 * (da.numel() + db.numel())
@@ -806,15 +839,19 @@ def log_shapes(what: str, rows) -> None:
 
 
 @contextlib.contextmanager
-def record_match_shapes():
+def record_match_shapes(blocks: dict | None = None):
     """Record the (pairs, n1, n2) of every K2 call the pipeline makes, by
-    wrapping the matcher's kernel entry for the duration."""
+    wrapping the matcher's kernel entry for the duration; with `blocks`, a
+    copy of the first (da, db, vb) of each shape lands there too."""
     from sfm_tpu_torch.ops import match
 
     shapes, inner = [], match.match_topk2
 
     def wrapped(da, db, vb):
-        shapes.append((da.shape[0], da.shape[1], db.shape[1]))
+        shape = (da.shape[0], da.shape[1], db.shape[1])
+        shapes.append(shape)
+        if blocks is not None and shape not in blocks:
+            blocks[shape] = (da.clone(), db.clone(), vb.clone())
         return inner(da, db, vb)
 
     match.match_topk2 = wrapped
@@ -2017,10 +2054,9 @@ def record_bundle_adjustments():
         ba.bundle_adjust = inner
 
 
-def render_ring(images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
-                radius: float = INC_RADIUS):
-    """render_blob_scene's ring of images x 1024^2 views, rendered by a pool
-    of spawned worker processes (numpy only; the same bits as one process)."""
+def render_pool(**scene):
+    """render_blob_scene(**scene), its views rendered by a pool of spawned
+    worker processes (numpy only; the same bits as one process)."""
     import multiprocessing
     import os
 
@@ -2028,11 +2064,16 @@ def render_ring(images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
 
     from sfm_tpu_torch.utils.synthetic import blob_scene_views, render_blob_view
 
-    views, scene = blob_scene_views(image_size=(SLICE_IMAGE, SLICE_IMAGE), num_images=images,
-                                    num_blobs=blobs, focal=focal, arc_fraction=arc,
-                                    radius=radius, seed=1)
+    views, truth = blob_scene_views(**scene)
     with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        return np.stack(pool.map(render_blob_view, views)), scene
+        return np.stack(pool.map(render_blob_view, views)), truth
+
+
+def render_ring(images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
+                radius: float = INC_RADIUS):
+    """render_blob_scene's ring of images x 1024^2 views (render_pool)."""
+    return render_pool(image_size=(SLICE_IMAGE, SLICE_IMAGE), num_images=images, num_blobs=blobs,
+                       focal=focal, arc_fraction=arc, radius=radius, seed=1)
 
 
 def run_incremental(device, images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
@@ -2270,7 +2311,9 @@ def check_global(rec, launches, scene, radius: float):
 
 VOCAB_IMAGES = 128   # South Building's image count (BASELINE.json config #3)
 VOCAB_ARC = 0.64     # 1.8 degrees between views: the incremental ring's spacing
-VOCAB_EXHAUSTIVE = VOCAB_IMAGES * (VOCAB_IMAGES - 1) // 2
+# Phase 9's depth in chip_smoke.py: 96 views at the same spacing (its final
+# global BA still takes PCG), cut from 128 when phase 14 joined.
+VOCAB_SMOKE_IMAGES = 96
 
 
 def write_pgm_views(imgs, directory: str) -> str:
@@ -2396,7 +2439,7 @@ def run_vocab(workdir: str, images: int = VOCAB_IMAGES, extra: tuple = ()):
                 out=argv[3], images=images)
 
 
-def check_colmap_round_trip(rec, out: str):
+def check_colmap_round_trip(rec, out: str, what: str = "vocab"):
     """read_colmap_bin(out/sparse) holds the Reconstruction's cameras, its
     registered images (pose, name, observations) and its valid points."""
     import os
@@ -2407,27 +2450,27 @@ def check_colmap_round_trip(rec, out: str):
 
     cams, images, points = read_colmap_bin(os.path.join(out, "sparse"))
     if sorted(cams) != list(range(1, len(rec.intrinsics) + 1)):
-        raise AssertionError(f"vocab: {len(cams)} cameras read back, {len(rec.intrinsics)} written")
+        raise AssertionError(f"{what}: {len(cams)} cameras read back, {len(rec.intrinsics)} written")
     for i, c in cams.items():
         if not np.array_equal(np.asarray(c["params"]), rec.intrinsics[i - 1, :len(c["params"])].astype(np.float64)) \
                 or (c["width"], c["height"]) != tuple(int(v) for v in rec.image_sizes[i - 1]):
-            raise AssertionError(f"vocab: camera {i} read back differs")
+            raise AssertionError(f"{what}: camera {i} read back differs")
     reg = np.where(rec.registered)[0]
     if sorted(images) != list(reg + 1):
-        raise AssertionError("vocab: the images read back are not the registered ones")
+        raise AssertionError(f"{what}: the images read back are not the registered ones")
     for i in reg:
         im, rows = images[i + 1], rec.obs_image == i
         if not (im["name"] == rec.image_names[i] and np.array_equal(im["tvec"], rec.tvecs[i].astype(np.float64))
                 and np.array_equal(im["qvec"], _quat(rec.rvecs[i]).astype(np.float64))
                 and np.array_equal(im["xys"], rec.obs_uv[rows].astype(np.float64))
                 and np.array_equal(im["point3D_ids"], rec.obs_point[rows] + 1)):
-            raise AssertionError(f"vocab: image {i} read back differs")
+            raise AssertionError(f"{what}: image {i} read back differs")
     valid = np.where(rec.point_valid)[0]
     if sorted(points) != list(valid + 1):
-        raise AssertionError("vocab: the points read back are not the valid ones")
+        raise AssertionError(f"{what}: the points read back are not the valid ones")
     xyz = np.stack([points[p + 1]["xyz"] for p in valid])
     if not np.array_equal(xyz, rec.points[valid].astype(np.float64)):
-        raise AssertionError("vocab: point positions read back differ")
+        raise AssertionError(f"{what}: point positions read back differ")
     return len(cams), len(images), len(points)
 
 
@@ -2560,15 +2603,16 @@ def run_options(device, size: int = SLICE_IMAGE):
 
 @contextlib.contextmanager
 def forbid_plain():
-    """Record every call of a kernel's plain version (kernels.ba_kernels'
-    *_plain functions) that is handed a CUDA tensor, by wrapping them for
-    the duration: on the card every wrapper launches its kernel, so the
-    list must stay empty."""
+    """Record every call of a kernel's plain version (the *_plain functions
+    of every kernel module: K1's, K2's and the BA kernels') that is handed
+    a CUDA tensor, by wrapping them for the duration: on the card every
+    wrapper launches its kernel, so the list must stay empty."""
     import torch
 
-    from sfm_tpu_torch.kernels import ba_kernels as kb
+    from sfm_tpu_torch.kernels import ba_kernels, dog_extrema, match_topk
 
-    calls, saved = [], {n: getattr(kb, n) for n in dir(kb) if n.endswith("_plain")}
+    calls, saved = [], [(m, n, getattr(m, n)) for m in (ba_kernels, dog_extrema, match_topk)
+                        for n in dir(m) if n.endswith("_plain")]
 
     def guard(name, fn):
         def wrapped(*args, **kwargs):
@@ -2577,13 +2621,13 @@ def forbid_plain():
             return fn(*args, **kwargs)
         return wrapped
 
-    for name, fn in saved.items():
-        setattr(kb, name, guard(name, fn))
+    for module, name, fn in saved:
+        setattr(module, name, guard(name, fn))
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(kb, name, fn)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 def refine_config(cfg, focal: bool = True, distortion: bool = True):
@@ -2867,6 +2911,280 @@ def check_refined_polish(r: dict) -> None:
         bad.append("reprojection")
     if bad:
         raise AssertionError(f"refined polish: {bad}: {r}")
+
+
+# ---- phase 14: config #4 from image files through the CLI -------------------
+
+CONFIG4_IMAGES = 1000   # BASELINE.json config #4: a 1DSfM landmark scene of ~1-2k views
+CONFIG4_SIZE = 256
+CONFIG4_RADIUS = 4.0
+CONFIG4_REGISTERED = 0.99   # of the views (sfm_tpu's ladder row: 1000 of 1000)
+CONFIG4_PX = 1.0            # mean reprojection error (sfm_tpu's row: 0.884 px)
+CONFIG4_RMSE = 0.005        # camera-centre RMSE over the radius (sfm_tpu's row: 0.315%)
+CONFIG4_CLUSTERS = 8        # clusters reconstructed, at the least
+CONFIG4_STAGES = ("global_sfm", "partition.clusters", "partition.merge", "partition.polish")
+
+
+def config4_scene(n: int, size: int = CONFIG4_SIZE) -> dict:
+    """benchmarks/ladder.py's render_blob_scene arguments at n views of
+    size^2 (its default seed, 0)."""
+    return dict(image_size=(size, size), num_images=n, num_blobs=min(60 + 8 * n, 600), focal=size * 1.2,
+                arc_fraction=min(0.02 * n, 1.0), radius=CONFIG4_RADIUS)
+
+
+def config4_overrides(n: int, mode: str = "global", size: int = CONFIG4_SIZE) -> dict:
+    """benchmarks/ladder.py's PipelineConfig at n views with partition on,
+    as CLI overrides (key -> value): sift, match, ransac, the engine with
+    its n-scaled capacities, ba, vocab, partition, pair and engine mode."""
+    return {
+        "sift.image_max_dim": size, "sift.max_keypoints": 1024, "sift.max_candidates": 4096,
+        "sift.num_octaves": 3, "match.max_matches": 512, "match.min_matches": 12,
+        "ransac.num_hypotheses": 512, "ransac.min_inliers": 12, "ransac.error_threshold_px": 2.0,
+        "engine.init_min_inliers": 25, "engine.abs_pose_min_inliers": 10, "engine.local_ba_window": 6,
+        "engine.global_ba_every": 8, "engine.max_images": max(4096, n),
+        "engine.max_points": max(1 << 18, 512 * n), "engine.max_observations": max(1 << 20, 4096 * n),
+        "ba.max_iterations": 15, "vocab.num_neighbors": min(12, n - 1),
+        "partition.enabled": True, "partition.target_cluster_size": max(25, n // 16),
+        "partition.overlap_cameras": 16, "partition.parallel_clusters": 4 if n >= 256 else 1,
+        "pair_mode": "vocab_tree", "engine_mode": mode,
+    }
+
+
+@contextlib.contextmanager
+def record_partition():
+    """Record what the divide-and-conquer pipeline did, by wrapping its
+    phases for the duration: the sizes of the clusters partition_images
+    built; each cluster's engine run (its thread, images, registered
+    cameras, valid points, seconds; no counts where the engine gave up);
+    the clusters the gate passed to the pose-graph merge and those it
+    placed; the images each rescue pass registered."""
+    import threading
+
+    import numpy as np
+
+    from sfm_tpu_torch.pipeline import engine, global_engine, merge, partition
+
+    rec = dict(clusters=[], runs=[], merge_in=None, placed=None, rescued=[])
+    inner = dict(partition=partition.partition_images, global_reconstruct=global_engine.global_reconstruct,
+                 incremental_reconstruct=engine.incremental_reconstruct,
+                 pose_graph=partition._merge_via_pose_graph, sim3=merge.apply_sim3_to_reconstruction,
+                 rescue=partition._rescue_unregistered)
+    lock = threading.Lock()
+
+    def partition_images(*a, **k):
+        out = inner["partition"](*a, **k)
+        rec["clusters"] = [len(c) for c in out]
+        return out
+
+    def cluster_engine(key):
+        def fn(feats, graph, *a, **k):
+            t0 = time.perf_counter()
+            row = dict(thread=threading.current_thread().name,
+                       images=int(np.unique(graph.pairs[graph.ok]).size))
+            try:
+                out = inner[key](feats, graph, *a, **k)
+                row.update(registered=int(out.num_registered), points=int(out.point_valid.sum()))
+                return out
+            finally:
+                with lock:
+                    rec["runs"].append(dict(row, seconds=time.perf_counter() - t0))
+        return fn
+
+    def pose_graph(recs, *a, **k):
+        rec["merge_in"], placed = len(recs), [0]
+
+        def sim3(*aa, **kk):
+            placed[0] += 1
+            return inner["sim3"](*aa, **kk)
+
+        merge.apply_sim3_to_reconstruction = sim3
+        try:
+            return inner["pose_graph"](recs, *a, **k)
+        finally:
+            merge.apply_sim3_to_reconstruction = inner["sim3"]
+            rec["placed"] = placed[0]
+
+    def rescue(*a, **k):
+        out = inner["rescue"](*a, **k)
+        rec["rescued"].append(out)
+        return out
+
+    partition.partition_images, partition._merge_via_pose_graph = partition_images, pose_graph
+    partition._rescue_unregistered = rescue
+    global_engine.global_reconstruct = cluster_engine("global_reconstruct")
+    engine.incremental_reconstruct = cluster_engine("incremental_reconstruct")
+    try:
+        yield rec
+    finally:
+        partition.partition_images, partition._merge_via_pose_graph = inner["partition"], inner["pose_graph"]
+        partition._rescue_unregistered = inner["rescue"]
+        global_engine.global_reconstruct = inner["global_reconstruct"]
+        engine.incremental_reconstruct = inner["incremental_reconstruct"]
+
+
+def run_config4(workdir: str, images: int = CONFIG4_IMAGES, mode: str = "global", extra: tuple = (),
+                **overrides):
+    """Config #4 from files: benchmarks/ladder.py's scene at `images` views
+    rendered and written as PGM files, then
+    sfm_tpu_torch.cli.main(["reconstruct", DIR, "--out", OUT, *extra,
+    *the ladder's fields and `overrides` as key=value]) in this process,
+    inside forbid_plain (launches count): streaming decode, K1, the vocab
+    tree, K2 on the vocab and ladder pairs, partitioning, the clusters on
+    partition.parallel_clusters threads through `mode`'s engine, the
+    cluster gate, the pose-graph merge, the rescue, the polish, COLMAP text
+    + bin + PLY. Returns the run's record, with the stacks and pair blocks
+    it handed K1 and K2."""
+    import os
+
+    from sfm_tpu_torch import cli, kernels
+
+    t0 = time.perf_counter()
+    imgs, scene = render_pool(**config4_scene(images))
+    image_dir = write_pgm_views(imgs, os.path.join(workdir, "images"))
+    render_s = time.perf_counter() - t0
+    del imgs
+    fields = {**config4_overrides(images, mode), **overrides}
+    argv = ["reconstruct", image_dir, "--out", os.path.join(workdir, "out"), *extra,
+            *(f"{k}={json.dumps(v)}" for k, v in fields.items())]
+    blocks = {}
+    with forbid_plain() as plain, record_bundle_adjustments() as ba_log, record_vocab_run() as record, \
+            record_partition() as part, record_match_shapes(blocks), record_dog_stacks() as stacks:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"config4: cli.main({argv}) failed")
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    return dict(record, launches=launches, ba_log=ba_log, wall=wall, scene=scene, argv=argv, out=argv[3],
+                images=images, mode=mode, fields=fields, render_s=render_s, plain=plain, partition=part,
+                match_blocks=blocks, dog_stacks=stacks)
+
+
+def config4_readings(run) -> dict:
+    """What run_config4's run did and how well: accuracy, stage seconds,
+    pairs, clusters, threads, rescues, the last BA, launches."""
+    rec, part = run["rec"], run["partition"]
+    s = rec.summary()
+    last = run["ba_log"][-1] if run["ba_log"] else {}
+    runs = part["runs"]
+    rmse = camera_rmse(rec, run["scene"])
+    return {
+        "images": run["images"], "mode": run["mode"], "registered": s["num_registered"],
+        "points": s["num_points"], "observations": s["num_observations"],
+        "mean_reproj_px": s["mean_reproj_error_px"], "median_reproj_px": s["median_reproj_error_px"],
+        "camera_rmse": rmse, "camera_rmse_pct_radius": 100 * rmse / CONFIG4_RADIUS,
+        "wall_s": run["wall"], "render_s": run["render_s"], "stage_s": rec.stage_seconds,
+        "vocab_build_s": run.get("build_s"), "candidate_pairs": run.get("candidate_pairs"),
+        "verified_before_densify": run.get("verified_before_densify"),
+        "ladder_candidates": run.get("ladder_candidates", 0), "ladder_pairs_added": run.get("ladder_pairs_added"),
+        "verified_edges": run.get("verified_edges"), "artifact_save_s": run["artifact_save_s"],
+        "clusters_built": len(part["clusters"]), "cluster_sizes": part["clusters"],
+        "clusters_reconstructed": sum(r.get("registered", 0) >= 2 and r.get("points", 0) >= 8 for r in runs),
+        "clusters_gated_in": part["merge_in"], "clusters_merged": part["placed"],
+        "cluster_threads": sorted({r["thread"] for r in runs}),
+        "cluster_s": sorted(round(r["seconds"], 3) for r in runs),
+        "rescued": part["rescued"],
+        "last_ba": {k: v for k, v in last.items() if k not in ("problem", "cfg")},
+        "bas": len(run["ba_log"]), "pcg_bas": sum(b["solver"] == "pcg" for b in run["ba_log"]),
+        "plain_on_cuda": sorted(set(run["plain"])), "launches": run["launches"],
+    }
+
+
+def check_config4(run, r: dict) -> list:
+    """Phase 14's bars (sfm_tpu's ladder row for 1,000 views with a
+    margin): the failures, as strings. >= 99% registered, < 1.0 px, camera
+    RMSE < 0.5% of the radius, the engine's and the partition's stages
+    timed, >= 8 clusters reconstructed on more than one thread, the last
+    BA (the polish) on the PCG branch over >= 95% of the views, the
+    path's kernels launched (K1, K2, K3 with K7's blocks, K5, K9,
+    pcg_solve), neither the coupling-only K11 nor any large-camera kernel,
+    no plain version handed a CUDA tensor, and the COLMAP model read back."""
+    n, launches = run["images"], run["launches"]
+    failed = []
+    if r["registered"] < CONFIG4_REGISTERED * n:
+        failed.append(f"{r['registered']}/{n} registered")
+    if not r["mean_reproj_px"] < CONFIG4_PX:
+        failed.append(f"mean reprojection error {r['mean_reproj_px']} px")
+    if not r["camera_rmse"] < CONFIG4_RMSE * CONFIG4_RADIUS:
+        failed.append(f"camera RMSE {r['camera_rmse_pct_radius']:.3f}% of the radius")
+    missing = [k for k in CONFIG4_STAGES if k not in r["stage_s"]]
+    if missing:
+        failed.append(f"stages not timed: {missing}")
+    if r["clusters_reconstructed"] < CONFIG4_CLUSTERS or len(r["cluster_threads"]) < 2:
+        failed.append(f"{r['clusters_reconstructed']} clusters on threads {r['cluster_threads']}")
+    last = r["last_ba"]
+    if last.get("solver") != "pcg" or last.get("C", 0) < 0.95 * n:
+        failed.append(f"the polish did not take PCG over the views: {last}")
+    never = [k for k in ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "whw_cam_reduce",
+                         "fused_cost_sums", "cam_segment_sum", "pcg_solve") if launches.get(k, 0) == 0]
+    if never:
+        failed.append(f"never launched: {never}")
+    extra = {k: launches[k] for k in ("schur_coupling_matvec",) + BIG_KERNELS if launches.get(k, 0)}
+    if extra:
+        failed.append(f"launched off the path: {extra}")
+    if r["plain_on_cuda"]:
+        failed.append(f"plain versions handed CUDA tensors: {r['plain_on_cuda']}")
+    try:
+        r["colmap_bin_read_back"] = dict(zip(("cameras", "images", "points"),
+                                             check_colmap_round_trip(run["rec"], run["out"], "config4")))
+    except AssertionError as e:
+        failed.append(str(e))
+    return failed
+
+
+def config4_polish(run):
+    """The polish's first BA (over >= 95% of the views, PCG branch)."""
+    n = run["images"]
+    return next(b for b in run["ba_log"] if b["solver"] == "pcg" and b["C"] >= 0.95 * n)
+
+
+def config4_kernels(run, device) -> dict:
+    """Phase 14 (c): K1 on every stack the run handed it and K2 on the
+    first pair block of each shape it handed it, each held against its
+    plain version and timed; K3, K5, K9 (check_ba, check_k9) and pcg_solve
+    (check_pcg) on the polish's own problem. Returns rows by kernel (a
+    list each)."""
+    polish = config4_polish(run)
+    prob, cfg = polish["problem"], polish["cfg"]
+    what = f"config4 polish C={polish['C']} O={polish['O']}"
+    rows = {"dog_extrema_scores": check_dog_path(device, run["dog_stacks"]),
+            "match_topk2": [check_match_shape(device, shape, inputs)
+                            for shape, inputs in sorted(run["match_blocks"].items())]}
+    ba = check_ba(prob, cfg, device, what)
+    for k in ("fused_ne_payloads", "fused_cost_sums"):
+        rows[k] = [dict(ba[k], shape=what)]
+    rows["cam_segment_sum"] = check_k9(prob, cfg, device)["cam_segment_sum"]["shapes"]
+    rows["pcg_solve"] = [dict(check_pcg(prob, cfg, device, what, x_steps=PCG_X_STEPS), shape=what)]
+    return rows
+
+
+def config4_idle(run, device) -> dict:
+    """Device ms, launches, wall ms and idle share (chip_smoke.traced, one
+    session) of one cluster's solve (the cluster BA of the most
+    observations, as the run handed it to bundle_adjust) and of one match
+    block (the match stage on the first block of the run's pairs, with the
+    run's config), from the run's own artifacts."""
+    from sfm_tpu_torch import ba
+    from sfm_tpu_torch.config import PipelineConfig, apply_overrides
+    from sfm_tpu_torch.pipeline import stages
+    from sfm_tpu_torch.scene.artifacts import ArtifactStore
+
+    n = run["images"]
+    cluster = max((b for b in run["ba_log"] if b["C"] < 0.95 * n), key=lambda b: b["O"])
+    store = ArtifactStore(run["out"])
+    feats, intrinsics = store.load_features(), store.load("meta")["intrinsics"]
+    cfg = apply_overrides(PipelineConfig(verbose=False), run["fields"])
+    block = store.load_graph().pairs[:cfg.match.block_pairs]
+    parts = {}
+    for name, fn in ((f"cluster BA C={cluster['C']} O={cluster['O']} {cluster['solver']}",
+                      lambda: ba.bundle_adjust(cluster["problem"], cluster["cfg"])),
+                     (f"match_and_verify {len(block)} pairs",
+                      lambda: stages.match_and_verify_stage(feats, block, intrinsics, cfg, device))):
+        rows, wall_ms, _ = traced(fn, sessions=1)
+        launches, busy_ms, _ = per_call(rows, 1)
+        parts[name] = dict(device_ms=busy_ms, launches=launches, wall_ms=wall_ms,
+                           idle_share=1.0 - busy_ms / wall_ms)
+    return parts
 
 
 # ---- phase 12: several devices, one process on the card ---------------------
@@ -3520,12 +3838,12 @@ def main() -> int:
     paths["global"] = launches
     del ba_log, ring
 
-    # Config #3 from files: the incremental ring's scene at 128 views as PGM
+    # Config #3 from files: the incremental ring's scene at 96 views as PGM
     # files through the CLI with vocab-tree pairs and densify; then the same
     # command again, which must resume every stage from the artifacts.
     workdir = tempfile.mkdtemp(prefix="chip_smoke_vocab_")
     try:
-        run = run_vocab(workdir)
+        run = run_vocab(workdir, images=VOCAB_SMOKE_IMAGES)
         rec = run["rec"]
         log(f"[vocab] reconstruct (cli) wall {run['wall']:.2f}s | stages " +
             ", ".join(f"{k} {v:.3f}s" for k, v in rec.stage_seconds.items()))
@@ -3537,7 +3855,7 @@ def main() -> int:
         log("[vocab] " + json.dumps({
             "images": run["images"], "stage_s": rec.stage_seconds,
             "vocab_build_s": run["build_s"], "vocab_quantize_score_s": run["vocab_s"] - run["build_s"],
-            "candidate_pairs": run["candidate_pairs"], "exhaustive_pairs": VOCAB_EXHAUSTIVE,
+            "candidate_pairs": run["candidate_pairs"], "exhaustive_pairs": run["images"] * (run["images"] - 1) // 2,
             "verified_before_densify": run["verified_before_densify"],
             "ladder_candidates": run.get("ladder_candidates", 0), "ladder_pairs_added": run["ladder_pairs_added"],
             "verified_edges": run["verified_edges"], "artifact_save_s": run["artifact_save_s"],
@@ -3660,6 +3978,38 @@ def main() -> int:
     results.update(sharded["results"])
     paths["sharded"] = sharded["launches"]
     log(f"[dist] phase 12 wall {time.perf_counter() - t0:.2f}s; launches {json.dumps(sharded['launches'])}")
+    # Config #4 from files: benchmarks/ladder.py's 1,000 views through the
+    # CLI with vocab pairs, partitioning, the clusters of the global engine
+    # on four threads, the pose-graph merge and the 1,000-camera polish.
+    import gc
+
+    gc.collect()   # the earlier phases' garbage and cached blocks go first
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_config4_")
+    try:
+        run = run_config4(workdir, verbose=False)
+        c4 = config4_readings(run)
+        log_bundle_adjustments("config4", [config4_polish(run), run["ba_log"][-1]])
+        failed = check_config4(run, c4)
+        if failed:
+            raise AssertionError(f"config4: {failed}; {json.dumps(c4)}")
+        rows = config4_kernels(run, device)
+        idle = config4_idle(run, device)
+        paths["config4"] = run["launches"]
+        for k, v in rows.items():
+            log_shapes(k, v)
+            results[k]["shapes"] = results[k].get("shapes", [dict(results[k])]) + v
+        log("[config4] " + json.dumps({k: c4[k] for k in (
+            "images", "registered", "mean_reproj_px", "camera_rmse_pct_radius", "wall_s", "render_s", "stage_s",
+            "candidate_pairs", "verified_before_densify", "ladder_candidates", "ladder_pairs_added",
+            "verified_edges", "artifact_save_s", "clusters_built", "clusters_reconstructed",
+            "clusters_gated_in", "clusters_merged", "cluster_threads", "rescued", "bas", "pcg_bas",
+            "colmap_bin_read_back", "launches")} | {"idle": idle, "phase_s": time.perf_counter() - t0}))
+        del run
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     log("[lm] launches by path: " + json.dumps(
         {k: {name: p.get(k, 0) for name, p in paths.items()}
          for k in ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce",

@@ -159,49 +159,52 @@ struct NeRows {
 // Residual, closed-form Jacobian, IRLS weight, near-plane gate and freeze
 // masks of an observation (u, v, weight w_obs, masks) of the point
 // (px, py, pz) in the camera `cam` (rvec, tvec; at D = 8 then the log focal
-// scale and dk1) with intrinsics `in`.
+// scale and dk1) with intrinsics `in`. Formed in double from the fp32
+// inputs (ba_project.cuh), rounded to fp32 rows.
 template <int D>
 __device__ __forceinline__ NeRows<D> ne_rows(const float* cam, const float* in,
-                                            float px, float py, float pz,
+                                            float px_, float py_, float pz_,
                                             float u, float v, float w_obs,
                                             float cam_free, float pt_free,
                                             const float* __restrict__ zf,
                                             int loss, float scale) {
-  const Projection P = sfm::project_obs<D>(cam, in, px, py, pz, u, v);
-  if (zf != nullptr) w_obs = (P.xc2 > *zf) ? w_obs : 0.0f;
+  using T = double;
+  const sfm::ProjectionT<T> P = sfm::project_obs<D, T>(cam, in, px_, py_, pz_, u, v);
+  if (zf != nullptr) w_obs = (P.xc2 > T(*zf)) ? w_obs : 0.0f;
 
-  const float fx = P.fx, fy = P.fy, k1 = P.k1, k2 = in[5];
-  const float x = P.x, y = P.y, r2 = P.r2, s = P.s, inv_z = P.inv_z;
-  const float* R = P.R;
+  const T px = px_, py = py_, pz = pz_;
+  const T fx = P.fx, fy = P.fy, k1 = P.k1, k2 = in[5];
+  const T x = P.x, y = P.y, r2 = P.r2, s = P.s, inv_z = P.inv_z;
+  const T* R = P.R;
 
   // M = diag(f) D_dist A_proj: d(uv)/d(x_cam), 2x3.
-  const float dsc = (k1 + 2.0f * k2 * r2) * 2.0f;
-  const float ds_dx = dsc * x, ds_dy = dsc * y;
-  const float d00 = s + x * ds_dx, d01 = x * ds_dy;
-  const float d10 = y * ds_dx, d11 = s + y * ds_dy;
-  const float m00 = fx * inv_z * d00, m01 = fx * inv_z * d01;
-  const float m02 = -fx * inv_z * (d00 * x + d01 * y);
-  const float m10 = fy * inv_z * d10, m11 = fy * inv_z * d11;
-  const float m12 = -fy * inv_z * (d10 * x + d11 * y);
+  const T dsc = (k1 + T(2) * k2 * r2) * T(2);
+  const T ds_dx = dsc * x, ds_dy = dsc * y;
+  const T d00 = s + x * ds_dx, d01 = x * ds_dy;
+  const T d10 = y * ds_dx, d11 = s + y * ds_dy;
+  const T m00 = fx * inv_z * d00, m01 = fx * inv_z * d01;
+  const T m02 = -fx * inv_z * (d00 * x + d01 * y);
+  const T m10 = fy * inv_z * d10, m11 = fy * inv_z * d11;
+  const T m12 = -fy * inv_z * (d10 * x + d11 * y);
 
   // Jp = M R.
-  float jp0[3], jp1[3];
+  T jp0[3], jp1[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     jp0[k] = m00 * R[k] + m01 * R[3 + k] + m02 * R[6 + k];
     jp1[k] = m10 * R[k] + m11 * R[3 + k] + m12 * R[6 + k];
   }
   // d(R p)/d rvec = -R [p]x Jr, Jr = I - B [w]x + C2 [w]x^2.
-  float J[9];
-  sfm::rot_entries(cam[0], cam[1], cam[2], -P.B, P.C2, J);
-  float g0[3], g1[3], g2[3];
+  T J[9];
+  sfm::rot_entries<T>(cam[0], cam[1], cam[2], -P.B, P.C2, J);
+  T g0[3], g1[3], g2[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     g0[k] = -pz * J[3 + k] + py * J[6 + k];
     g1[k] = pz * J[k] - px * J[6 + k];
     g2[k] = -py * J[k] + px * J[3 + k];
   }
-  float drx[3][3];
+  T drx[3][3];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
@@ -210,7 +213,7 @@ __device__ __forceinline__ NeRows<D> ne_rows(const float* cam, const float* in,
   // Jc = [M dRX | M], at D = 8 then d r / d log focal scale = f x s (uv - c
   // scales with f) and d r / d dk1 = f x r2 (sfm_tpu/ba/core.py
   // _residual_jac_analytic).
-  float jc0[D], jc1[D];
+  T jc0[D], jc1[D];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     jc0[k] = m00 * drx[0][k] + m01 * drx[1][k] + m02 * drx[2][k];
@@ -226,22 +229,22 @@ __device__ __forceinline__ NeRows<D> ne_rows(const float* cam, const float* in,
   }
 
   // IRLS weight on the unweighted residual, freeze masks folded in.
-  const float ru = P.ru, rv = P.rv;
-  const float w_r = sfm::robust_weight(ru * ru + rv * rv, loss, scale) * w_obs;
-  const float sw = sqrtf(sfm::nan_max(w_r, 0.0f));
-  const float swc = sw * cam_free, swp = sw * pt_free;
+  const T ru = P.ru, rv = P.rv;
+  const T w_r = sfm::robust_weight(ru * ru + rv * rv, loss, scale) * T(w_obs);
+  const T sw = sfm::tsqrt(sfm::nan_max(w_r, T(0)));
+  const T swc = sw * T(cam_free), swp = sw * T(pt_free);
   NeRows<D> out;
-  out.ru_w = ru * sw;
-  out.rv_w = rv * sw;
+  out.ru_w = static_cast<float>(ru * sw);
+  out.rv_w = static_cast<float>(rv * sw);
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    out.a[i] = jc0[i] * swc;
-    out.b[i] = jc1[i] * swc;
+    out.a[i] = static_cast<float>(jc0[i] * swc);
+    out.b[i] = static_cast<float>(jc1[i] * swc);
   }
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    out.p0[j] = jp0[j] * swp;
-    out.p1[j] = jp1[j] * swp;
+    out.p0[j] = static_cast<float>(jp0[j] * swp);
+    out.p1[j] = static_cast<float>(jp1[j] * swp);
   }
   return out;
 }
@@ -388,13 +391,15 @@ __device__ __forceinline__ void point_done(const NeArgs& a, int p, const float (
 // its sums so far, carry[chunk & 1]; one that runs on past c1 leaves its
 // sums in carry[(chunk + 1) & 1] (two slots: the chunk's first segment
 // reads one while its last may write the other) and returns false. Returns
-// true when `t` holds the point's total.
-template <int K>
+// true when `t` holds the point's total. Acc is the type of the sums (K5
+// adds its terms in double: a point seen by hundreds of views loses
+// digits in a float sum, and dp amplifies them by Hpp^-1).
+template <int K, typename Acc = float>
 __device__ __forceinline__ bool segment_total(float (*rows)[kSegThreads], int chunk, int c0,
                                               int c1, int lo, int hi, int first,
-                                              float (*carry)[K], float (&t)[K]) {
+                                              Acc (*carry)[K], Acc (&t)[K]) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) t[k] = lo < c0 ? carry[chunk & 1][k] : 0.0f;
+  for (int k = 0; k < K; ++k) t[k] = lo < c0 ? carry[chunk & 1][k] : Acc(0);
   const int end = min(hi, c1) - c0;
   for (int j = first - c0; j < end; ++j) {
 #pragma unroll
@@ -593,20 +598,21 @@ __device__ __forceinline__ float new_cam_step(const CostArgs& a, int c, int i) {
   return step_cam<D>(a, c, i);
 }
 
-// new_points[p] = points[p] + dp, dp = Hpp^-1 (bp - g) (zero for a fixed point).
-__device__ __forceinline__ void candidate_point(const CostArgs& a, int p, const float (&g)[3]) {
+// new_points[p] = points[p] + dp, dp = Hpp^-1 (bp - g) (zero for a fixed
+// point), formed in double from g's double sums.
+__device__ __forceinline__ void candidate_point(const CostArgs& a, int p, const double (&g)[3]) {
   const float* h = a.hinv + 9 * (size_t)p;
   const float* bpp = a.bp + 3 * (size_t)p;
-  const float r0 = bpp[0] - g[0], r1 = bpp[1] - g[1], r2 = bpp[2] - g[2];
-  float d0 = h[0] * r0 + h[1] * r1 + h[2] * r2;
-  float d1 = h[3] * r0 + h[4] * r1 + h[5] * r2;
-  float d2 = h[6] * r0 + h[7] * r1 + h[8] * r2;
-  if (a.point_fixed[p]) d0 = d1 = d2 = 0.0f;
+  const double r0 = bpp[0] - g[0], r1 = bpp[1] - g[1], r2 = bpp[2] - g[2];
+  double d0 = h[0] * r0 + h[1] * r1 + h[2] * r2;
+  double d1 = h[3] * r0 + h[4] * r1 + h[5] * r2;
+  double d2 = h[6] * r0 + h[7] * r1 + h[8] * r2;
+  if (a.point_fixed[p]) d0 = d1 = d2 = 0.0;
   const float* q = a.points + 3 * (size_t)p;
   float* out = a.new_points + 3 * (size_t)p;
-  out[0] = q[0] + d0;
-  out[1] = q[1] + d1;
-  out[2] = q[2] + d2;
+  out[0] = static_cast<float>(q[0] + d0);
+  out[1] = static_cast<float>(q[1] + d1);
+  out[2] = static_cast<float>(q[2] + d2);
 }
 
 // Block b walks its observation slice as K3 does. With a step, a first pass
@@ -619,7 +625,7 @@ __device__ __forceinline__ void candidate_point(const CostArgs& a, int p, const 
 template <bool kStep, int D>
 __global__ __launch_bounds__(kSegThreads) void cost_points_kernel(const CostArgs a) {
   __shared__ float rows[3][kSegThreads];
-  __shared__ float carry[2][3];
+  __shared__ double carry[2][3];
   __shared__ float red[kSegWarps][2];
   __shared__ bool last;
   const int b = blockIdx.x, G = gridDim.x, tid = threadIdx.x;
@@ -648,14 +654,14 @@ __global__ __launch_bounds__(kSegThreads) void cost_points_kernel(const CostArgs
       }
       __syncthreads();
       if (pt >= 0 && (o == c0 || a.obs_point[o - 1] != pt)) {
-        float g[3];
+        double g[3];
         if (segment_total(rows, chunk, c0, c1, a.point_bounds[pt], a.point_bounds[pt + 1], o,
                           carry, g))
           candidate_point(a, pt, g);
       }
       __syncthreads();
     }
-    const float g0[3] = {0.0f, 0.0f, 0.0f};
+    const double g0[3] = {0.0, 0.0, 0.0};
     for (int p = b * kSegThreads + tid; p < a.P; p += G * kSegThreads)
       if (a.point_bounds[p] == a.point_bounds[p + 1]) candidate_point(a, p, g0);
     for (int e = b * kSegThreads + tid; e < D * a.C; e += G * kSegThreads)

@@ -42,6 +42,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -119,11 +120,25 @@ _SIGNATURES.update({f"{e}_w8": _SIGNATURES[e] for e in WIDE_ENTRIES})
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None
+# Clusters of the divide-and-conquer pipeline run on threads
+# (partition.parallel_clusters): the first of them builds and loads the
+# library while the others wait, and every count is added under a lock
+# (a ctypes call releases the GIL, and `+=` on a dict entry is a read and
+# a write).
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to LAUNCHES[name]: the only way a wrapper counts."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _source_files() -> list[Path]:
@@ -142,10 +157,16 @@ def _nvcc() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib, build_seconds
+    """Build (once per source hash) and load the kernel library; callers on
+    other threads wait for the first."""
     if _lib is not None:
         return _lib
+    with _build_lock:
+        return _lib if _lib is not None else _build_and_load()
+
+
+def _build_and_load() -> ctypes.CDLL:
+    global _lib, build_seconds
     files = _source_files()
     digest = hashlib.sha256()
     for f in files:
@@ -194,7 +215,7 @@ def launch(entry: str, name: str, *args) -> None:
     err = getattr(library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def ptr(t: torch.Tensor | None):

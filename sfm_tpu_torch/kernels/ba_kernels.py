@@ -51,7 +51,7 @@ from typing import NamedTuple
 import torch
 
 from sfm_tpu_torch.geometry.losses import robust_cost, robust_weight
-from sfm_tpu_torch.kernels import LAUNCHES, check, launch, library, on_cuda, ptr
+from sfm_tpu_torch.kernels import check, count_launch, launch, library, on_cuda, ptr
 
 MAX_CAMS = 4096    # above this the BA core takes K4/K6/K8/K10 (sfm_tpu's _MAX_CAMS)
 LOSS_CODES = {"none": 0, "huber": 1, "cauchy": 2}
@@ -335,7 +335,7 @@ def fused_ne_payloads(obs_cam, obs_point, points, static_t, cams, intr, point_bo
            ptr(w_t), ptr(packed), ptr(hinv), ptr(bp), ptr(hcc), ptr(bc), ptr(whw))
     if not schur_jacobi:
         return hcc, hinv, w_t, bc, bp, packed
-    LAUNCHES[_wide("whw_cam_reduce", D)] += 1     # the launch ran K7's device code
+    count_launch(_wide("whw_cam_reduce", D))     # the launch ran K7's device code
     return hcc, hinv, w_t, bc, bp, packed, whw
 
 

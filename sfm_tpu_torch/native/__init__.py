@@ -17,6 +17,7 @@ import os
 import platform
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -25,6 +26,7 @@ BUILD_DIR = _HERE.parent / "build"
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 _lib: ctypes.CDLL | None = None
+_build_lock = threading.Lock()   # clusters on threads: the first builds, the others wait
 
 
 def host_cpu_id() -> str:
@@ -53,10 +55,16 @@ def library_path() -> Path:
 
 
 def get_lib() -> ctypes.CDLL:
-    """Build (once per source, flags and CPU) and load the native library."""
-    global _lib
+    """Build (once per source, flags and CPU) and load the native library;
+    callers on other threads wait for the first."""
     if _lib is not None:
         return _lib
+    with _build_lock:
+        return _lib if _lib is not None else _build_and_load()
+
+
+def _build_and_load() -> ctypes.CDLL:
+    global _lib
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

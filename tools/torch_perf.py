@@ -88,7 +88,7 @@
         model, `calls` calls a session: one-step sessions whose calls start
         at once or after a 20 ms idle lead-in, and one session of
         chip_smoke.traced (a discarded first step of the same calls; it
-        merges three such sessions): the wrapper's own launches
+        merges two such sessions): the wrapper's own launches
         per call (kernels.LAUNCHES) beside the launches and device ms per
         call the profiler recorded.
     python3 tools/torch_perf.py ptxas
@@ -136,6 +136,16 @@
         DIR/ring46_<offset>.npz (default DIR chiprun_out) for
         tools/refine_parity.py --features, which runs both packages'
         engines on them on the CPU.
+    python3 tools/torch_perf.py config4 [N] [global|incremental] [--kernels] [--quiet]
+        BASELINE config #4 from files at N views (default 1,000):
+        chip_smoke.py phase 14's run (run_config4: benchmarks/ladder.py's
+        scene and settings at N, the clusters of `mode`'s engine on four
+        threads, through cli.main) with its readings (registered, px,
+        camera RMSE, stage seconds, pairs, clusters, rescues, the BAs)
+        and phase 14's bars (reported, not enforced); --kernels also holds
+        and times the path's kernels at the run's shapes (config4_kernels)
+        and the idle shares (config4_idle); the pipeline's own progress
+        lines unless --quiet.
 
 Every line names the card and its power limit. Needs a CUDA device.
 """
@@ -1080,6 +1090,28 @@ def dist_cmd(device, polish: bool):
         dist.destroy_process_group()
 
 
+def config4_cmd(device, images: int, mode: str, kernels: bool, quiet: bool):
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="config4_")
+    try:
+        run = cs.run_config4(workdir, images, mode, verbose=not quiet)
+        r = cs.config4_readings(run)
+        failed = cs.check_config4(run, r)
+        for i, b in enumerate(run["ba_log"]):
+            cs.log(f"[config4] BA {i}: C={b['C']} O={b['O']} {b['solver']} {b['iterations']} LM iterations "
+                   f"{b['seconds']:.3f}s, cost {b['initial_cost']:.4f} -> {b['final_cost']:.4f}")
+        print(f"[config4] {card()} {json.dumps({**r, 'failed': failed})}", flush=True)
+        if kernels:
+            rows = cs.config4_kernels(run, device)
+            for k, v in rows.items():
+                cs.log_shapes(k, v)
+            print(f"[config4] {card()} idle " + json.dumps(cs.config4_idle(run, device)), flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1133,6 +1165,11 @@ def main() -> int:
     p = sub.add_parser("dist")
     p.add_argument("--polish", action="store_true", help="also on the merged model (C = 10,240)")
     p.add_argument("--phase12", action="store_true", help="chip_smoke.py's phase 12 alone")
+    p = sub.add_parser("config4")
+    p.add_argument("images", type=int, nargs="?", default=cs.CONFIG4_IMAGES)
+    p.add_argument("mode", nargs="?", choices=("global", "incremental"), default="global")
+    p.add_argument("--kernels", action="store_true", help="also the kernels at the run's shapes")
+    p.add_argument("--quiet", action="store_true", help="without the pipeline's progress lines")
     args = parser.parse_args()
     if getattr(args, "root", None):
         sys.path.insert(0, os.path.abspath(args.root))
@@ -1172,6 +1209,8 @@ def main() -> int:
         refinedpolish_cmd(device, args.sharded)
     elif args.cmd == "ringfeatures":
         ringfeatures_cmd(device, args.offsets, args.out)
+    elif args.cmd == "config4":
+        config4_cmd(device, args.images, args.mode, args.kernels, args.quiet)
     elif args.cmd == "dist":
         if args.phase12:
             phase12_cmd(device)
