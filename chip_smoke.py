@@ -385,9 +385,12 @@ def time_ms(fn, device, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-# Traced sessions that recorded fewer device launches than another session
-# of the same calls, and all traced sessions (main prints them).
-TRACE_SESSIONS = {"short": 0, "all": 0}
+# Traced sessions: those that recorded fewer device launches than another
+# session of the same calls, those that recorded none, all of them, and the
+# launches the short ones missed against the fullest session of their
+# measurement, of all the launches the fullest sessions imply (main prints
+# them).
+TRACE_SESSIONS = {"short": 0, "empty": 0, "all": 0, "missing": 0, "launches": 0}
 # Profiler sessions merged per traced measurement (each costs its profiler's
 # set-up and report besides the calls; two keep the script inside its time
 # limit with phase 14 in it).
@@ -436,6 +439,9 @@ def traced(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = 
             seen[e.key] = (n + e.count, ms + e.self_device_time_total / 1e3, max(most, e.count))
     TRACE_SESSIONS["all"] += sessions
     TRACE_SESSIONS["short"] += sum(t < max(totals) for t in totals)
+    TRACE_SESSIONS["empty"] += sum(t == 0 for t in totals)
+    TRACE_SESSIONS["missing"] += sum(max(totals) - t for t in totals)
+    TRACE_SESSIONS["launches"] += max(totals) * sessions
     rows = [(key[:60], most, most * ms / n) for key, (n, ms, most) in seen.items()]
     return sorted(rows, key=lambda r: -r[2]), statistics.median(walls), out
 
@@ -461,12 +467,16 @@ def per_call(rows, calls: int) -> tuple[float, float, list]:
 
 def device_ms(fn, device, calls: int = PROFILED_CALLS) -> float | None:
     """Device time per call of fn() after a warm-up (traced, per_call over
-    `calls` calls); None off the card or when no session recorded a device
-    row (not measured)."""
+    `calls` calls), with one more session when none recorded a device row;
+    None off the card or when that one recorded none either (not
+    measured)."""
     if device.type != "cuda":
         return None
     fn()
-    ms = per_call(traced(fn, calls)[0], calls)[1]
+    rows = traced(fn, calls)[0]
+    if not rows:
+        rows = traced(fn, calls, sessions=1)[0]
+    ms = per_call(rows, calls)[1]
     return ms if ms > 0 else None
 
 
@@ -1104,7 +1114,7 @@ def cost_bytes_ops(prob, inv, step: bool) -> tuple[int, int]:
     return moved, ops
 
 
-def check_ba(prob, cfg, device, what: str):
+def check_ba(prob, cfg, device, what: str, fp32_rows=None):
     """K3 and K5 on a BA problem the main path solved, against their plain
     versions evaluated in float64 on the same fp32 inputs (so the bars
     measure the kernel's own rounding), at three inputs: the first LM
@@ -1136,8 +1146,10 @@ def check_ba(prob, cfg, device, what: str):
     - identical bits on a rerun, for both kernels.
     Every error is logged beside the plain fp32 version's. Times (at the
     main path's inputs): K3 and K5 with the step beside their plain
-    versions in fp32 and their bounds. An 8-wide problem runs the 8-wide
-    builds, under their names (`_w8`)."""
+    versions in fp32 and their bounds; with fp32_rows (load_fp32_rows),
+    each also beside its fp32 rows build (precision_twin, row
+    "fp32_rows"). An 8-wide problem runs the 8-wide builds, under their
+    names (`_w8`)."""
     import dataclasses
 
     import torch
@@ -1249,7 +1261,94 @@ def check_ba(prob, cfg, device, what: str):
              + f"; at the given parameters {time_ms(lambda: kb.fused_cost_sums(*cargs, plan=inv.pcg_plan), device):.4f} ms, "
              f"sums {sums.tolist()}, bound {bound(*cost_bytes_ops(prob, inv, step=False), FP32_OPS_PER_S)['bound_ms'] * 1e3:.2f} us; "
              "deterministic")
+    if fp32_rows is not None:
+        results["fused_ne_payloads" + suffix]["fp32_rows"] = precision_twin(
+            lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), fp32_rows, device)
+        results["fused_cost_sums" + suffix]["fp32_rows"] = precision_twin(
+            lambda: kb.fused_cost_sums(*cargs, step=step, plan=inv.pcg_plan), fp32_rows, device)
     return results
+
+
+# ---- phase 14 (c): K3 and K5 with fp32 rows beside the library's build ------
+
+# The entries of ba_kernels.cu that phase 14 (c) times in both precisions.
+FP32_ROWS_ENTRIES = ("sfm_fused_ne_payloads", "sfm_fused_cost_sums")
+
+
+def start_fp32_rows_build(workdir: str):
+    """Start nvcc on ba_kernels.cu with -DSFM_BA_FP32_ROWS (K3's Jacobian
+    rows and K5's back-substitution sums in fp32: RowT) into a library of
+    its own under workdir; load_fp32_rows waits for it."""
+    import os
+
+    from sfm_tpu_torch import kernels
+
+    so = os.path.join(workdir, "libba_fp32_rows.so")
+    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DSFM_BA_FP32_ROWS", "-shared", "-o", so,
+                             str(kernels.CSRC / "ba_kernels.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, so
+
+
+def load_fp32_rows(build):
+    """The fp32 rows build of start_fp32_rows_build, loaded, its
+    FP32_ROWS_ENTRIES bound; None (logged) when nvcc failed: the twin is a
+    measurement, not a kernel of the path."""
+    import ctypes
+
+    from sfm_tpu_torch import kernels
+
+    proc, so = build
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        log(f"[config4] the fp32 rows build failed ({proc.returncode}), not measured:\n{err}")
+        return None
+    try:
+        lib = ctypes.CDLL(so)
+        for name in FP32_ROWS_ENTRIES:
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(kernels._SIGNATURES[name]), ctypes.c_int
+    except (OSError, AttributeError) as e:
+        log(f"[config4] the fp32 rows build did not load, not measured: {e!r}")
+        return None
+    return lib
+
+
+def with_library(lib, fn):
+    """fn() with the kernel wrappers launching from `lib` (a build of some
+    of the library's entries) in place of the library."""
+    import torch
+
+    from sfm_tpu_torch import kernels
+
+    real = kernels.library()
+    torch.cuda.synchronize()
+    kernels._lib = lib
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        kernels._lib = real
+
+
+def precision_twin(fn, lib, device) -> dict:
+    """fn() on the library's build beside fn() on `lib`, the fp32 rows
+    build: CUDA-event median ms twice each, interleaved (library, lib, lib,
+    library), the device ms of each, and the largest difference between
+    their outputs; the error instead where the twin failed (a measurement,
+    not a check)."""
+    try:
+        ms, fp32_ms = [time_ms(fn, device)], []
+        for _ in range(2):
+            fp32_ms.append(with_library(lib, lambda: time_ms(fn, device)))
+        ms.append(time_ms(fn, device))
+        out, out32 = fn(), with_library(lib, fn)
+        return dict(ms=ms, fp32_ms=fp32_ms, device_ms=device_ms(fn, device),
+                    fp32_device_ms=with_library(lib, lambda: device_ms(fn, device)),
+                    max_abs_diff=max(float((a.double() - b.double()).abs().max()) for a, b in zip(out, out32)))
+    except (RuntimeError, OSError, AttributeError) as e:
+        return {"error": repr(e)}
 
 
 def check_k9(prob, cfg, device):
@@ -2023,11 +2122,12 @@ def check_slice(rec, launches, scene, min_points: int = 100):
 
 
 @contextlib.contextmanager
-def record_bundle_adjustments():
+def record_bundle_adjustments(keep=None):
     """Record (cameras, observations, solver, LM iterations, seconds) of each
     bundle adjustment the pipeline runs (padded capacities, which decide the
     solver), and the problem and config it was given, by wrapping the BA
-    entry point for the duration."""
+    entry point for the duration. With `keep`, only the BAs whose record
+    keep(record) passes hold their problem and config (the others None)."""
     import torch
 
     from sfm_tpu_torch import ba
@@ -2040,11 +2140,12 @@ def record_bundle_adjustments():
         out, stats = inner(prob, cfg)
         if prob.cam_params.is_cuda:
             torch.cuda.synchronize()
-        log.append(dict(C=prob.num_cameras, O=int(prob.obs_w.shape[0]), width=prob.cam_params.shape[-1],
-                        solver="dense" if uses_dense_solver(prob, cfg) else "pcg",
-                        iterations=int(stats.iterations), seconds=time.perf_counter() - t0,
-                        initial_cost=float(stats.initial_cost), final_cost=float(stats.final_cost),
-                        problem=prob, cfg=cfg))
+        b = dict(C=prob.num_cameras, O=int(prob.obs_w.shape[0]), width=prob.cam_params.shape[-1],
+                 solver="dense" if uses_dense_solver(prob, cfg) else "pcg",
+                 iterations=int(stats.iterations), seconds=time.perf_counter() - t0,
+                 initial_cost=float(stats.initial_cost), final_cost=float(stats.final_cost))
+        held = keep is None or keep(b)
+        log.append(dict(b, problem=prob if held else None, cfg=cfg if held else None))
         return out, stats
 
     ba.bundle_adjust = wrapped
@@ -2338,8 +2439,9 @@ def record_vocab_run():
     for the duration: the vocab tree's build seconds and the retrieval's
     (build, quantize and score), the candidate pairs, the verified edges
     before and after densify, the ladder candidates, the seconds spent
-    saving each stage's artifact (inside the stage times), and the
-    Reconstruction run_pipeline returned."""
+    saving each stage's artifact (inside the stage times), the match
+    stage's features, candidate pairs and intrinsics (as densify got
+    them), and the Reconstruction run_pipeline returned."""
     import torch
 
     from sfm_tpu_torch.ops import vocab
@@ -2363,9 +2465,10 @@ def record_vocab_run():
         rec["candidate_pairs"] = len(out)
         return out
 
-    def densify(feats, graph, *a, **k):
+    def densify(feats, graph, intrinsics, *a, **k):
         rec["verified_before_densify"] = int(graph.ok.sum())
-        out = inner["densify"](feats, graph, *a, **k)
+        rec["match_inputs"] = (feats, graph.pairs, intrinsics)
+        out = inner["densify"](feats, graph, intrinsics, *a, **k)
         rec["ladder_pairs_added"] = len(out.pairs) - len(graph.pairs)
         rec["verified_edges"] = int(out.ok.sum())
         return out
@@ -3033,7 +3136,8 @@ def run_config4(workdir: str, images: int = CONFIG4_IMAGES, mode: str = "global"
     partition.parallel_clusters threads through `mode`'s engine, the
     cluster gate, the pose-graph merge, the rescue, the polish, COLMAP text
     + bin + PLY. Returns the run's record, with the stacks and pair blocks
-    it handed K1 and K2."""
+    it handed K1 and K2; of its BAs only the polish's and the largest
+    cluster BAs hold their problems."""
     import os
 
     from sfm_tpu_torch import cli, kernels
@@ -3046,8 +3150,19 @@ def run_config4(workdir: str, images: int = CONFIG4_IMAGES, mode: str = "global"
     fields = {**config4_overrides(images, mode), **overrides}
     argv = ["reconstruct", image_dir, "--out", os.path.join(workdir, "out"), *extra,
             *(f"{k}={json.dumps(v)}" for k, v in fields.items())]
-    blocks = {}
-    with forbid_plain() as plain, record_bundle_adjustments() as ba_log, record_vocab_run() as record, \
+    blocks, largest = {}, [0]
+
+    def keep(b):
+        """The polish's BAs, and each cluster BA of more observations than
+        any before it (config4_idle solves the largest one again)."""
+        if b["C"] >= 0.95 * images:
+            return True
+        if b["O"] > largest[0]:
+            largest[0] = b["O"]
+            return True
+        return False
+
+    with forbid_plain() as plain, record_bundle_adjustments(keep) as ba_log, record_vocab_run() as record, \
             record_partition() as part, record_match_shapes(blocks), record_dog_stacks() as stacks:
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -3138,19 +3253,19 @@ def config4_polish(run):
     return next(b for b in run["ba_log"] if b["solver"] == "pcg" and b["C"] >= 0.95 * n)
 
 
-def config4_kernels(run, device) -> dict:
+def config4_kernels(run, device, fp32_rows=None) -> dict:
     """Phase 14 (c): K1 on every stack the run handed it and K2 on the
     first pair block of each shape it handed it, each held against its
     plain version and timed; K3, K5, K9 (check_ba, check_k9) and pcg_solve
-    (check_pcg) on the polish's own problem. Returns rows by kernel (a
-    list each)."""
+    (check_pcg) on the polish's own problem, K3 and K5 beside the fp32 rows
+    build `fp32_rows` where given. Returns rows by kernel (a list each)."""
     polish = config4_polish(run)
     prob, cfg = polish["problem"], polish["cfg"]
     what = f"config4 polish C={polish['C']} O={polish['O']}"
     rows = {"dog_extrema_scores": check_dog_path(device, run["dog_stacks"]),
             "match_topk2": [check_match_shape(device, shape, inputs)
                             for shape, inputs in sorted(run["match_blocks"].items())]}
-    ba = check_ba(prob, cfg, device, what)
+    ba = check_ba(prob, cfg, device, what, fp32_rows)
     for k in ("fused_ne_payloads", "fused_cost_sums"):
         rows[k] = [dict(ba[k], shape=what)]
     rows["cam_segment_sum"] = check_k9(prob, cfg, device)["cam_segment_sum"]["shapes"]
@@ -3163,18 +3278,17 @@ def config4_idle(run, device) -> dict:
     session) of one cluster's solve (the cluster BA of the most
     observations, as the run handed it to bundle_adjust) and of one match
     block (the match stage on the first block of the run's pairs, with the
-    run's config), from the run's own artifacts."""
+    run's config), on the inputs the run held in memory."""
     from sfm_tpu_torch import ba
     from sfm_tpu_torch.config import PipelineConfig, apply_overrides
     from sfm_tpu_torch.pipeline import stages
-    from sfm_tpu_torch.scene.artifacts import ArtifactStore
 
     n = run["images"]
-    cluster = max((b for b in run["ba_log"] if b["C"] < 0.95 * n), key=lambda b: b["O"])
-    store = ArtifactStore(run["out"])
-    feats, intrinsics = store.load_features(), store.load("meta")["intrinsics"]
+    cluster = max((b for b in run["ba_log"] if b["C"] < 0.95 * n and b["problem"] is not None),
+                  key=lambda b: b["O"])
+    feats, pairs, intrinsics = run["match_inputs"]
     cfg = apply_overrides(PipelineConfig(verbose=False), run["fields"])
-    block = store.load_graph().pairs[:cfg.match.block_pairs]
+    block = pairs[:cfg.match.block_pairs]
     parts = {}
     for name, fn in ((f"cluster BA C={cluster['C']} O={cluster['O']} {cluster['solver']}",
                       lambda: ba.bundle_adjust(cluster["problem"], cluster["cfg"])),
@@ -3986,16 +4100,20 @@ def main() -> int:
     gc.collect()   # the earlier phases' garbage and cached blocks go first
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_config4_")
+    workdir, fp32_build = tempfile.mkdtemp(prefix="chip_smoke_config4_"), None
     try:
+        fp32_build = start_fp32_rows_build(workdir)   # for (c); nvcc runs beside the run
         run = run_config4(workdir, verbose=False)
         c4 = config4_readings(run)
         log_bundle_adjustments("config4", [config4_polish(run), run["ba_log"][-1]])
         failed = check_config4(run, c4)
         if failed:
             raise AssertionError(f"config4: {failed}; {json.dumps(c4)}")
-        rows = config4_kernels(run, device)
+        rows = config4_kernels(run, device, load_fp32_rows(fp32_build))
         idle = config4_idle(run, device)
+        log("[config4] (c) K3 and K5 on the polish's problem, the library's double rows beside the fp32 rows "
+            "build (-DSFM_BA_FP32_ROWS): " + json.dumps({k: rows[k][0].get("fp32_rows") for k in (
+                "fused_ne_payloads", "fused_cost_sums")}))
         paths["config4"] = run["launches"]
         for k, v in rows.items():
             log_shapes(k, v)
@@ -4008,6 +4126,9 @@ def main() -> int:
             "colmap_bin_read_back", "launches")} | {"idle": idle, "phase_s": time.perf_counter() - t0}))
         del run
     finally:
+        if fp32_build is not None and fp32_build[0].poll() is None:
+            fp32_build[0].kill()
+            fp32_build[0].communicate()
         shutil.rmtree(workdir, ignore_errors=True)
 
     log("[lm] launches by path: " + json.dumps(
@@ -4036,7 +4157,9 @@ def main() -> int:
     if never:
         raise AssertionError(f"kernels launched by no path: {never}")
     log(f"[profile] {TRACE_SESSIONS['short']} of {TRACE_SESSIONS['all']} traced sessions recorded fewer "
-        f"device launches than another session of the same calls")
+        f"device launches than another session of the same calls ({TRACE_SESSIONS['empty']} none); they "
+        f"missed {TRACE_SESSIONS['missing']} of the {TRACE_SESSIONS['launches']} launches that the fullest "
+        f"session of each measurement implies")
     log(f"[done] chip_smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(record))
     print(smi)

@@ -132,6 +132,17 @@ namespace {
 
 using sfm::Projection;
 
+// The precision of K3's Jacobian rows (ne_rows) and of K5's back-substitution
+// sums and dp (cost_points_kernel): double. In fp32 both missed their 1e-5
+// bars against float64 on a 1,000-camera polish (chip_smoke.check_ba).
+// Built with -DSFM_BA_FP32_ROWS they run in fp32 as before, which
+// chip_smoke's phase 14 times beside this build.
+#ifdef SFM_BA_FP32_ROWS
+using RowT = float;
+#else
+using RowT = double;
+#endif
+
 constexpr int kNeThreads = 128;
 constexpr int kCostThreads = 256;
 constexpr int kSegThreads = 512;   // K3 and K5: observations per chunk, one a thread
@@ -159,7 +170,7 @@ struct NeRows {
 // Residual, closed-form Jacobian, IRLS weight, near-plane gate and freeze
 // masks of an observation (u, v, weight w_obs, masks) of the point
 // (px, py, pz) in the camera `cam` (rvec, tvec; at D = 8 then the log focal
-// scale and dk1) with intrinsics `in`. Formed in double from the fp32
+// scale and dk1) with intrinsics `in`. Formed in RowT from the fp32
 // inputs (ba_project.cuh), rounded to fp32 rows.
 template <int D>
 __device__ __forceinline__ NeRows<D> ne_rows(const float* cam, const float* in,
@@ -168,7 +179,7 @@ __device__ __forceinline__ NeRows<D> ne_rows(const float* cam, const float* in,
                                             float cam_free, float pt_free,
                                             const float* __restrict__ zf,
                                             int loss, float scale) {
-  using T = double;
+  using T = RowT;
   const sfm::ProjectionT<T> P = sfm::project_obs<D, T>(cam, in, px_, py_, pz_, u, v);
   if (zf != nullptr) w_obs = (P.xc2 > T(*zf)) ? w_obs : 0.0f;
 
@@ -392,8 +403,8 @@ __device__ __forceinline__ void point_done(const NeArgs& a, int p, const float (
 // sums in carry[(chunk + 1) & 1] (two slots: the chunk's first segment
 // reads one while its last may write the other) and returns false. Returns
 // true when `t` holds the point's total. Acc is the type of the sums (K5
-// adds its terms in double: a point seen by hundreds of views loses
-// digits in a float sum, and dp amplifies them by Hpp^-1).
+// adds its terms in RowT: a point seen by hundreds of views loses digits
+// in a float sum, and dp amplifies them by Hpp^-1).
 template <int K, typename Acc = float>
 __device__ __forceinline__ bool segment_total(float (*rows)[kSegThreads], int chunk, int c0,
                                               int c1, int lo, int hi, int first,
@@ -599,15 +610,15 @@ __device__ __forceinline__ float new_cam_step(const CostArgs& a, int c, int i) {
 }
 
 // new_points[p] = points[p] + dp, dp = Hpp^-1 (bp - g) (zero for a fixed
-// point), formed in double from g's double sums.
-__device__ __forceinline__ void candidate_point(const CostArgs& a, int p, const double (&g)[3]) {
+// point), formed in RowT from g's RowT sums.
+__device__ __forceinline__ void candidate_point(const CostArgs& a, int p, const RowT (&g)[3]) {
   const float* h = a.hinv + 9 * (size_t)p;
   const float* bpp = a.bp + 3 * (size_t)p;
-  const double r0 = bpp[0] - g[0], r1 = bpp[1] - g[1], r2 = bpp[2] - g[2];
-  double d0 = h[0] * r0 + h[1] * r1 + h[2] * r2;
-  double d1 = h[3] * r0 + h[4] * r1 + h[5] * r2;
-  double d2 = h[6] * r0 + h[7] * r1 + h[8] * r2;
-  if (a.point_fixed[p]) d0 = d1 = d2 = 0.0;
+  const RowT r0 = bpp[0] - g[0], r1 = bpp[1] - g[1], r2 = bpp[2] - g[2];
+  RowT d0 = h[0] * r0 + h[1] * r1 + h[2] * r2;
+  RowT d1 = h[3] * r0 + h[4] * r1 + h[5] * r2;
+  RowT d2 = h[6] * r0 + h[7] * r1 + h[8] * r2;
+  if (a.point_fixed[p]) d0 = d1 = d2 = RowT(0);
   const float* q = a.points + 3 * (size_t)p;
   float* out = a.new_points + 3 * (size_t)p;
   out[0] = static_cast<float>(q[0] + d0);
@@ -625,7 +636,7 @@ __device__ __forceinline__ void candidate_point(const CostArgs& a, int p, const 
 template <bool kStep, int D>
 __global__ __launch_bounds__(kSegThreads) void cost_points_kernel(const CostArgs a) {
   __shared__ float rows[3][kSegThreads];
-  __shared__ double carry[2][3];
+  __shared__ RowT carry[2][3];
   __shared__ float red[kSegWarps][2];
   __shared__ bool last;
   const int b = blockIdx.x, G = gridDim.x, tid = threadIdx.x;
@@ -654,14 +665,14 @@ __global__ __launch_bounds__(kSegThreads) void cost_points_kernel(const CostArgs
       }
       __syncthreads();
       if (pt >= 0 && (o == c0 || a.obs_point[o - 1] != pt)) {
-        double g[3];
+        RowT g[3];
         if (segment_total(rows, chunk, c0, c1, a.point_bounds[pt], a.point_bounds[pt + 1], o,
                           carry, g))
           candidate_point(a, pt, g);
       }
       __syncthreads();
     }
-    const double g0[3] = {0.0, 0.0, 0.0};
+    const RowT g0[3] = {RowT(0), RowT(0), RowT(0)};
     for (int p = b * kSegThreads + tid; p < a.P; p += G * kSegThreads)
       if (a.point_bounds[p] == a.point_bounds[p + 1]) candidate_point(a, p, g0);
     for (int e = b * kSegThreads + tid; e < D * a.C; e += G * kSegThreads)

@@ -2,9 +2,12 @@
 14) on the CPU, at small sizes:
 
 - (i) the divide-and-conquer pipeline with the global engine and
-  partition.parallel_clusters=2 against 1, on
-  tests/test_torch_partition_images.py's 6-image fixture: the same
-  clusters and bit-identical cameras, points and registered mask;
+  partition.parallel_clusters=2 against 1, through reconstruct() on
+  tests/test_torch_partition_images.py's 6-image fixture, with the
+  feature stage's output replaced by the scene's projections (extracting
+  1,024 keypoints from six views takes ~20 s on two CPU threads and is
+  not what the threads change): the same clusters and bit-identical
+  cameras, points and registered mask;
 - (ii) the ladder's settings scaled to 16 views (the ladder's scene at
   n = 16, clusters of 6 + 3, vocab pairs, parallel_clusters=2) through the
   port and through sfm_tpu, both fed one feature set and one verified
@@ -12,8 +15,9 @@
   with a descriptor per scene point, because the feature stage on 16
   views of 1,024 keypoints takes about a minute on two CPU threads; the
   port's vocab tree, match, verify and densify make the graph. Both
-  register >= 15 of 16 at < 1.2 px, and the port's camera RMSE is within
-  1.5x of sfm_tpu's or under 2% of the radius;
+  register >= 15 of 16 at < 1.2 px, and the port's camera RMSE and mean
+  reprojection error are each within 1.5x of sfm_tpu's (on this input the
+  two agree to 1e-5 of each other);
 - the repairs the clusters on threads needed: the kernel library and the
   native library are built once when several threads ask at once, the
   launch counts add up across threads, and chip_smoke.forbid_plain covers
@@ -75,7 +79,7 @@ def test_parallel_clusters_bit_identical(six_views, monkeypatch):
     import sfm_tpu_torch
     from sfm_tpu_torch.pipeline import global_engine
 
-    imgs, _ = six_views
+    imgs, scene = six_views
     memo = {}
 
     def once(name):
@@ -86,6 +90,9 @@ def test_parallel_clusters_bit_identical(six_views, monkeypatch):
                 memo[name] = inner(*a, **k)
             return memo[name]
         return fn
+
+    def projected(batch, cfg, *a, **k):
+        return projected_features(scene, cfg.sift.max_keypoints, np.random.default_rng(4))
 
     seen, inner_part = [], partition.partition_images
 
@@ -100,8 +107,8 @@ def test_parallel_clusters_bit_identical(six_views, monkeypatch):
         threads.add(threading.current_thread().name)
         return inner_global(*a, **k)
 
-    # Both runs share one feature extraction and one match stage.
-    monkeypatch.setattr(stages, "extract_stage", once("extract_stage"))
+    # Both runs share one feature set and one match stage.
+    monkeypatch.setattr(stages, "extract_stage", projected)
     monkeypatch.setattr(stages, "match_and_verify_stage", once("match_and_verify_stage"))
     monkeypatch.setattr(partition, "partition_images", part)
     monkeypatch.setattr(global_engine, "global_reconstruct", cluster)
@@ -118,19 +125,11 @@ def test_parallel_clusters_bit_identical(six_views, monkeypatch):
 # ---- (ii) the ladder at 16 views against sfm_tpu ------------------------------
 
 
-def ladder_inputs():
-    """The ladder's scene at LADDER_N views (its render's geometry), the
-    keypoints as its projections with 0.3 px noise and one unit
-    descriptor per scene point (0.05 noise per view), and the port's
-    vocab pairs, match, verify and densify on them with the ladder's
-    config: (scene, FeatureSet, MatchGraph, config)."""
-    from sfm_tpu_torch.ops.vocab import vocab_tree_pairs
-    from sfm_tpu_torch.utils.synthetic import blob_scene_views
-
-    _, scene = blob_scene_views(**cs.config4_scene(LADDER_N))
-    cfg = apply_overrides(PipelineConfig(), {**cs.config4_overrides(LADDER_N), **LADDER_CLUSTERS})
-    rng = np.random.default_rng(3)
-    B, M, N = scene.num_cameras, scene.num_points, cfg.sift.max_keypoints
+def projected_features(scene, N: int, rng):
+    """A FeatureSet of N slots per view: the keypoints as the scene's
+    projections with 0.3 px noise and one unit descriptor per scene point
+    (0.05 noise per view)."""
+    B, M = scene.num_cameras, scene.num_points
     point_desc = rng.standard_normal((M, 128)).astype(np.float32)
     xy = np.zeros((B, N, 2), np.float32)
     desc = np.zeros((B, N, 128), np.float32)
@@ -142,9 +141,23 @@ def ladder_inputs():
         d = point_desc[vis] + 0.05 * rng.standard_normal((k, 128)).astype(np.float32)
         desc[i, :k] = d / np.linalg.norm(d, axis=-1, keepdims=True)
         valid[i, :k] = True
-    feats = stages.FeatureSet(xy=xy, sigma=np.full((B, N), 1.6, np.float32),
-                              angle=np.zeros((B, N), np.float32), response=np.ones((B, N), np.float32),
-                              desc=desc, valid=valid)
+    return stages.FeatureSet(xy=xy, sigma=np.full((B, N), 1.6, np.float32),
+                             angle=np.zeros((B, N), np.float32), response=np.ones((B, N), np.float32),
+                             desc=desc, valid=valid)
+
+
+def ladder_inputs():
+    """The ladder's scene at LADDER_N views (its render's geometry), its
+    projected_features, and the port's vocab pairs, match, verify and
+    densify on them with the ladder's config: (scene, FeatureSet,
+    MatchGraph, config)."""
+    from sfm_tpu_torch.ops.vocab import vocab_tree_pairs
+    from sfm_tpu_torch.utils.synthetic import blob_scene_views
+
+    _, scene = blob_scene_views(**cs.config4_scene(LADDER_N))
+    cfg = apply_overrides(PipelineConfig(), {**cs.config4_overrides(LADDER_N), **LADDER_CLUSTERS})
+    B = scene.num_cameras
+    feats = projected_features(scene, cfg.sift.max_keypoints, np.random.default_rng(3))
     intrinsics = scene.intrinsics.copy()
     pairs = vocab_tree_pairs(feats, cfg.vocab, "cpu", seed=cfg.seed)
     graph = stages.match_and_verify_stage(feats, pairs, intrinsics, cfg, "cpu", seed=cfg.seed)
@@ -176,7 +189,8 @@ def test_ladder_16_views_against_sfm_tpu():
         assert r.mean_reprojection_error() < 1.2, what
     got = camera_rmse_of(rec, scene)
     want = camera_rmse_of(ref, scene)
-    assert got <= 1.5 * want or got < 0.02 * radius, (got, want)
+    assert got <= 1.5 * want, (got, want, radius)
+    assert rec.mean_reprojection_error() <= 1.5 * ref.mean_reprojection_error()
 
 
 def camera_rmse_of(rec, scene) -> float:

@@ -136,7 +136,7 @@
         DIR/ring46_<offset>.npz (default DIR chiprun_out) for
         tools/refine_parity.py --features, which runs both packages'
         engines on them on the CPU.
-    python3 tools/torch_perf.py config4 [N] [global|incremental] [--kernels] [--quiet]
+    python3 tools/torch_perf.py config4 [N] [global|incremental] [--kernels]
         BASELINE config #4 from files at N views (default 1,000):
         chip_smoke.py phase 14's run (run_config4: benchmarks/ladder.py's
         scene and settings at N, the clusters of `mode`'s engine on four
@@ -144,8 +144,8 @@
         camera RMSE, stage seconds, pairs, clusters, rescues, the BAs)
         and phase 14's bars (reported, not enforced); --kernels also holds
         and times the path's kernels at the run's shapes (config4_kernels)
-        and the idle shares (config4_idle); the pipeline's own progress
-        lines unless --quiet.
+        and the idle shares (config4_idle); the pipeline prints its own
+        progress lines.
 
 Every line names the card and its power limit. Needs a CUDA device.
 """
@@ -1090,13 +1090,13 @@ def dist_cmd(device, polish: bool):
         dist.destroy_process_group()
 
 
-def config4_cmd(device, images: int, mode: str, kernels: bool, quiet: bool):
+def config4_cmd(device, images: int, mode: str, kernels: bool):
     import shutil
     import tempfile
 
     workdir = tempfile.mkdtemp(prefix="config4_")
     try:
-        run = cs.run_config4(workdir, images, mode, verbose=not quiet)
+        run = cs.run_config4(workdir, images, mode)
         r = cs.config4_readings(run)
         failed = cs.check_config4(run, r)
         for i, b in enumerate(run["ba_log"]):
@@ -1169,7 +1169,6 @@ def main() -> int:
     p.add_argument("images", type=int, nargs="?", default=cs.CONFIG4_IMAGES)
     p.add_argument("mode", nargs="?", choices=("global", "incremental"), default="global")
     p.add_argument("--kernels", action="store_true", help="also the kernels at the run's shapes")
-    p.add_argument("--quiet", action="store_true", help="without the pipeline's progress lines")
     args = parser.parse_args()
     if getattr(args, "root", None):
         sys.path.insert(0, os.path.abspath(args.root))
@@ -1210,7 +1209,7 @@ def main() -> int:
     elif args.cmd == "ringfeatures":
         ringfeatures_cmd(device, args.offsets, args.out)
     elif args.cmd == "config4":
-        config4_cmd(device, args.images, args.mode, args.kernels, args.quiet)
+        config4_cmd(device, args.images, args.mode, args.kernels)
     elif args.cmd == "dist":
         if args.phase12:
             phase12_cmd(device)
