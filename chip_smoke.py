@@ -356,9 +356,11 @@ def log(msg: str) -> None:
 
 # Timed calls per CUDA-event median, and calls per profiled device time:
 # 21 and 10 until phase 14 (config #4 at 1,000 views) joined the script's
-# time limit.
+# time limit. A plain version (a reference, often 100x slower than its
+# kernel) and the Python loops a fused solve replaced take PLAIN_RUNS.
 TIMED_RUNS = 11
 PROFILED_CALLS = 5
+PLAIN_RUNS = 3
 
 
 def time_ms(fn, device, runs: int = TIMED_RUNS) -> float:
@@ -395,17 +397,26 @@ TRACE_SESSIONS = {"short": 0, "empty": 0, "all": 0, "missing": 0, "launches": 0}
 # set-up and report besides the calls; two keep the script inside its time
 # limit with phase 14 in it).
 PROFILE_SESSIONS = 2
+# Idle card on each side of a session's kept step, seconds.
+PROFILE_PAD_S = 0.05
 
 
-def profiled_sessions(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = 0.1):
+def profiled_sessions(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = PROFILE_PAD_S,
+                      host_ops: bool = False):
     """torch.profiler over `calls` calls of fn(), `sessions` times: each
     session runs the calls twice, the first step (device tracing already
     on) discarded, the kept one between pad_s of idle card on each side.
+    The device activity only, unless host_ops: the host's operator events
+    (which labelled_parts' ranges are) triple the events a trace of many
+    small launches parses (a block of the match stage: ~9 s a session with
+    them on an H100 host, ~4 without), and no device row needs them.
     Yields (the profiler, the kept calls' wall ms, fn()'s last result) for
     each session."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     for _ in range(sessions):
         steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
         with torch.profiler.profile(activities=acts, schedule=steps) as prof:
@@ -422,7 +433,7 @@ def profiled_sessions(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_
         yield prof, wall, out
 
 
-def traced(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = 0.1):
+def traced(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = PROFILE_PAD_S):
     """Device rows of profiled_sessions. A trace can miss launches near its
     ends, up to half of a session's in a process that has run many kernels
     (PERF.md section 7). So each device row counts the most launches any
@@ -522,7 +533,7 @@ def check_dog_shape(device, gauss, pre: float, what: str, timed: bool = True) ->
         B, L, H, W = gauss.shape
         ops = B * H * W * ((L - 1) + (L - 3) * 53)
         row.update(ms=time_ms(lambda: k1.dog_extrema_scores(gauss, pre), device),
-                   plain_ms=time_ms(lambda: k1.dog_extrema_scores_plain(gauss, pre), device),
+                   plain_ms=time_ms(lambda: k1.dog_extrema_scores_plain(gauss, pre), device, PLAIN_RUNS),
                    library_ms=None, **bound(nbytes(gauss, out), ops, FP32_OPS_PER_S),
                    device_ms=device_ms(lambda: k1.dog_extrema_scores(gauss, pre), device))
     return row
@@ -728,7 +739,7 @@ def feature_breakdown(images, cfg, valid_hw, sessions: int = PROFILE_SESSIONS) -
     launches, busy_ms, _ = per_call(rows, 1)
     merged, top = {}, {}
     with labelled_parts():
-        for prof, synced_ms, _ in profiled_sessions(run, sessions=sessions):
+        for prof, synced_ms, _ in profiled_sessions(run, sessions=sessions, host_ops=True):
             for part, (n, ms, names) in part_rows(prof).items():
                 tn, tms, most = merged.get(part, (0, 0.0, 0))
                 merged[part] = (tn + n, tms + ms, max(most, n))
@@ -789,7 +800,7 @@ def check_match_shape(device, shape, inputs=None):
     moved = nbytes(vb, *out) + 2 * (da.numel() + db.numel())
     return dict(shape=what, max_abs_err=err, clear_rows=n_clear, rows=p * n1,
                 ms=time_ms(lambda: k2.match_topk2(da, db, vb), device),
-                plain_ms=time_ms(lambda: k2.match_topk2_plain(da, db, vb), device),
+                plain_ms=time_ms(lambda: k2.match_topk2_plain(da, db, vb), device, PLAIN_RUNS),
                 library_ms=None, **bound(moved, 2 * p * n1 * n2 * 128, BF16_TENSOR_OPS_PER_S),
                 device_ms=device_ms(lambda: k2.match_topk2(da, db, vb), device))
 
@@ -1246,7 +1257,7 @@ def check_ba(prob, cfg, device, what: str, fp32_rows=None):
     results["fused_ne_payloads" + suffix] = dict(
         max_abs_err=float(max((a.double() - b).abs().max() for a, b in zip(out, ref))),
         ms=time_ms(lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), device),
-        plain_ms=time_ms(lambda: kb.fused_ne_payloads_plain(*args), device),
+        plain_ms=time_ms(lambda: kb.fused_ne_payloads_plain(*args), device, PLAIN_RUNS),
         library_ms=None, **bound(ne_moved, ne_ops, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), device),
         note=f"{shape}: errors vs float64 (ne_errors) " + "; ".join(notes["ne"]) + "; deterministic")
@@ -1254,7 +1265,7 @@ def check_ba(prob, cfg, device, what: str, fp32_rows=None):
     results["fused_cost_sums" + suffix] = dict(
         max_abs_err=max(float((a.double() - b).abs().max()) for a, b in zip(cand, cand64)),
         ms=time_ms(lambda: kb.fused_cost_sums(*cargs, step=step, plan=inv.pcg_plan), device),
-        plain_ms=time_ms(lambda: kb.fused_cost_sums_plain(*cargs, step=step), device),
+        plain_ms=time_ms(lambda: kb.fused_cost_sums_plain(*cargs, step=step), device, PLAIN_RUNS),
         library_ms=None, **bound(c_moved, c_ops, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.fused_cost_sums(*cargs, step=step, plan=inv.pcg_plan), device),
         note=f"{shape}, with each input's own step: errors vs float64 " + "; ".join(notes["cost"])
@@ -1422,7 +1433,7 @@ def check_segment_sum(inv, O: int, C: int, P: int, device,
             shape=f"{side} side [{K}, {O}] ({N} weighted) -> [{S}, {K}]", side=side, K=K, S=S,
             max_abs_err=err,
             ms=time_ms(lambda: kb.cam_segment_sum(*args), device),
-            plain_ms=time_ms(lambda: kb.cam_segment_sum_plain(*args[:3]), device),
+            plain_ms=time_ms(lambda: kb.cam_segment_sum_plain(*args[:3]), device, PLAIN_RUNS),
             library_ms=time_ms(library, device),
             device_ms=device_ms(lambda: kb.cam_segment_sum(*args), device),
             **bound(4 * (K * N + (N if side == "camera" else 0) + S + 1 + S * K), K * N, FP32_OPS_PER_S),
@@ -1565,7 +1576,7 @@ def check_big(prob, cfg, device):
     results["fused_ne_payloads_big" + suffix] = dict(
         max_abs_err=max(e[0] for e in errs),
         ms=time_ms(lambda: kb.fused_ne_payloads_big(*a4), device),
-        plain_ms=time_ms(lambda: kb.fused_ne_payloads_big_plain(*a4), device),
+        plain_ms=time_ms(lambda: kb.fused_ne_payloads_big_plain(*a4), device, PLAIN_RUNS),
         library_ms=None, **bound(obs_in + nbytes(*out), (300 if D == 6 else 420) * O, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.fused_ne_payloads_big(*a4), device),
         note=f"{shape}, rel err {max(e[1] for e in errs):.2e} (vs K3's W and camera rows "
@@ -1573,7 +1584,7 @@ def check_big(prob, cfg, device):
     results["fused_cost_sums_big" + suffix] = dict(
         max_abs_err=float((sums - sums_ref).abs().max()),
         ms=time_ms(lambda: kb.fused_cost_sums_big(*a4), device),
-        plain_ms=time_ms(lambda: kb.fused_cost_sums_big_plain(*a4), device),
+        plain_ms=time_ms(lambda: kb.fused_cost_sums_big_plain(*a4), device, PLAIN_RUNS),
         library_ms=None, **bound(obs_in + nbytes(sums), 60 * O, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.fused_cost_sums_big(*a4), device),
         note=f"{shape}, sums {sums.tolist()}, deterministic, K5's within rtol 1e-5; also with the "
@@ -1620,7 +1631,7 @@ def check_big(prob, cfg, device):
     results["whw_payloads_big" + suffix] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.whw_payloads_big(*k8), device),
-        plain_ms=time_ms(lambda: kb.whw_payloads_big_plain(*k8), device),
+        plain_ms=time_ms(lambda: kb.whw_payloads_big_plain(*k8), device, PLAIN_RUNS),
         library_ms=None, **bound(4 * (3 * D * O + O + 9 * P + D * D * O), (18 * D + 6 * D * D) * O,
                                  FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.whw_payloads_big(*k8), device),
@@ -1654,7 +1665,7 @@ def check_big(prob, cfg, device):
     results["schur_coupling_payloads_big" + suffix] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.schur_coupling_payloads_big(*k10), device),
-        plain_ms=time_ms(lambda: kb.schur_coupling_payloads_big_plain(*k10), device),
+        plain_ms=time_ms(lambda: kb.schur_coupling_payloads_big_plain(*k10), device, PLAIN_RUNS),
         library_ms=None,
         **bound(4 * (3 * D * O + O + P + 1 + 9 * P + D * O + D * O), (12 * D + 9) * O + 18 * P, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.schur_coupling_payloads_big(*k10), device),
@@ -1812,7 +1823,7 @@ def check_schur(prob, cfg, device):
     results["whw_cam_reduce" + suffix] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.whw_cam_reduce(*k7, inv.cam_inv_perm), device),
-        plain_ms=time_ms(lambda: kb.whw_cam_reduce_plain(*k7), device),
+        plain_ms=time_ms(lambda: kb.whw_cam_reduce_plain(*k7), device, PLAIN_RUNS),
         library_ms=None, **bound(moved, 9 * D * D * N, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.whw_cam_reduce(*k7, inv.cam_inv_perm), device),
         k3_ms=k3_ms, k3_device_ms=k3_dev,
@@ -1841,7 +1852,7 @@ def check_schur(prob, cfg, device):
     results["schur_coupling_matvec" + suffix] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: kb.schur_coupling_matvec(*k11), device),
-        plain_ms=time_ms(lambda: kb.schur_coupling_matvec_plain(*k11[:8]), device),
+        plain_ms=time_ms(lambda: kb.schur_coupling_matvec_plain(*k11[:8]), device, PLAIN_RUNS),
         library_ms=None, **bound(moved, (12 * D + 9) * N + 18 * P, FP32_OPS_PER_S),
         device_ms=device_ms(lambda: kb.schur_coupling_matvec(*k11), device),
         note=f"{shape}, rel err {rel:.2e} vs the plain version in float64, deterministic")
@@ -1950,12 +1961,12 @@ def check_pcg(prob, cfg, device, what: str, streaming: bool | None = None,
     return dict(
         shape=shape, max_abs_err=err,
         ms=time_ms(lambda: fused(its), device),
-        loop_ms=time_ms(loop, device),
-        plain_ms=time_ms(plain32, device),
+        loop_ms=time_ms(loop, device, PLAIN_RUNS),
+        plain_ms=time_ms(plain32, device, PLAIN_RUNS),
         library_ms=None,
         **bound(moved, its * ((12 * D + 9) * M + 18 * P + (4 * D * D + 16) * C), FP32_OPS_PER_S),
         device_ms=device_ms(lambda: fused(its), device),
-        loop_device_ms=device_ms(loop, device, calls=3),
+        loop_device_ms=device_ms(loop, device, calls=1),
         note=f"{shape}, grid {plan.grid}, {plan.smem_bytes} B staged per block, a step's "
              f"{step_bytes} B charged once, {rereads} B of them {its - 1}x more; err {err / scale:.2e} "
              f"of max|x| vs float64 after {x_its} steps (plain fp32 after {its}: "
@@ -1974,7 +1985,7 @@ def device_launches(rows) -> int:
     return sum(r[1] for r in rows)
 
 
-def profile_calls(fn, device, calls: int = 20) -> dict:
+def profile_calls(fn, device, calls: int = PROFILED_CALLS) -> dict:
     """fn() `calls` times under torch.profiler after a warm-up: device
     launches and device ms per call (per_call), and the four device rows
     that took longest (name, launches and ms per call); then its CUDA-event
@@ -2155,9 +2166,19 @@ def record_bundle_adjustments(keep=None):
         ba.bundle_adjust = inner
 
 
+# Scenes being rendered ahead by prefetch_renders, by their render_pool
+# keywords: (the views' AsyncResult, the ground truth).
+_PREFETCHED = {}
+
+
+def _scene_key(scene: dict) -> str:
+    return json.dumps(scene, sort_keys=True)
+
+
 def render_pool(**scene):
     """render_blob_scene(**scene), its views rendered by a pool of spawned
-    worker processes (numpy only; the same bits as one process)."""
+    worker processes (numpy only; the same bits as one process), or taken
+    from prefetch_renders' pool where it rendered this scene."""
     import multiprocessing
     import os
 
@@ -2165,16 +2186,48 @@ def render_pool(**scene):
 
     from sfm_tpu_torch.utils.synthetic import blob_scene_views, render_blob_view
 
+    ahead = _PREFETCHED.pop(_scene_key(scene), None)
+    if ahead is not None:
+        return np.stack(ahead[0].get()), ahead[1]
     views, truth = blob_scene_views(**scene)
     with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
         return np.stack(pool.map(render_blob_view, views)), truth
 
 
+@contextlib.contextmanager
+def prefetch_renders(scenes):
+    """Render `scenes` (render_pool's keyword dicts) in a background pool of
+    two spawned processes (the host's other cores serve the phases the card
+    runs meanwhile); render_pool takes a scene's views from there. The pool
+    stops on leaving."""
+    import multiprocessing
+
+    from sfm_tpu_torch.utils.synthetic import blob_scene_views, render_blob_view
+
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        for scene in scenes:
+            views, truth = blob_scene_views(**scene)
+            _PREFETCHED[_scene_key(scene)] = (pool.map_async(render_blob_view, views), truth)
+        yield
+    finally:
+        _PREFETCHED.clear()
+        pool.terminate()
+        pool.join()
+
+
+def ring_scene(images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
+               radius: float = INC_RADIUS) -> dict:
+    """render_pool's keywords for the blob scene's ring of images x 1024^2
+    views."""
+    return dict(image_size=(SLICE_IMAGE, SLICE_IMAGE), num_images=images, num_blobs=blobs,
+                focal=focal, arc_fraction=arc, radius=radius, seed=1)
+
+
 def render_ring(images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
                 radius: float = INC_RADIUS):
     """render_blob_scene's ring of images x 1024^2 views (render_pool)."""
-    return render_pool(image_size=(SLICE_IMAGE, SLICE_IMAGE), num_images=images, num_blobs=blobs,
-                       focal=focal, arc_fraction=arc, radius=radius, seed=1)
+    return render_pool(**ring_scene(images, blobs, arc, focal, radius))
 
 
 def run_incremental(device, images: int, blobs: int, arc: float, focal: float = INC_FOCAL,
@@ -2658,7 +2711,7 @@ def vocab_idle(device, out: str) -> dict:
     for name, fn in (("vocab_tree_pairs", lambda: vocab_tree_pairs(feats, cfg.vocab, device)),
                      (f"match_and_verify {len(block)} pairs",
                       lambda: stages.match_and_verify_stage(feats, block, intrinsics, cfg, device))):
-        rows, wall_ms, _ = traced(fn)
+        rows, wall_ms, _ = traced(fn, sessions=1)
         launches, busy_ms, _ = per_call(rows, 1)
         parts[name] = dict(device_ms=busy_ms, launches=launches, wall_ms=wall_ms,
                            idle_share=1.0 - busy_ms / wall_ms)
@@ -3639,7 +3692,7 @@ def check_sharded_kernels(prob, cfg, device, what: str, f64_bar: float | None = 
     results = {"fused_ne_sums" + suffix: dict(
         shape=shape, max_abs_err=float(max((a.double() - b).abs().max() for a, b in zip(out, ref))),
         ms=time_ms(ne, device),
-        plain_ms=time_ms(lambda: kb.fused_ne_sums_plain(*ne_args(), inv.z_floor, *loss), device),
+        plain_ms=time_ms(lambda: kb.fused_ne_sums_plain(*ne_args(), inv.z_floor, *loss), device, PLAIN_RUNS),
         library_ms=None, **bound(moved, ops, FP32_OPS_PER_S), device_ms=device_ms(ne, device),
         note=f"{shape}: errors vs float64 " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
              + "; K3's bits (W, bc, bp, Hcc off its diagonal); deterministic")}
@@ -3675,7 +3728,8 @@ def check_sharded_kernels(prob, cfg, device, what: str, f64_bar: float | None = 
     # 6D and D per weighted observation.
     results["coupling_point_half" + suffix] = dict(
         shape=shape, max_abs_err=g_err, ms=time_ms(point, device),
-        plain_ms=time_ms(lambda: kb.coupling_point_half_plain(W_t, local.obs_cam, inv.point_bounds, v), device),
+        plain_ms=time_ms(lambda: kb.coupling_point_half_plain(W_t, local.obs_cam, inv.point_bounds, v), device,
+                         PLAIN_RUNS),
         library_ms=None, **bound(4 * (3 * D * N + N + P + 1 + D * C + 3 * P), 6 * D * N + 3 * N, FP32_OPS_PER_S),
         device_ms=device_ms(point, device),
         note=f"{shape}: rel err {g_rel:.2e} vs float64, deterministic; composed with the camera half "
@@ -3683,7 +3737,7 @@ def check_sharded_kernels(prob, cfg, device, what: str, f64_bar: float | None = 
     results["coupling_camera_half" + suffix] = dict(
         shape=shape, max_abs_err=y_err, ms=time_ms(camera, device),
         plain_ms=time_ms(lambda: kb.coupling_camera_half_plain(W_t, local.obs_point, inv.cam_perm,
-                                                               inv.cam_bounds, h), device),
+                                                               inv.cam_bounds, h), device, PLAIN_RUNS),
         library_ms=None, **bound(4 * (3 * D * N + N + P + 1 + 3 * P + C + 1 + D * C), 6 * D * N + D * M,
                                  FP32_OPS_PER_S),
         device_ms=device_ms(camera, device),
@@ -3802,6 +3856,60 @@ def run_sharded(imgs, ring_ba, polish_ba, device, refined_polish_ba=None) -> dic
         dist.destroy_process_group()
 
 
+def phase_config4(device) -> tuple[dict, dict]:
+    """Phase 14, config #4 from files: benchmarks/ladder.py's 1,000 views
+    through the CLI with vocab pairs, partitioning, the clusters of the
+    global engine on four threads, the pose-graph merge and the 1,000-camera
+    polish (run_config4), its bars (check_config4), its kernels at the run's
+    shapes (config4_kernels) and its idle shares (config4_idle). Runs first,
+    on a fresh process and a clean card. Returns (the kernel rows of (c) by
+    kernel, the run's launch counts)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    workdir, fp32_build = tempfile.mkdtemp(prefix="chip_smoke_config4_"), None
+    try:
+        fp32_build = start_fp32_rows_build(workdir)   # for (c); nvcc runs beside the run
+        run = run_config4(workdir, verbose=False)
+        c4 = config4_readings(run)
+        log_bundle_adjustments("config4", [config4_polish(run), run["ba_log"][-1]])
+        failed = check_config4(run, c4)
+        if failed:
+            raise AssertionError(f"config4: {failed}; {json.dumps(c4)}")
+        rows = config4_kernels(run, device, load_fp32_rows(fp32_build))
+        idle = config4_idle(run, device)
+        log("[config4] (c) K3 and K5 on the polish's problem, the library's double rows beside the fp32 rows "
+            "build (-DSFM_BA_FP32_ROWS): " + json.dumps({k: rows[k][0].get("fp32_rows") for k in (
+                "fused_ne_payloads", "fused_cost_sums")}))
+        for k, v in rows.items():
+            log_shapes(k, v)
+        log("[config4] " + json.dumps({k: c4[k] for k in (
+            "images", "registered", "mean_reproj_px", "camera_rmse_pct_radius", "wall_s", "render_s", "stage_s",
+            "candidate_pairs", "verified_before_densify", "ladder_candidates", "ladder_pairs_added",
+            "verified_edges", "artifact_save_s", "clusters_built", "clusters_reconstructed",
+            "clusters_gated_in", "clusters_merged", "cluster_threads", "rescued", "bas", "pcg_bas",
+            "colmap_bin_read_back", "launches")} | {"idle": idle, "phase_s": time.perf_counter() - t0}))
+        return rows, run["launches"]
+    finally:
+        if fp32_build is not None and fp32_build[0].poll() is None:
+            fp32_build[0].kill()
+            fp32_build[0].communicate()
+        shutil.rmtree(workdir, ignore_errors=True)
+        gc.collect()   # the run's garbage and cached blocks go before the next phase
+        torch.cuda.empty_cache()
+
+
+def prefetched_scenes() -> list:
+    """The rendered scenes of the phases after phase 14 (render_pool's
+    keywords, exactly as those phases ask for them): phase 5's ring, phase
+    9's views and phase 11's ring rendered off its focal prior."""
+    return [ring_scene(INC_IMAGES, INC_BLOBS, INC_ARC),
+            ring_scene(VOCAB_SMOKE_IMAGES, INC_BLOBS, VOCAB_ARC * VOCAB_SMOKE_IMAGES / VOCAB_IMAGES),
+            ring_scene(REFINED_IMAGES, INC_BLOBS, REFINED_ARC, (1.0 + REFINED_FOCAL_OFFSET) * INC_FOCAL)]
+
+
 def main() -> int:
     import torch
 
@@ -3822,6 +3930,32 @@ def main() -> int:
     kernels.library()
     log(f"[build] kernels built and loaded in {kernels.build_seconds:.2f}s")
 
+    phase_s = {}
+    with prefetch_renders(prefetched_scenes()):
+        t0 = time.perf_counter()
+        config4_rows, config4_launches = phase_config4(device)
+        phase_s["config4"] = time.perf_counter() - t0
+        record = phases(device, config4_rows, config4_launches, phase_s)
+    log("[time] phase seconds " + json.dumps(phase_s))
+    log(f"[done] chip_smoke wall {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps(record))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) -> dict:
+    """Phases 1-13 after phase 14 (main), then the kernels' record with
+    phase 14's rows and launches merged in; each phase's wall seconds go
+    into phase_s."""
+    last = [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = now - last[0]
+        last[0] = now
+
     k2_first, k2_shapes = check_match(device, 4096)
     results = {"dog_extrema_scores": check_dog(device, SLICE_IMAGE), "match_topk2": k2_first}
     log_results("features", results)
@@ -3838,6 +3972,7 @@ def main() -> int:
     two_view_launches = launches
     log_results("two-view BA", {**check_ba(ba_log[-1]["problem"], ba_log[-1]["cfg"], device, "two-view BA"),
                                 **check_k9(ba_log[-1]["problem"], ba_log[-1]["cfg"], device)})
+    mark("kernels_two_view")
 
     t0 = time.perf_counter()
     ring, scene = render_ring(INC_IMAGES, INC_BLOBS, INC_ARC)
@@ -3912,6 +4047,7 @@ def main() -> int:
     log("[features] " + json.dumps({**feature_breakdown(images, sift_cfg, valid_hw),
                                     "incremental_features_stage_s": rec.stage_seconds["features"]}))
     del images, valid_hw
+    mark("incremental")
     paths = {"two_view": two_view_launches, "incremental": launches}
     ring_ba = (final["problem"], final["cfg"], inc_rec)   # phase 12 shards this BA
     del ba_log, final
@@ -3938,6 +4074,7 @@ def main() -> int:
     log_results("", {"pcg_solve": pcg_rows[-1]})
     results["pcg_solve"]["shapes"] = pcg_rows
     del ba_log, first_polish
+    mark("partition")
 
     # The global engine on the first views of the ring.
     rec, launches, ba_log, _, wall = run_reconstruct(device, ring[:GLOBAL_IMAGES], engine_mode="global")
@@ -3951,6 +4088,7 @@ def main() -> int:
         f"({100 * rmse / INC_RADIUS:.3f}% of the orbit radius)")
     paths["global"] = launches
     del ba_log, ring
+    mark("global")
 
     # Config #3 from files: the incremental ring's scene at 96 views as PGM
     # files through the CLI with vocab-tree pairs and densify; then the same
@@ -3983,6 +4121,7 @@ def main() -> int:
         del run, rec
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    mark("vocab")
 
     # The off-by-default paths on the two-view slice's views: first-octave
     # upsampling (K1 on the 2048^2 octave), guided matching, F-RANSAC.
@@ -3998,6 +4137,7 @@ def main() -> int:
         f"({k1_noise['extrema']} extrema)")
     results["dog_extrema_scores"]["shapes"] += [{**r, "shape": "options " + r["shape"]} for r in k1_options]
     paths["options"] = launches
+    mark("options")
 
     # The merged-model polish at full width, then the large-camera-count
     # kernels on its first solve's problem, each beside its small-C twin.
@@ -4024,6 +4164,7 @@ def main() -> int:
     polish_ba = (first["problem"], first["cfg"])   # phase 12 shards this BA
     refined_model = (polish["model"], polish["truth"])   # phase 13 refines this model
     del polish, first
+    mark("merged_polish")
 
     # Intrinsics refinement at full width, the only path of 8-wide camera
     # blocks: the 8-wide builds on the incremental slice's final global BA
@@ -4054,6 +4195,7 @@ def main() -> int:
     paths["refined"] = refined["launches"]
     ring_views = refined["imgs"]
     del refined, inc_rec
+    mark("refined")
 
     # The refined polish (phase 13, before phase 12, which shards its
     # problem): phase 8's merged model from a focal 4% off through the
@@ -4080,6 +4222,7 @@ def main() -> int:
     refined_polish_ba = (rp["problem"], rp["cfg"])   # phase 12 shards this BA too
     del rp
     log(f"[refined polish] phase 13 (a), (b) wall {time.perf_counter() - t0:.2f}s")
+    mark("refined_polish")
 
     # Several devices: the multi-device routes in a one-process NCCL group
     # on the card, each against the single-card route.
@@ -4092,45 +4235,10 @@ def main() -> int:
     results.update(sharded["results"])
     paths["sharded"] = sharded["launches"]
     log(f"[dist] phase 12 wall {time.perf_counter() - t0:.2f}s; launches {json.dumps(sharded['launches'])}")
-    # Config #4 from files: benchmarks/ladder.py's 1,000 views through the
-    # CLI with vocab pairs, partitioning, the clusters of the global engine
-    # on four threads, the pose-graph merge and the 1,000-camera polish.
-    import gc
-
-    gc.collect()   # the earlier phases' garbage and cached blocks go first
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    workdir, fp32_build = tempfile.mkdtemp(prefix="chip_smoke_config4_"), None
-    try:
-        fp32_build = start_fp32_rows_build(workdir)   # for (c); nvcc runs beside the run
-        run = run_config4(workdir, verbose=False)
-        c4 = config4_readings(run)
-        log_bundle_adjustments("config4", [config4_polish(run), run["ba_log"][-1]])
-        failed = check_config4(run, c4)
-        if failed:
-            raise AssertionError(f"config4: {failed}; {json.dumps(c4)}")
-        rows = config4_kernels(run, device, load_fp32_rows(fp32_build))
-        idle = config4_idle(run, device)
-        log("[config4] (c) K3 and K5 on the polish's problem, the library's double rows beside the fp32 rows "
-            "build (-DSFM_BA_FP32_ROWS): " + json.dumps({k: rows[k][0].get("fp32_rows") for k in (
-                "fused_ne_payloads", "fused_cost_sums")}))
-        paths["config4"] = run["launches"]
-        for k, v in rows.items():
-            log_shapes(k, v)
-            results[k]["shapes"] = results[k].get("shapes", [dict(results[k])]) + v
-        log("[config4] " + json.dumps({k: c4[k] for k in (
-            "images", "registered", "mean_reproj_px", "camera_rmse_pct_radius", "wall_s", "render_s", "stage_s",
-            "candidate_pairs", "verified_before_densify", "ladder_candidates", "ladder_pairs_added",
-            "verified_edges", "artifact_save_s", "clusters_built", "clusters_reconstructed",
-            "clusters_gated_in", "clusters_merged", "cluster_threads", "rescued", "bas", "pcg_bas",
-            "colmap_bin_read_back", "launches")} | {"idle": idle, "phase_s": time.perf_counter() - t0}))
-        del run
-    finally:
-        if fp32_build is not None and fp32_build[0].poll() is None:
-            fp32_build[0].kill()
-            fp32_build[0].communicate()
-        shutil.rmtree(workdir, ignore_errors=True)
-
+    mark("sharded")
+    paths["config4"] = config4_launches
+    for k, v in config4_rows.items():
+        results[k]["shapes"] = results[k].get("shapes", [dict(results[k])]) + v
     log("[lm] launches by path: " + json.dumps(
         {k: {name: p.get(k, 0) for name, p in paths.items()}
          for k in ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums", "whw_cam_reduce",
@@ -4160,12 +4268,7 @@ def main() -> int:
         f"device launches than another session of the same calls ({TRACE_SESSIONS['empty']} none); they "
         f"missed {TRACE_SESSIONS['missing']} of the {TRACE_SESSIONS['launches']} launches that the fullest "
         f"session of each measurement implies")
-    log(f"[done] chip_smoke wall {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps(record))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return record
 
 
 if __name__ == "__main__":

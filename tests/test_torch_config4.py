@@ -21,7 +21,10 @@
 - the repairs the clusters on threads needed: the kernel library and the
   native library are built once when several threads ask at once, the
   launch counts add up across threads, and chip_smoke.forbid_plain covers
-  K1's and K2's plain versions.
+  K1's and K2's plain versions;
+- chip_smoke.py's views rendered ahead in a background pool (which keeps
+  the script with phase 14 inside its time limit) are the bits render_pool
+  renders itself.
 """
 
 import threading
@@ -302,3 +305,29 @@ def test_ba_sources_parse_with_double_rows():
     proc = subprocess.run([sys.executable, str(repo / "tools" / "cuda_syntax_check.py")],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_prefetched_renders_are_render_pools_bits(monkeypatch):
+    """chip_smoke.prefetch_renders renders scenes in a background pool and
+    render_pool takes them from there: the same views and ground truth as
+    render_blob_scene in one process; a scene not asked for renders in
+    render_pool's own pool as before, and nothing stays prefetched after
+    the pool stops."""
+    import os
+
+    from sfm_tpu_torch.utils.synthetic import render_blob_scene
+
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)   # render_pool's own pool: one worker
+    scene = dict(image_size=(64, 48), num_images=3, num_blobs=24, focal=80.0, arc_fraction=0.1,
+                 radius=4.0, seed=3)
+    other = dict(scene, num_images=2)
+    want, truth = render_blob_scene(**scene)
+    with cs.prefetch_renders([scene]):
+        assert len(cs._PREFETCHED) == 1
+        got, got_truth = cs.render_pool(**scene)
+        assert not cs._PREFETCHED
+        alone, _ = cs.render_pool(**other)
+    assert not cs._PREFETCHED
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(got_truth.rvecs, truth.rvecs) and np.array_equal(got_truth.points, truth.points)
+    assert np.array_equal(alone, render_blob_scene(**other)[0])
