@@ -460,13 +460,19 @@ def traced(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = 
 def device_rows(prof) -> list:
     """The device's own rows of a torch.profiler trace (kernels, memcpy,
     memset). The rows of the host ops that launched them carry the same
-    time once more, and the schedule's step annotation ("ProfilerStep*")
-    the span of its step: both are left out."""
+    time once more, and annotations (the schedule's "ProfilerStep*", the
+    port's spans, labelled_parts' ranges) the span of their range: all are
+    left out."""
     import torch
 
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
+            and not e.key.startswith("ProfilerStep") and not _annotation(e)]
+
+
+def _annotation(e) -> bool:
+    """A user annotation's row or event (a record_function range)."""
+    return bool(getattr(e, "is_user_annotation", False))
 
 
 def per_call(rows, calls: int) -> tuple[float, float, list]:
@@ -711,7 +717,7 @@ def part_rows(prof) -> dict:
     out = {}
     for e in events:
         if (e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith(PART_TAG)
-                or e.name.startswith("ProfilerStep")):
+                or e.name.startswith("ProfilerStep") or _annotation(e)):
             continue
         mid = 0.5 * (e.time_range.start + e.time_range.end)
         part = next((p for p, t0, t1 in ranges if t0 <= mid <= t1), "rest")

@@ -15,6 +15,7 @@ import torch
 
 from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.ops.interp import bilinear_sample_stack
+from sfm_tpu_torch.utils.logging import span
 
 _NUM_CELLS = 4
 _NUM_ORI = 8
@@ -38,6 +39,7 @@ def _lattice_and_weights() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 _LATTICE, _W_GAUSS, _W_SPATIAL = _lattice_and_weights()
+_TABLE_BYTES = _LATTICE.nbytes + _W_GAUSS.nbytes + _W_SPATIAL.nbytes  # uploaded by every call
 
 _WIN = 64  # sampling window (covers ~8*sigma at sigma <= 3.9)
 
@@ -98,9 +100,10 @@ def compute_descriptors(kps, dx_stack: torch.Tensor, dy_stack: torch.Tensor,
     """Descriptors [N, 128] for keypoints [N] of one octave; dx/dy_stack
     [B, L, H, W] are the gradients of the octave's Gaussian stacks."""
     dev = dx_stack.device
-    lattice = torch.from_numpy(_LATTICE).to(dev)
-    w_gauss = torch.from_numpy(_W_GAUSS).to(dev)
-    w_spatial = torch.from_numpy(_W_SPATIAL).to(dev)
+    with span("sift.descriptors.constants", h2d_bytes=_TABLE_BYTES):
+        lattice = torch.from_numpy(_LATTICE).to(dev)
+        w_gauss = torch.from_numpy(_W_GAUSS).to(dev)
+        w_spatial = torch.from_numpy(_W_SPATIAL).to(dev)
 
     cos_t = torch.cos(kps.angle)
     sin_t = torch.sin(kps.angle)

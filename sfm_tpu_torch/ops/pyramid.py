@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch.config import SiftConfig
+from sfm_tpu_torch.utils.logging import span
 
 
 def gaussian_kernel1d(sigma: float) -> np.ndarray:
@@ -53,11 +54,12 @@ def _blur_levels(base: torch.Tensor, sigmas: tuple[float, ...]) -> torch.Tensor:
     B, H, W = base.shape
     if H != W:
         raise ValueError("ingest pads to square canvases")
-    Ts = np.stack([
-        np.eye(H, dtype=np.float32) if s <= 0 else _toeplitz_blur(H, int(round(s * 1e4)))
-        for s in sigmas
-    ])
-    T = torch.from_numpy(Ts).to(base.device)
+    with span("sift.pyramid.constants", h2d_bytes=len(sigmas) * H * H * 4):
+        Ts = np.stack([
+            np.eye(H, dtype=np.float32) if s <= 0 else _toeplitz_blur(H, int(round(s * 1e4)))
+            for s in sigmas
+        ])
+        T = torch.from_numpy(Ts).to(base.device)
     return torch.matmul(torch.matmul(T[None], base[:, None]), T.transpose(1, 2)[None])
 
 

@@ -42,6 +42,7 @@ from sfm_tpu_torch.ops.match import PairMatches, guided_match_block, match_block
 from sfm_tpu_torch.ops.sift import extract_features
 from sfm_tpu_torch.ops.verify import verify_block
 from sfm_tpu_torch.pipeline.ingest import ImageBatch, iter_image_chunks
+from sfm_tpu_torch.utils.logging import span
 
 _FEATURE_CHUNK = 8  # images per device batch in the feature stage
 # The match stage keeps the descriptors and keypoints of every image on the
@@ -85,18 +86,23 @@ def _extract_chunk(canvases: np.ndarray, valid_hw: np.ndarray, cfg: PipelineConf
     with empty canvases, as sfm_tpu pads a chunk), then every share is
     gathered."""
     n = canvases.shape[0]
-    if mesh is not None:
-        share = slice(mesh.rank * _FEATURE_CHUNK, (mesh.rank + 1) * _FEATURE_CHUNK)
-        canvases, valid_hw = canvases[share], valid_hw[share]
-        pad = _FEATURE_CHUNK - canvases.shape[0]
-        if pad:
-            canvases = np.concatenate([canvases, np.zeros((pad, *canvases.shape[1:]), canvases.dtype)])
-            valid_hw = np.concatenate([valid_hw, np.zeros((pad, 2), valid_hw.dtype)])
-    f = extract_features(torch.from_numpy(np.ascontiguousarray(canvases)).to(device), cfg.sift,
-                         torch.from_numpy(np.ascontiguousarray(valid_hw)).to(device))
-    if mesh is not None:
-        f = [all_gather_rows(a, mesh)[:n] for a in f]
-    return [a.cpu().numpy() for a in f]
+    with span("features.chunk"):
+        if mesh is not None:
+            share = slice(mesh.rank * _FEATURE_CHUNK, (mesh.rank + 1) * _FEATURE_CHUNK)
+            canvases, valid_hw = canvases[share], valid_hw[share]
+            pad = _FEATURE_CHUNK - canvases.shape[0]
+            if pad:
+                canvases = np.concatenate([canvases, np.zeros((pad, *canvases.shape[1:]), canvases.dtype)])
+                valid_hw = np.concatenate([valid_hw, np.zeros((pad, 2), valid_hw.dtype)])
+        with span("features.upload", h2d_bytes=canvases.nbytes + valid_hw.nbytes):
+            images = torch.from_numpy(np.ascontiguousarray(canvases)).to(device)
+            hw = torch.from_numpy(np.ascontiguousarray(valid_hw)).to(device)
+        f = extract_features(images, cfg.sift, hw)
+        if mesh is not None:
+            with span("features.gather"):
+                f = [all_gather_rows(a, mesh)[:n] for a in f]
+        with span("features.download", d2h_bytes=sum(a.nbytes for a in f)):
+            return [a.cpu().numpy() for a in f]
 
 
 def _chunk_size(mesh: Mesh | None) -> int:
@@ -111,9 +117,10 @@ def extract_stage(batch: ImageBatch, cfg: PipelineConfig, device: torch.device,
                   mesh: Mesh | None = None) -> FeatureSet:
     B = batch.canvases.shape[0]
     chunk = _chunk_size(mesh)
-    return _feature_set([
-        _extract_chunk(batch.canvases[s:s + chunk], batch.valid_hw[s:s + chunk], cfg, device, mesh)
-        for s in range(0, B, chunk)])
+    with span("features.extract"):
+        return _feature_set([
+            _extract_chunk(batch.canvases[s:s + chunk], batch.valid_hw[s:s + chunk], cfg, device, mesh)
+            for s in range(0, B, chunk)])
 
 
 def extract_stage_streaming(paths: list, cfg: PipelineConfig, device: torch.device,
@@ -122,12 +129,18 @@ def extract_stage_streaming(paths: list, cfg: PipelineConfig, device: torch.devi
     the decode thread prepares the next chunk while the device extracts
     this one. Returns (FeatureSet, intrinsics [B, 6], valid_hw [B, 2], names)."""
     outs, intr, hw, names = [], [], [], []
-    for batch in iter_image_chunks(paths, cfg.sift, _chunk_size(mesh)):
-        outs.append(_extract_chunk(batch.canvases, batch.valid_hw, cfg, device, mesh))
-        intr.append(batch.intrinsics)
-        hw.append(batch.valid_hw)
-        names.extend(batch.names)
-    return _feature_set(outs), np.concatenate(intr), np.concatenate(hw), names
+    with span("features.extract"):
+        chunks = iter_image_chunks(paths, cfg.sift, _chunk_size(mesh))
+        while True:
+            with span("features.decode_wait"):
+                batch = next(chunks, None)
+            if batch is None:
+                break
+            outs.append(_extract_chunk(batch.canvases, batch.valid_hw, cfg, device, mesh))
+            intr.append(batch.intrinsics)
+            hw.append(batch.valid_hw)
+            names.extend(batch.names)
+        return _feature_set(outs), np.concatenate(intr), np.concatenate(hw), names
 
 
 def _bucket_keypoints(n: int, cap: int) -> int:
