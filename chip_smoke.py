@@ -38,7 +38,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      and on a wide orbit of 1024 cameras (more cameras than blocks: resident,
      streaming, and on a grid of 8 blocks); extract_features on the ring's
      first chunk of 8 views with use_pallas True and False (every Features
-     tensor identical), and where that chunk's device time goes (the
+     tensor identical), K12 on the keypoints and gradients of that chunk's
+     four octaves (one launch a call, within 1e-5 of its plain version,
+     timed beside its bound: the "[descriptors]" line), and where that
+     chunk's device time goes (the
      "[features]" line: device ms and launches by part, idle share, and the
      run's features stage seconds);
   6. divide-and-conquer slice: the same views through reconstruct with
@@ -175,8 +178,8 @@ camera side (a permutation) for K = 6, 36 and 42 rows, the point side
 against its plain version in float64 and timed beside `loop_ms`, the same
 solve as Python steps over the coupling-only K11 (K10 then K9 for
 pcg_solve_big). Every row also carries its device time per call
-(`device_ms`, torch.profiler). The record (29 rows) reports K1-K3,
-K5, K7, K9, K11 and pcg_solve at the incremental slice's shapes, K4, K6,
+(`device_ms`, torch.profiler). The record (30 rows) reports K1-K3,
+K5, K7, K9, K11, K12 and pcg_solve at the incremental slice's shapes, K4, K6,
 K8, K10 and pcg_solve_big at the merged polish's, the 8-wide K3, K5, K7,
 K11 and pcg_solve (`*_w8`) at phase 11's, the 8-wide K4, K6, K8, K10 and
 pcg_solve_big at phase 13's, K3's sharded mode and the two
@@ -189,8 +192,8 @@ K11's rows count the launches of pcg_solve and K10's those of
 pcg_solve_big, which run their code, at either width; K7's count K3's
 launches that build the Schur-Jacobi blocks), K7's
 K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
-K1, K2, K3, K5, K9 and pcg_solve a row per timed shape under `shapes` (phase
-14's among them).
+K1, K2, K3, K5, K9, K12 and pcg_solve a row per timed shape under `shapes`
+(phase 14's among them).
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -210,6 +213,9 @@ import time
 # Kernel name -> (source, the TPU kernel it replaces: file:line of pallas_call).
 KERNELS = {
     "dog_extrema_scores": ("sfm_tpu_torch/csrc/dog_extrema.cu", "sfm_tpu/kernels/dog_extrema.py:111"),
+    # K12 replaces no TPU kernel: sfm_tpu's descriptors are plain JAX.
+    "sift_descriptors": ("sfm_tpu_torch/csrc/sift_descriptors.cu",
+                         "none (sfm_tpu/ops/descriptor.py is plain JAX)"),
     "match_topk2": ("sfm_tpu_torch/csrc/match_topk.cu", "sfm_tpu/kernels/match_topk.py:74"),
     "fused_ne_payloads": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:366"),
     "fused_cost_sums": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:524"),
@@ -271,8 +277,8 @@ ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k not in INSIDE)
 POLISH_KERNELS = tuple(k for k in BIG_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
 # The refined polish (phase 13): the same at width 8.
 REFINED_POLISH_KERNELS = tuple(k for k in BIG_WIDE_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
-TWO_VIEW_KERNELS = ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "fused_cost_sums",
-                    "cam_segment_sum")
+TWO_VIEW_KERNELS = ("dog_extrema_scores", "sift_descriptors", "match_topk2", "fused_ne_payloads",
+                    "fused_cost_sums", "cam_segment_sum")
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -659,6 +665,145 @@ def check_features_route(images, cfg, valid_hw) -> int:
     return int(a.valid.sum())
 
 
+# K12 against its plain version: the largest gap of any descriptor entry
+# (fp32 reassociation; both normalise to unit length, entries <= 0.2).
+DESC_GAP = 1e-5
+# K12's operations a lattice point: the position 8, two 4-tap samples 24,
+# magnitude and soft bins 12, the weighted adds into 4 cells x 2 bins 16.
+DESC_OPS_PER_POINT = 60
+
+
+@contextlib.contextmanager
+def record_descriptor_calls():
+    """Record the arguments (keypoints, dx, dy, config) of every call the
+    feature stage makes of K12's wrapper, by wrapping the extractor's entry
+    for the duration."""
+    from sfm_tpu_torch.ops import sift
+
+    calls, inner = [], sift.sift_descriptors
+
+    def wrapped(kps, dx, dy, cfg):
+        calls.append((kps, dx, dy, cfg))
+        return inner(kps, dx, dy, cfg)
+
+    sift.sift_descriptors = wrapped
+    try:
+        yield calls
+    finally:
+        sift.sift_descriptors = inner
+
+
+def descriptor_least_bytes(kps, dx) -> int:
+    """Bytes one K12 call must move: the [N, 128] descriptors written once,
+    the keypoint fields read once, and each 32-byte sector of dx and of dy
+    that a tap of some lattice point reads, once (the plain version's
+    offsets, level, clamp box and 4 taps)."""
+    import torch
+
+    from sfm_tpu_torch.kernels import sift_descriptors as k12
+
+    B, L, H, W = dx.shape
+    n = kps.x.shape[0]
+    lat = torch.from_numpy(k12._LATTICE).to(dx.device)
+    scale = kps.sigma[:, None] * 3.0
+    du, dv = lat[None, :, 0] * scale, lat[None, :, 1] * scale
+    c, s = torch.cos(kps.angle)[:, None], torch.sin(kps.angle)[:, None]
+    lev = torch.round(kps.level).long().clamp(0, L - 1)
+
+    def corner(pos, centre, size):
+        """First tap along one axis, in image pixels."""
+        if min(H, W) >= 64:
+            box = (torch.round(centre).long() - 32).clamp(0, size - 64)[:, None]
+            return (pos - box).clamp(0.0, 64 - 1.000001).floor().long() + box
+        return pos.clamp(0.0, size - 1.000001).floor().long()
+
+    x0 = corner(kps.x[:, None] + c * du - s * dv, kps.x, W)
+    y0 = corner(kps.y[:, None] + s * du + c * dv, kps.y, H)
+    plane = (kps.img * L + lev)[:, None, None, None]
+    rows = plane * H + torch.stack([y0, y0 + 1], -1)[..., None]
+    taps = rows * W + torch.stack([x0, x0 + 1], -1)[..., None, :]
+    sectors = torch.unique(taps // 8).numel()   # 8 floats a sector
+    return 2 * 32 * sectors + n * 128 * 4 + n * (8 + 5 * 4)
+
+
+def descriptor_edge_cases(device, cfg):
+    """(what, keypoints, dx, dy, config) for K12's untimed checks: stacks
+    under 64 px on a side (the whole plane as the clamp box), square and
+    not, of uniform noise, with keypoints inside and up to 3 px outside the
+    image, blurs up to 6 px and levels past both ends; the second with
+    root-SIFT."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.ops.detect import OctaveKeypoints
+
+    rng = np.random.default_rng(11)
+    out = []
+    for shape, root in (((2, 4, 48, 48), False), ((3, 5, 40, 72), True)):
+        B, L, H, W = shape
+        n = 512
+
+        def f32(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+        kps = OctaveKeypoints(
+            img=torch.from_numpy(rng.integers(0, B, n)).to(device), x=f32(rng.uniform(-3, W + 3, n)),
+            y=f32(rng.uniform(-3, H + 3, n)), level=f32(rng.uniform(-1, L, n)),
+            sigma=f32(rng.uniform(1.6, 6.0, n)), response=f32(np.ones(n)),
+            angle=f32(rng.uniform(-np.pi, np.pi, n)), valid=torch.ones(n, dtype=torch.bool, device=device))
+        dx, dy = (f32(rng.uniform(-0.1, 0.1, shape)) for _ in range(2))
+        out.append((f"{n} kps on " + "x".join(map(str, shape)) + (" root-SIFT" if root else ""),
+                    kps, dx, dy, dataclasses.replace(cfg, root_sift=root)))
+    return out
+
+
+def check_descriptors(device, images, cfg, valid_hw) -> list:
+    """K12 on one chunk as extract_features hands it each octave: one launch
+    a call, the kernel against its plain version on the card (largest gap
+    <= DESC_GAP), and each octave's call timed (event and device time)
+    beside its bound and the plain version's time; then, untimed and held
+    to the same gap, the first octave with root-SIFT and the
+    descriptor_edge_cases."""
+    import dataclasses
+    import functools
+
+    from sfm_tpu_torch import kernels
+    from sfm_tpu_torch.kernels import sift_descriptors as k12
+    from sfm_tpu_torch.ops.sift import extract_features
+
+    before = kernels.LAUNCHES["sift_descriptors"]
+    with record_descriptor_calls() as calls:
+        extract_features(images, cfg, valid_hw)
+    launched = kernels.LAUNCHES["sift_descriptors"] - before
+    if launched != len(calls) or len(calls) != cfg.num_octaves:
+        raise AssertionError(f"sift_descriptors: {launched} launches for {len(calls)} calls "
+                             f"of {cfg.num_octaves} octaves")
+    rows = []
+    for kps, dx, dy, call_cfg in calls:
+        kernel = functools.partial(k12.sift_descriptors, kps, dx, dy, call_cfg)
+        plain = functools.partial(k12.sift_descriptors_plain, kps, dx, dy, call_cfg)
+        gap = float((kernel() - plain()).abs().max())
+        what = f"{kps.x.shape[0]} kps on " + "x".join(map(str, dx.shape))
+        if not gap <= DESC_GAP:
+            raise AssertionError(f"sift_descriptors {what}: max abs gap {gap:.3e} > {DESC_GAP}")
+        ops = kps.x.shape[0] * k12._LATTICE.shape[0] * DESC_OPS_PER_POINT
+        rows.append(dict(shape=what, max_abs_err=gap, calls=1, ms=time_ms(kernel, device),
+                         plain_ms=time_ms(plain, device, PLAIN_RUNS), library_ms=None,
+                         device_ms=device_ms(kernel, device),
+                         **bound(descriptor_least_bytes(kps, dx), ops, FP32_OPS_PER_S)))
+    kps, dx, dy, call_cfg = calls[0]
+    untimed = [(rows[0]["shape"] + " root-SIFT", kps, dx, dy, dataclasses.replace(call_cfg, root_sift=True))]
+    for what, kps, dx, dy, call_cfg in untimed + descriptor_edge_cases(device, cfg):
+        gap = float((k12.sift_descriptors(kps, dx, dy, call_cfg)
+                     - k12.sift_descriptors_plain(kps, dx, dy, call_cfg)).abs().max())
+        if not gap <= DESC_GAP:
+            raise AssertionError(f"sift_descriptors {what}: max abs gap {gap:.3e} > {DESC_GAP}")
+        rows[0].setdefault("untimed", []).append((what, gap))
+    return rows
+
+
 # The feature stage's parts for the breakdown: part -> (module, function)
 # wrapped while it runs. Device time outside them is "rest".
 FEATURE_PARTS = {
@@ -668,7 +813,7 @@ FEATURE_PARTS = {
     "sort": (("sfm_tpu_torch.ops.sift", "select_candidates"), ("sfm_tpu_torch.ops.sift", "top_k_stable")),
     "refine": (("sfm_tpu_torch.ops.sift", "refine_candidates"),),
     "orientation": (("sfm_tpu_torch.ops.sift", "assign_orientation"),),
-    "descriptors": (("sfm_tpu_torch.ops.sift", "compute_descriptors"),),
+    "descriptors": (("sfm_tpu_torch.ops.sift", "sift_descriptors"),),
 }
 PART_TAG = "part:"
 
@@ -2766,14 +2911,14 @@ def run_options(device, size: int = SLICE_IMAGE):
 @contextlib.contextmanager
 def forbid_plain():
     """Record every call of a kernel's plain version (the *_plain functions
-    of every kernel module: K1's, K2's and the BA kernels') that is handed
-    a CUDA tensor, by wrapping them for the duration: on the card every
-    wrapper launches its kernel, so the list must stay empty."""
+    of every kernel module: K1's, K2's, K12's and the BA kernels') that is
+    handed a CUDA tensor, by wrapping them for the duration: on the card
+    every wrapper launches its kernel, so the list must stay empty."""
     import torch
 
-    from sfm_tpu_torch.kernels import ba_kernels, dog_extrema, match_topk
+    from sfm_tpu_torch.kernels import ba_kernels, dog_extrema, match_topk, sift_descriptors
 
-    calls, saved = [], [(m, n, getattr(m, n)) for m in (ba_kernels, dog_extrema, match_topk)
+    calls, saved = [], [(m, n, getattr(m, n)) for m in (ba_kernels, dog_extrema, match_topk, sift_descriptors)
                         for n in dir(m) if n.endswith("_plain")]
 
     def guard(name, fn):
@@ -4050,6 +4195,14 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
     n_kp = check_features_route(images, sift_cfg, valid_hw)
     log(f"[features] {SLICE_IMAGE}^2 chunk of {images.shape[0]}: identical Features with use_pallas "
         f"True and False ({n_kp} valid keypoints)")
+    k12_rows = check_descriptors(device, images, sift_cfg, valid_hw)
+    log_shapes("sift_descriptors", k12_rows)
+    log("[descriptors] K12 one launch per octave call, max abs gap to the plain version "
+        f"{max(r['max_abs_err'] for r in k12_rows):.3e} (bar {DESC_GAP}); device us per call "
+        + ", ".join(f"{r['shape']}: {1e3 * r['device_ms']:.1f} (bound {1e3 * r['bound_ms']:.1f})"
+                    for r in k12_rows if r["device_ms"] is not None)
+        + "; untimed " + ", ".join(f"{what}: {gap:.3e}" for what, gap in k12_rows[0]["untimed"]))
+    results["sift_descriptors"] = dict(k12_rows[0], note="one launch per octave call", shapes=k12_rows)
     log("[features] " + json.dumps({**feature_breakdown(images, sift_cfg, valid_hw),
                                     "incremental_features_stage_s": rec.stage_seconds["features"]}))
     del images, valid_hw

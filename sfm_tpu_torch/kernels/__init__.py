@@ -56,6 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {
     "dog_extrema_scores": 0,
+    "sift_descriptors": 0,
     "match_topk2": 0,
     "fused_ne_payloads": 0,
     "fused_cost_sums": 0,
@@ -94,6 +95,7 @@ _F = ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream are c_void_p).
 _SIGNATURES = {
     "sfm_dog_extrema": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "sfm_sift_descriptors": (_P,) * 9 + (_I,) * 6 + (_P,),
     "sfm_match_topk2": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "sfm_fused_ne_payloads": (_P,) * 12 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 8,
     "sfm_fused_cost_sums": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 6,

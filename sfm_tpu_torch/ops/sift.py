@@ -4,12 +4,12 @@
 Batched over images [B, H, W]; per octave: pyramid level stacks, extremum
 scores (kernel K1 when cfg.use_pallas), exact top-k candidates, refinement,
 compaction to the per-octave descriptor budget, orientation (with Lowe's
-second-peak duplicates) and descriptors. Output obeys the padding contract:
-exactly cfg.max_keypoints slots per image with a validity mask. The parts
-run inside the spans sift.pyramid, sift.detect, sift.orientation and
-sift.descriptors (utils/logging.span), one of each per octave; the
-pyramid's build and the final cross-octave selection have spans of their
-own.
+second-peak duplicates) and descriptors (kernel K12 on the card). Output
+obeys the padding contract: exactly cfg.max_keypoints slots per image with
+a validity mask. The parts run inside the spans sift.pyramid, sift.detect,
+sift.orientation and sift.descriptors (utils/logging.span), one of each per
+octave; the pyramid's build and the final cross-octave selection have spans
+of their own.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ import torch
 
 from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.kernels.dog_extrema import dog_extrema_scores
+from sfm_tpu_torch.kernels.sift_descriptors import sift_descriptors
 from sfm_tpu_torch.ops import pyramid as pyr
-from sfm_tpu_torch.ops.descriptor import compute_descriptors
 from sfm_tpu_torch.ops.detect import (
     OctaveKeypoints, assign_orientation, extrema_score_map, pre_threshold,
     refine_candidates, select_candidates, take, top_k_stable,
@@ -79,7 +79,7 @@ def extract_features(images: torch.Tensor, cfg: SiftConfig,
                     torch.cat([a.reshape(B, -1), b.reshape(B, -1)], 1).reshape(-1)
                     for a, b in zip(kps, second)))
         with span("sift.descriptors"):
-            desc = compute_descriptors(kps, dx, dy, cfg)
+            desc = sift_descriptors(kps, dx, dy, cfg)
             scale = factor0 * 2.0**o
             per_oct.append(dict(
                 xy=torch.stack([kps.x, kps.y], -1).reshape(B, -1, 2) * scale,

@@ -5,7 +5,7 @@ machines without nvcc.
     python3 tools/cuda_syntax_check.py [SOURCE.cu ...]
 
 Each source under sfm_tpu_torch/csrc/ (by default the bundle-adjustment
-ones, ba_kernels.cu and schur_kernels.cu) is copied to a temporary
+ones, ba_kernels.cu and schur_kernels.cu; sift_descriptors.cu parses too) is copied to a temporary
 directory with its kernel launches (`<<<...>>>`) and inline PTX (`asm
 volatile`) stripped, then parsed by `g++ -std=c++17 -fsyntax-only` against
 a shim header that declares the CUDA keywords, vector types, intrinsics and
@@ -54,6 +54,12 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
 template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned o = *p; *p += v; return o; }
 template <class T> T __ldcg(const T* p) { return *p; }
+template <class T> T __ldg(const T* p) { return *p; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 using std::isfinite; using std::max; using std::min;
 typedef struct CUstream_st* cudaStream_t;

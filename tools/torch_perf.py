@@ -70,10 +70,13 @@
         stack it hands K1; K1 at each of those shapes on the stacks it was
         handed (bit-exact, event and device time, bound); then, on the first
         chunk of 8 views, extract_features with use_pallas True and False
-        (identical) and where the chunk's device time goes
-        (chip_smoke.feature_breakdown: device ms and launches by part, idle
-        share): the first thing to run after touching csrc/dog_extrema.cu
-        (--root DIR as for lm);
+        (identical), K12 on that chunk's four octaves
+        (chip_smoke.check_descriptors: one launch a call, the gap to its
+        plain version, event and device time, bound) and where the chunk's
+        device time goes (chip_smoke.feature_breakdown: device ms and
+        launches by part, idle share): the first thing to run after
+        touching csrc/dog_extrema.cu or csrc/sift_descriptors.cu (--root
+        DIR as for lm);
     python3 tools/torch_perf.py dogsweep
         K1's design choices: copies of csrc/dog_extrema.cu with a ring of
         3, 4 or 6 stages and the tiles (16, 64), (16, 32), (32, 64), (8, 64)
@@ -664,6 +667,11 @@ def features_cmd(device, images: int):
     n_kp = cs.check_features_route(chunk, sift_cfg, valid_hw)
     print(f"[features] {card()} use_pallas True and False identical on the first chunk "
           f"({n_kp} valid keypoints)", flush=True)
+    rows = cs.check_descriptors(device, chunk, sift_cfg, valid_hw)
+    for row in rows:
+        print(f"[features] {card()} sift_descriptors " + json.dumps({f: row[f] for f in cs.SHAPE_FIELDS}),
+              flush=True)
+    print(f"[features] {card()} sift_descriptors untimed gaps " + json.dumps(rows[0]["untimed"]), flush=True)
     print(f"[features] {card()} " + json.dumps(cs.feature_breakdown(chunk, sift_cfg, valid_hw)), flush=True)
 
 
