@@ -40,7 +40,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      first chunk of 8 views with use_pallas True and False (every Features
      tensor identical), K12 on the keypoints and gradients of that chunk's
      four octaves (one launch a call, within 1e-5 of its plain version,
-     timed beside its bound: the "[descriptors]" line), and where that
+     timed beside its bound: the "[descriptors]" line), K13 on each octave
+     call of build_pyramid over that chunk and over 8 noise views of 256^2
+     (the last octave, 32, reads whole rows: one launch a call, within
+     1e-6 of its plain version, timed beside its bound and the two
+     torch.matmul it replaces: the "[blur]" line), and where that
      chunk's device time goes (the
      "[features]" line: device ms and launches by part, idle share, and the
      run's features stage seconds);
@@ -178,8 +182,8 @@ camera side (a permutation) for K = 6, 36 and 42 rows, the point side
 against its plain version in float64 and timed beside `loop_ms`, the same
 solve as Python steps over the coupling-only K11 (K10 then K9 for
 pcg_solve_big). Every row also carries its device time per call
-(`device_ms`, torch.profiler). The record (30 rows) reports K1-K3,
-K5, K7, K9, K11, K12 and pcg_solve at the incremental slice's shapes, K4, K6,
+(`device_ms`, torch.profiler). The record (31 rows) reports K1-K3,
+K5, K7, K9, K11, K12, K13 and pcg_solve at the incremental slice's shapes, K4, K6,
 K8, K10 and pcg_solve_big at the merged polish's, the 8-wide K3, K5, K7,
 K11 and pcg_solve (`*_w8`) at phase 11's, the 8-wide K4, K6, K8, K10 and
 pcg_solve_big at phase 13's, K3's sharded mode and the two
@@ -192,11 +196,14 @@ K11's rows count the launches of pcg_solve and K10's those of
 pcg_solve_big, which run their code, at either width; K7's count K3's
 launches that build the Schur-Jacobi blocks), K7's
 K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
-K1, K2, K3, K5, K9, K12 and pcg_solve a row per timed shape under `shapes`
-(phase 14's among them).
+K1, K2, K3, K5, K9, K12, K13 and pcg_solve a row per timed shape under
+`shapes` (phase 14's among them).
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
-Without a CUDA device the script exits non-zero and prints no result.
+On every path K13 launches as often as K1 (once per octave call of the
+feature stage), and no path hands K13's plain version a CUDA tensor where
+forbid_plain watches. Without a CUDA device the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -216,6 +223,8 @@ KERNELS = {
     # K12 replaces no TPU kernel: sfm_tpu's descriptors are plain JAX.
     "sift_descriptors": ("sfm_tpu_torch/csrc/sift_descriptors.cu",
                          "none (sfm_tpu/ops/descriptor.py is plain JAX)"),
+    # K13 replaces no TPU kernel: sfm_tpu's pyramid blurs with dense products.
+    "blur_levels": ("sfm_tpu_torch/csrc/blur_levels.cu", "none (sfm_tpu/ops/pyramid.py is plain JAX)"),
     "match_topk2": ("sfm_tpu_torch/csrc/match_topk.cu", "sfm_tpu/kernels/match_topk.py:74"),
     "fused_ne_payloads": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:366"),
     "fused_cost_sums": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:524"),
@@ -277,8 +286,8 @@ ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k not in INSIDE)
 POLISH_KERNELS = tuple(k for k in BIG_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
 # The refined polish (phase 13): the same at width 8.
 REFINED_POLISH_KERNELS = tuple(k for k in BIG_WIDE_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
-TWO_VIEW_KERNELS = ("dog_extrema_scores", "sift_descriptors", "match_topk2", "fused_ne_payloads",
-                    "fused_cost_sums", "cam_segment_sum")
+TWO_VIEW_KERNELS = ("dog_extrema_scores", "sift_descriptors", "blur_levels", "match_topk2",
+                    "fused_ne_payloads", "fused_cost_sums", "cam_segment_sum")
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -804,10 +813,89 @@ def check_descriptors(device, images, cfg, valid_hw) -> list:
     return rows
 
 
+# K13 against its plain version: the largest gap of any level's pixel (0
+# where the library sums in the kernel's order: ascending columns from 0).
+BLUR_GAP = 1e-6
+
+
+@contextlib.contextmanager
+def record_blur_calls():
+    """Record the arguments (base, sigmas) of every call build_pyramid makes
+    of K13's wrapper, by wrapping the pyramid's entry for the duration."""
+    from sfm_tpu_torch.ops import pyramid
+
+    calls, inner = [], pyramid.blur_levels
+
+    def wrapped(base, sigmas):
+        calls.append((base, sigmas))
+        return inner(base, sigmas)
+
+    pyramid.blur_levels = wrapped
+    try:
+        yield calls
+    finally:
+        pyramid.blur_levels = inner
+
+
+def blur_bytes_ops(base, sigmas) -> tuple[int, int]:
+    """K13's least bytes (the base read once, the L levels written once) and
+    operations (a multiply-add two, over each level's band in both passes)."""
+    from sfm_tpu_torch.kernels import blur_levels as k13
+
+    B, n, _ = base.shape
+    widths = k13.band_tables(n, k13.sigma_keys(sigmas)).widths
+    return 4 * B * n * n * (1 + len(sigmas)), 4 * B * n * n * int(widths.sum())
+
+
+def check_blur(device, images) -> list:
+    """K13 on each octave call of build_pyramid over one chunk (the ring's
+    [8, 1024, 1024]) and over 8 noise views of 256^2 (the last octave, 32,
+    under twice the widest radius: rows that read every column): one launch
+    a call, within BLUR_GAP of its plain version on the card, each call
+    timed (event and device time) beside its bound, the plain version's time
+    (which builds and uploads the operator stack) and the library's (the two
+    torch.matmul with the stack already on the card)."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch import kernels
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.kernels import blur_levels as k13
+    from sfm_tpu_torch.ops.pyramid import build_pyramid
+
+    noise = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (8, 256, 256)).astype(np.float32)).to(device)
+    rows = []
+    for imgs, cfg in ((images, SiftConfig()), (noise, SiftConfig(image_max_dim=256))):
+        before = kernels.LAUNCHES["blur_levels"]
+        with record_blur_calls() as calls:
+            build_pyramid(imgs, cfg)
+        launched = kernels.LAUNCHES["blur_levels"] - before
+        if launched != len(calls) or len(calls) != cfg.num_octaves:
+            raise AssertionError(f"blur_levels: {launched} launches for {len(calls)} calls "
+                                 f"of {cfg.num_octaves} octaves")
+        for base, sigmas in calls:
+            kernel = lambda: k13.blur_levels(base, sigmas)  # noqa: E731
+            out, ref = kernel(), k13.blur_levels_plain(base, sigmas)
+            gap = float((out - ref).abs().max())
+            what = "x".join(map(str, base.shape)) + ("" if base.is_contiguous() else " view")
+            if not gap <= BLUR_GAP:
+                raise AssertionError(f"blur_levels {what}: max abs gap {gap:.3e} > {BLUR_GAP}")
+            n = base.shape[1]
+            T = torch.from_numpy(np.stack([np.eye(n, dtype=np.float32) if q is None else k13._toeplitz_blur(n, q)
+                                           for q in k13.sigma_keys(sigmas)])).to(device)
+            library = lambda: torch.matmul(torch.matmul(T[None], base[:, None]), T.transpose(1, 2)[None])  # noqa: E731
+            rows.append(dict(shape=what, max_abs_err=gap, exact=bool(torch.equal(out, ref)), calls=1,
+                             ms=time_ms(kernel, device), device_ms=device_ms(kernel, device),
+                             plain_ms=time_ms(lambda: k13.blur_levels_plain(base, sigmas), device, PLAIN_RUNS),
+                             library_ms=time_ms(library, device),
+                             **bound(*blur_bytes_ops(base, sigmas), FP32_OPS_PER_S)))
+    return rows
+
+
 # The feature stage's parts for the breakdown: part -> (module, function)
 # wrapped while it runs. Device time outside them is "rest".
 FEATURE_PARTS = {
-    "pyramid": (("sfm_tpu_torch.ops.pyramid", "build_pyramid"),),
+    "pyramid": (("sfm_tpu_torch.ops.pyramid", "blur_levels"),),
     "gradients": (("sfm_tpu_torch.ops.pyramid", "pyramid_gradients"),),
     "K1": (("sfm_tpu_torch.ops.sift", "dog_extrema_scores"),),
     "sort": (("sfm_tpu_torch.ops.sift", "select_candidates"), ("sfm_tpu_torch.ops.sift", "top_k_stable")),
@@ -2911,14 +2999,15 @@ def run_options(device, size: int = SLICE_IMAGE):
 @contextlib.contextmanager
 def forbid_plain():
     """Record every call of a kernel's plain version (the *_plain functions
-    of every kernel module: K1's, K2's, K12's and the BA kernels') that is
-    handed a CUDA tensor, by wrapping them for the duration: on the card
-    every wrapper launches its kernel, so the list must stay empty."""
+    of every kernel module: K1's, K2's, K12's, K13's and the BA kernels')
+    that is handed a CUDA tensor, by wrapping them for the duration: on the
+    card every wrapper launches its kernel, so the list must stay empty."""
     import torch
 
-    from sfm_tpu_torch.kernels import ba_kernels, dog_extrema, match_topk, sift_descriptors
+    from sfm_tpu_torch.kernels import ba_kernels, blur_levels, dog_extrema, match_topk, sift_descriptors
 
-    calls, saved = [], [(m, n, getattr(m, n)) for m in (ba_kernels, dog_extrema, match_topk, sift_descriptors)
+    calls, saved = [], [(m, n, getattr(m, n))
+                        for m in (ba_kernels, blur_levels, dog_extrema, match_topk, sift_descriptors)
                         for n in dir(m) if n.endswith("_plain")]
 
     def guard(name, fn):
@@ -3434,7 +3523,7 @@ def check_config4(run, r: dict) -> list:
     last = r["last_ba"]
     if last.get("solver") != "pcg" or last.get("C", 0) < 0.95 * n:
         failed.append(f"the polish did not take PCG over the views: {last}")
-    never = [k for k in ("dog_extrema_scores", "match_topk2", "fused_ne_payloads", "whw_cam_reduce",
+    never = [k for k in ("dog_extrema_scores", "blur_levels", "match_topk2", "fused_ne_payloads", "whw_cam_reduce",
                          "fused_cost_sums", "cam_segment_sum", "pcg_solve") if launches.get(k, 0) == 0]
     if never:
         failed.append(f"never launched: {never}")
@@ -4203,6 +4292,15 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
                     for r in k12_rows if r["device_ms"] is not None)
         + "; untimed " + ", ".join(f"{what}: {gap:.3e}" for what, gap in k12_rows[0]["untimed"]))
     results["sift_descriptors"] = dict(k12_rows[0], note="one launch per octave call", shapes=k12_rows)
+    k13_rows = check_blur(device, images)
+    log_shapes("blur_levels", k13_rows)
+    log("[blur] K13 one launch per octave call, max abs gap to the plain version "
+        f"{max(r['max_abs_err'] for r in k13_rows):.3e} (bar {BLUR_GAP}), bit-exact in "
+        f"{sum(r['exact'] for r in k13_rows)} of {len(k13_rows)} calls; device us per call (bound us, "
+        "library ms) " + ", ".join(
+            f"{r['shape']}: {1e3 * r['device_ms']:.1f} ({1e3 * r['bound_ms']:.1f}, {r['library_ms']:.3f})"
+            for r in k13_rows if r["device_ms"] is not None))
+    results["blur_levels"] = dict(k13_rows[0], note="one launch per octave call", shapes=k13_rows)
     log("[features] " + json.dumps({**feature_breakdown(images, sift_cfg, valid_hw),
                                     "incremental_features_stage_s": rec.stage_seconds["features"]}))
     del images, valid_hw
@@ -4423,6 +4521,11 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
     never = [k["name"] for k in record["kernels"] if k["launches"] == 0]
     if never:
         raise AssertionError(f"kernels launched by no path: {never}")
+    # K1 and K13 each launch once per octave call of the feature stage.
+    blur_off = {name: (p.get("blur_levels", 0), p.get("dog_extrema_scores", 0)) for name, p in paths.items()
+                if p.get("blur_levels", 0) != p.get("dog_extrema_scores", 0)}
+    if blur_off:
+        raise AssertionError(f"blur_levels launches differ from K1's (octave calls): {blur_off}")
     log(f"[profile] {TRACE_SESSIONS['short']} of {TRACE_SESSIONS['all']} traced sessions recorded fewer "
         f"device launches than another session of the same calls ({TRACE_SESSIONS['empty']} none); they "
         f"missed {TRACE_SESSIONS['missing']} of the {TRACE_SESSIONS['launches']} launches that the fullest "

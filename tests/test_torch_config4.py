@@ -267,27 +267,31 @@ class _CudaLooking(torch.Tensor):
 
 
 def test_forbid_plain_covers_every_kernel_module():
-    """Inside forbid_plain K1's, K2's and the BA kernels' plain versions
-    record a call with a CUDA tensor (and none with CPU tensors) and still
-    return the plain result; after it they are the functions again."""
-    from sfm_tpu_torch.kernels import ba_kernels, dog_extrema, match_topk
+    """Inside forbid_plain K1's, K2's, K13's and the BA kernels' plain
+    versions record a call with a CUDA tensor (and none with CPU tensors)
+    and still return the plain result; after it they are the functions
+    again."""
+    from sfm_tpu_torch.kernels import ba_kernels, blur_levels, dog_extrema, match_topk
 
     def plains():
         return (dog_extrema.dog_extrema_scores_plain, match_topk.match_topk2_plain,
-                ba_kernels.fused_cost_sums_plain)
+                ba_kernels.fused_cost_sums_plain, blur_levels.blur_levels_plain)
 
     before = plains()
     gauss = torch.rand(1, 4, 16, 16)
     da, db = torch.rand(1, 8, 128), torch.rand(1, 9, 128)
     vb = torch.ones(1, 9, dtype=torch.bool)
+    base, sigmas = torch.rand(2, 16, 16), (1.2, 0.0, 1.5)
     with cs.forbid_plain() as calls:
         assert all(f is not b for f, b in zip(plains(), before))
         assert torch.equal(dog_extrema.dog_extrema_scores(gauss, 0.01), before[0](gauss, 0.01))
         assert all(torch.equal(a, b) for a, b in zip(match_topk.match_topk2(da, db, vb), before[1](da, db, vb)))
+        assert torch.equal(blur_levels.blur_levels(base, sigmas), before[3](base, sigmas))
         assert calls == []
         dog_extrema.dog_extrema_scores_plain(gauss.as_subclass(_CudaLooking), 0.01)
         match_topk.match_topk2_plain(da.as_subclass(_CudaLooking), db, vb)
-        assert calls == ["dog_extrema_scores_plain", "match_topk2_plain"]
+        blur_levels.blur_levels_plain(base.as_subclass(_CudaLooking), sigmas)
+        assert calls == ["dog_extrema_scores_plain", "match_topk2_plain", "blur_levels_plain"]
     assert plains() == before
 
 

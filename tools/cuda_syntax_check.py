@@ -5,8 +5,9 @@ machines without nvcc.
     python3 tools/cuda_syntax_check.py [SOURCE.cu ...]
 
 Each source under sfm_tpu_torch/csrc/ (by default the bundle-adjustment
-ones, ba_kernels.cu and schur_kernels.cu; sift_descriptors.cu parses too) is copied to a temporary
-directory with its kernel launches (`<<<...>>>`) and inline PTX (`asm
+ones, ba_kernels.cu and schur_kernels.cu; sift_descriptors.cu and
+blur_levels.cu parse too) is copied to a temporary directory with its
+kernel launches (`<<<...>>>`) and inline PTX (`asm
 volatile`) stripped, then parsed by `g++ -std=c++17 -fsyntax-only` against
 a shim header that declares the CUDA keywords, vector types, intrinsics and
 runtime calls the sources use. The C entry points instantiate every
