@@ -44,10 +44,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      call of build_pyramid over that chunk and over 8 noise views of 256^2
      (the last octave, 32, reads whole rows: one launch a call, within
      1e-6 of its plain version, timed beside its bound and the two
-     torch.matmul it replaces: the "[blur]" line), and where that
-     chunk's device time goes (the
-     "[features]" line: device ms and launches by part, idle share, and the
-     run's features stage seconds);
+     torch.matmul it replaces: the "[blur]" line); the split of the
+     feature stage's device time by part is the program's spans' (python3
+     -m portbench.run --workload r16k-features --seed N --seconds 51
+     --trace 1), not this script's;
   6. divide-and-conquer slice: the same views through reconstruct with
      partition.enabled (clusters of 40 + 10 of overlap, the incremental
      engine inside, every other field default): >= 95% registered, < 1 px,
@@ -217,6 +217,8 @@ import sys
 import tempfile
 import time
 
+from portbench.peaks import FP32_OPS_PER_S, HBM_BYTES_PER_S
+
 # Kernel name -> (source, the TPU kernel it replaces: file:line of pallas_call).
 KERNELS = {
     "dog_extrema_scores": ("sfm_tpu_torch/csrc/dog_extrema.cu", "sfm_tpu/kernels/dog_extrema.py:111"),
@@ -288,9 +290,8 @@ POLISH_KERNELS = tuple(k for k in BIG_KERNELS if k not in INSIDE) + ("cam_segmen
 REFINED_POLISH_KERNELS = tuple(k for k in BIG_WIDE_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
 TWO_VIEW_KERNELS = ("dog_extrema_scores", "sift_descriptors", "blur_levels", "match_topk2",
                     "fused_ne_payloads", "fused_cost_sums", "cam_segment_sum")
-# Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit); the
+# tensor cores' bf16 rate has no counterpart in portbench.peaks.
 BF16_TENSOR_OPS_PER_S = 989e12
 SLICE_IMAGE = 1024
 SLICE_FOCAL = 1200.0
@@ -416,25 +417,21 @@ PROFILE_SESSIONS = 2
 PROFILE_PAD_S = 0.05
 
 
-def profiled_sessions(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = PROFILE_PAD_S,
-                      host_ops: bool = False):
+def profiled_sessions(fn, calls: int = 1, sessions: int = PROFILE_SESSIONS, pad_s: float = PROFILE_PAD_S):
     """torch.profiler over `calls` calls of fn(), `sessions` times: each
     session runs the calls twice, the first step (device tracing already
     on) discarded, the kept one between pad_s of idle card on each side.
-    The device activity only, unless host_ops: the host's operator events
-    (which labelled_parts' ranges are) triple the events a trace of many
-    small launches parses (a block of the match stage: ~9 s a session with
-    them on an H100 host, ~4 without), and no device row needs them.
-    Yields (the profiler, the kept calls' wall ms, fn()'s last result) for
-    each session."""
+    The device activity only: the host's operator events triple the events
+    a trace of many small launches parses (a block of the match stage: ~9 s
+    a session with them on an H100 host, ~4 without), and no device row
+    needs them. Yields (the profiler, the kept calls' wall ms, fn()'s last
+    result) for each session."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    if host_ops:
-        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     for _ in range(sessions):
         steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-        with torch.profiler.profile(activities=acts, schedule=steps) as prof:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=steps) as prof:
             for step in range(2):
                 torch.cuda.synchronize()
                 time.sleep(pad_s * step)
@@ -476,18 +473,12 @@ def device_rows(prof) -> list:
     """The device's own rows of a torch.profiler trace (kernels, memcpy,
     memset). The rows of the host ops that launched them carry the same
     time once more, and annotations (the schedule's "ProfilerStep*", the
-    port's spans, labelled_parts' ranges) the span of their range: all are
-    left out."""
+    port's spans) the span of their range: all are left out."""
     import torch
 
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep") and not _annotation(e)]
-
-
-def _annotation(e) -> bool:
-    """A user annotation's row or event (a record_function range)."""
-    return bool(getattr(e, "is_user_annotation", False))
+            and not e.key.startswith("ProfilerStep") and not getattr(e, "is_user_annotation", False)]
 
 
 def per_call(rows, calls: int) -> tuple[float, float, list]:
@@ -892,104 +883,6 @@ def check_blur(device, images) -> list:
     return rows
 
 
-# The feature stage's parts for the breakdown: part -> (module, function)
-# wrapped while it runs. Device time outside them is "rest".
-FEATURE_PARTS = {
-    "pyramid": (("sfm_tpu_torch.ops.pyramid", "blur_levels"),),
-    "gradients": (("sfm_tpu_torch.ops.pyramid", "pyramid_gradients"),),
-    "K1": (("sfm_tpu_torch.ops.sift", "dog_extrema_scores"),),
-    "sort": (("sfm_tpu_torch.ops.sift", "select_candidates"), ("sfm_tpu_torch.ops.sift", "top_k_stable")),
-    "refine": (("sfm_tpu_torch.ops.sift", "refine_candidates"),),
-    "orientation": (("sfm_tpu_torch.ops.sift", "assign_orientation"),),
-    "descriptors": (("sfm_tpu_torch.ops.sift", "sift_descriptors"),),
-}
-PART_TAG = "part:"
-
-
-@contextlib.contextmanager
-def labelled_parts(parts=FEATURE_PARTS):
-    """Run each part's functions inside torch.profiler.record_function(
-    PART_TAG + part), the card synchronised on entry and before leaving, so
-    that every kernel a part launches runs inside its range."""
-    import importlib
-
-    import torch
-
-    saved = []
-
-    def wrap(part, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            with torch.profiler.record_function(PART_TAG + part):
-                out = fn(*a, **k)
-                torch.cuda.synchronize()
-            return out
-        return run
-
-    for part, targets in parts.items():
-        for module, name in targets:
-            m = importlib.import_module(module)
-            saved.append((m, name, getattr(m, name)))
-            setattr(m, name, wrap(part, getattr(m, name)))
-    try:
-        yield
-    finally:
-        for m, name, fn in reversed(saved):
-            setattr(m, name, fn)
-
-
-def part_rows(prof) -> dict:
-    """Device launches, ms and ms by kernel name for each part of one traced
-    step: each device event goes to the part whose range holds its
-    midpoint, else to "rest"."""
-    import torch
-
-    events = prof.events()
-    ranges = [(e.name[len(PART_TAG):], e.time_range.start, e.time_range.end) for e in events
-              if e.name.startswith(PART_TAG) and e.device_type == torch.autograd.DeviceType.CPU]
-    out = {}
-    for e in events:
-        if (e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith(PART_TAG)
-                or e.name.startswith("ProfilerStep") or _annotation(e)):
-            continue
-        mid = 0.5 * (e.time_range.start + e.time_range.end)
-        part = next((p for p, t0, t1 in ranges if t0 <= mid <= t1), "rest")
-        n, ms, names = out.get(part, (0, 0.0, {}))
-        names[e.name[:60]] = names.get(e.name[:60], 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-        out[part] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3, names)
-    return out
-
-
-def feature_breakdown(images, cfg, valid_hw, sessions: int = PROFILE_SESSIONS) -> dict:
-    """Where one warm extract_features call on a chunk spends the card:
-    device ms, launches, wall ms and idle share of the call as the pipeline
-    runs it (chip_smoke.traced); then device launches and ms by part
-    (FEATURE_PARTS, each synchronised at its ends: `sessions` sessions of a
-    discarded and a kept call, each part at the most launches a session
-    recorded and its mean time per launch, as traced merges rows, and the
-    part's three longest kernels by device ms in the last session)."""
-    from sfm_tpu_torch.ops.sift import extract_features
-
-    def run():
-        return extract_features(images, cfg, valid_hw)
-
-    run()
-    rows, wall_ms, _ = traced(run)
-    launches, busy_ms, _ = per_call(rows, 1)
-    merged, top = {}, {}
-    with labelled_parts():
-        for prof, synced_ms, _ in profiled_sessions(run, sessions=sessions, host_ops=True):
-            for part, (n, ms, names) in part_rows(prof).items():
-                tn, tms, most = merged.get(part, (0, 0.0, 0))
-                merged[part] = (tn + n, tms + ms, max(most, n))
-                top[part] = sorted(names.items(), key=lambda kv: -kv[1])[:3]
-    parts = {p: dict(launches=most, device_ms=most * ms / n, top=top[p])
-             for p, (n, ms, most) in sorted(merged.items(), key=lambda kv: -kv[1][1])}
-    return dict(shape=list(images.shape), device_ms=busy_ms, launches=launches, wall_ms=wall_ms,
-                idle_share=1.0 - busy_ms / wall_ms, synced_wall_ms=synced_ms,
-                parts_device_ms=sum(r["device_ms"] for r in parts.values()), parts=parts)
-
-
 def _planted_descriptors(device, n1: int, n2: int, seed: int, pairs: int = 1, invalid=None):
     """da [pairs, n1, 128] noisy copies of rows of db [pairs, n2, 128]; the
     last invalid[p] rows of pair p's db (n2 // 16 by default) are invalid and
@@ -1364,7 +1257,7 @@ def cost_bytes_ops(prob, inv, step: bool) -> tuple[int, int]:
     return moved, ops
 
 
-def check_ba(prob, cfg, device, what: str, fp32_rows=None):
+def check_ba(prob, cfg, device, what: str):
     """K3 and K5 on a BA problem the main path solved, against their plain
     versions evaluated in float64 on the same fp32 inputs (so the bars
     measure the kernel's own rounding), at three inputs: the first LM
@@ -1396,10 +1289,8 @@ def check_ba(prob, cfg, device, what: str, fp32_rows=None):
     - identical bits on a rerun, for both kernels.
     Every error is logged beside the plain fp32 version's. Times (at the
     main path's inputs): K3 and K5 with the step beside their plain
-    versions in fp32 and their bounds; with fp32_rows (load_fp32_rows),
-    each also beside its fp32 rows build (precision_twin, row
-    "fp32_rows"). An 8-wide problem runs the 8-wide builds, under their
-    names (`_w8`)."""
+    versions in fp32 and their bounds. An 8-wide problem runs the 8-wide
+    builds, under their names (`_w8`)."""
     import dataclasses
 
     import torch
@@ -1511,94 +1402,7 @@ def check_ba(prob, cfg, device, what: str, fp32_rows=None):
              + f"; at the given parameters {time_ms(lambda: kb.fused_cost_sums(*cargs, plan=inv.pcg_plan), device):.4f} ms, "
              f"sums {sums.tolist()}, bound {bound(*cost_bytes_ops(prob, inv, step=False), FP32_OPS_PER_S)['bound_ms'] * 1e3:.2f} us; "
              "deterministic")
-    if fp32_rows is not None:
-        results["fused_ne_payloads" + suffix]["fp32_rows"] = precision_twin(
-            lambda: kb.fused_ne_payloads(*args, plan=inv.pcg_plan), fp32_rows, device)
-        results["fused_cost_sums" + suffix]["fp32_rows"] = precision_twin(
-            lambda: kb.fused_cost_sums(*cargs, step=step, plan=inv.pcg_plan), fp32_rows, device)
     return results
-
-
-# ---- phase 14 (c): K3 and K5 with fp32 rows beside the library's build ------
-
-# The entries of ba_kernels.cu that phase 14 (c) times in both precisions.
-FP32_ROWS_ENTRIES = ("sfm_fused_ne_payloads", "sfm_fused_cost_sums")
-
-
-def start_fp32_rows_build(workdir: str):
-    """Start nvcc on ba_kernels.cu with -DSFM_BA_FP32_ROWS (K3's Jacobian
-    rows and K5's back-substitution sums in fp32: RowT) into a library of
-    its own under workdir; load_fp32_rows waits for it."""
-    import os
-
-    from sfm_tpu_torch import kernels
-
-    so = os.path.join(workdir, "libba_fp32_rows.so")
-    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DSFM_BA_FP32_ROWS", "-shared", "-o", so,
-                             str(kernels.CSRC / "ba_kernels.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, so
-
-
-def load_fp32_rows(build):
-    """The fp32 rows build of start_fp32_rows_build, loaded, its
-    FP32_ROWS_ENTRIES bound; None (logged) when nvcc failed: the twin is a
-    measurement, not a kernel of the path."""
-    import ctypes
-
-    from sfm_tpu_torch import kernels
-
-    proc, so = build
-    _, err = proc.communicate()
-    if proc.returncode != 0:
-        log(f"[config4] the fp32 rows build failed ({proc.returncode}), not measured:\n{err}")
-        return None
-    try:
-        lib = ctypes.CDLL(so)
-        for name in FP32_ROWS_ENTRIES:
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = list(kernels._SIGNATURES[name]), ctypes.c_int
-    except (OSError, AttributeError) as e:
-        log(f"[config4] the fp32 rows build did not load, not measured: {e!r}")
-        return None
-    return lib
-
-
-def with_library(lib, fn):
-    """fn() with the kernel wrappers launching from `lib` (a build of some
-    of the library's entries) in place of the library."""
-    import torch
-
-    from sfm_tpu_torch import kernels
-
-    real = kernels.library()
-    torch.cuda.synchronize()
-    kernels._lib = lib
-    try:
-        out = fn()
-        torch.cuda.synchronize()
-        return out
-    finally:
-        kernels._lib = real
-
-
-def precision_twin(fn, lib, device) -> dict:
-    """fn() on the library's build beside fn() on `lib`, the fp32 rows
-    build: CUDA-event median ms twice each, interleaved (library, lib, lib,
-    library), the device ms of each, and the largest difference between
-    their outputs; the error instead where the twin failed (a measurement,
-    not a check)."""
-    try:
-        ms, fp32_ms = [time_ms(fn, device)], []
-        for _ in range(2):
-            fp32_ms.append(with_library(lib, lambda: time_ms(fn, device)))
-        ms.append(time_ms(fn, device))
-        out, out32 = fn(), with_library(lib, fn)
-        return dict(ms=ms, fp32_ms=fp32_ms, device_ms=device_ms(fn, device),
-                    fp32_device_ms=with_library(lib, lambda: device_ms(fn, device)),
-                    max_abs_diff=max(float((a.double() - b.double()).abs().max()) for a, b in zip(out, out32)))
-    except (RuntimeError, OSError, AttributeError) as e:
-        return {"error": repr(e)}
 
 
 def check_k9(prob, cfg, device):
@@ -3546,19 +3350,19 @@ def config4_polish(run):
     return next(b for b in run["ba_log"] if b["solver"] == "pcg" and b["C"] >= 0.95 * n)
 
 
-def config4_kernels(run, device, fp32_rows=None) -> dict:
+def config4_kernels(run, device) -> dict:
     """Phase 14 (c): K1 on every stack the run handed it and K2 on the
     first pair block of each shape it handed it, each held against its
     plain version and timed; K3, K5, K9 (check_ba, check_k9) and pcg_solve
-    (check_pcg) on the polish's own problem, K3 and K5 beside the fp32 rows
-    build `fp32_rows` where given. Returns rows by kernel (a list each)."""
+    (check_pcg) on the polish's own problem. Returns rows by kernel (a list
+    each)."""
     polish = config4_polish(run)
     prob, cfg = polish["problem"], polish["cfg"]
     what = f"config4 polish C={polish['C']} O={polish['O']}"
     rows = {"dog_extrema_scores": check_dog_path(device, run["dog_stacks"]),
             "match_topk2": [check_match_shape(device, shape, inputs)
                             for shape, inputs in sorted(run["match_blocks"].items())]}
-    ba = check_ba(prob, cfg, device, what, fp32_rows)
+    ba = check_ba(prob, cfg, device, what)
     for k in ("fused_ne_payloads", "fused_cost_sums"):
         rows[k] = [dict(ba[k], shape=what)]
     rows["cam_segment_sum"] = check_k9(prob, cfg, device)["cam_segment_sum"]["shapes"]
@@ -4109,20 +3913,16 @@ def phase_config4(device) -> tuple[dict, dict]:
     import torch
 
     t0 = time.perf_counter()
-    workdir, fp32_build = tempfile.mkdtemp(prefix="chip_smoke_config4_"), None
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_config4_")
     try:
-        fp32_build = start_fp32_rows_build(workdir)   # for (c); nvcc runs beside the run
         run = run_config4(workdir, verbose=False)
         c4 = config4_readings(run)
         log_bundle_adjustments("config4", [config4_polish(run), run["ba_log"][-1]])
         failed = check_config4(run, c4)
         if failed:
             raise AssertionError(f"config4: {failed}; {json.dumps(c4)}")
-        rows = config4_kernels(run, device, load_fp32_rows(fp32_build))
+        rows = config4_kernels(run, device)
         idle = config4_idle(run, device)
-        log("[config4] (c) K3 and K5 on the polish's problem, the library's double rows beside the fp32 rows "
-            "build (-DSFM_BA_FP32_ROWS): " + json.dumps({k: rows[k][0].get("fp32_rows") for k in (
-                "fused_ne_payloads", "fused_cost_sums")}))
         for k, v in rows.items():
             log_shapes(k, v)
         log("[config4] " + json.dumps({k: c4[k] for k in (
@@ -4133,9 +3933,6 @@ def phase_config4(device) -> tuple[dict, dict]:
             "colmap_bin_read_back", "launches")} | {"idle": idle, "phase_s": time.perf_counter() - t0}))
         return rows, run["launches"]
     finally:
-        if fp32_build is not None and fp32_build[0].poll() is None:
-            fp32_build[0].kill()
-            fp32_build[0].communicate()
         shutil.rmtree(workdir, ignore_errors=True)
         gc.collect()   # the run's garbage and cached blocks go before the next phase
         torch.cuda.empty_cache()
@@ -4273,7 +4070,7 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
     k2_shapes += path_k2
     # K1 at every shape the feature stage handed it (each octave of full and
     # last chunks), on the stacks it was handed; the feature stage with and
-    # without K1 on one chunk, and where that chunk's device time goes.
+    # without K1 on one chunk.
     log("[incremental] dog_extrema_scores was handed " + json.dumps(
         {"x".join(map(str, k)): v["calls"] for k, v in dog_stacks.items()}) + " (shape: calls)")
     path_k1 = check_dog_path(device, dog_stacks)
@@ -4301,8 +4098,6 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
             f"{r['shape']}: {1e3 * r['device_ms']:.1f} ({1e3 * r['bound_ms']:.1f}, {r['library_ms']:.3f})"
             for r in k13_rows if r["device_ms"] is not None))
     results["blur_levels"] = dict(k13_rows[0], note="one launch per octave call", shapes=k13_rows)
-    log("[features] " + json.dumps({**feature_breakdown(images, sift_cfg, valid_hw),
-                                    "incremental_features_stage_s": rec.stage_seconds["features"]}))
     del images, valid_hw
     mark("incremental")
     paths = {"two_view": two_view_launches, "incremental": launches}

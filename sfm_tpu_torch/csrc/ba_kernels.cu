@@ -135,13 +135,7 @@ using sfm::Projection;
 // The precision of K3's Jacobian rows (ne_rows) and of K5's back-substitution
 // sums and dp (cost_points_kernel): double. In fp32 both missed their 1e-5
 // bars against float64 on a 1,000-camera polish (chip_smoke.check_ba).
-// Built with -DSFM_BA_FP32_ROWS they run in fp32 as before, which
-// chip_smoke's phase 14 times beside this build.
-#ifdef SFM_BA_FP32_ROWS
-using RowT = float;
-#else
 using RowT = double;
-#endif
 
 constexpr int kNeThreads = 128;
 constexpr int kCostThreads = 256;

@@ -72,11 +72,11 @@
         chunk of 8 views, extract_features with use_pallas True and False
         (identical), K12 on that chunk's four octaves
         (chip_smoke.check_descriptors: one launch a call, the gap to its
-        plain version, event and device time, bound) and where the chunk's
-        device time goes (chip_smoke.feature_breakdown: device ms and
-        launches by part, idle share): the first thing to run after
-        touching csrc/dog_extrema.cu or csrc/sift_descriptors.cu (--root
-        DIR as for lm);
+        plain version, event and device time, bound): the first thing to
+        run after touching csrc/dog_extrema.cu or csrc/sift_descriptors.cu
+        (--root DIR as for lm). The stage's device time by part is the
+        program's spans': python3 -m portbench.run --workload r16k-features
+        --seed N --seconds 51 --trace 1;
     python3 tools/torch_perf.py dogsweep
         K1's design choices: copies of csrc/dog_extrema.cu with a ring of
         3, 4 or 6 stages and the tiles (16, 64), (16, 32), (32, 64), (8, 64)
@@ -672,7 +672,6 @@ def features_cmd(device, images: int):
         print(f"[features] {card()} sift_descriptors " + json.dumps({f: row[f] for f in cs.SHAPE_FIELDS}),
               flush=True)
     print(f"[features] {card()} sift_descriptors untimed gaps " + json.dumps(rows[0]["untimed"]), flush=True)
-    print(f"[features] {card()} " + json.dumps(cs.feature_breakdown(chunk, sift_cfg, valid_hw)), flush=True)
 
 
 # dogsweep's variants of csrc/dog_extrema.cu: ring depths, and the tiles
