@@ -44,8 +44,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      call of build_pyramid over that chunk and over 8 noise views of 256^2
      (the last octave, 32, reads whole rows: one launch a call, within
      1e-6 of its plain version, timed beside its bound and the two
-     torch.matmul it replaces: the "[blur]" line); the split of the
-     feature stage's device time by part is the program's spans' (python3
+     torch.matmul it replaces: the "[blur]" line), K14 on each octave
+     call of extract_features over that chunk, over the 2048^2 octave of
+     its first two views upsampled and over three of its views at 200^2
+     (one launch a call; at most 1e-3 of the live candidates differ from
+     the plain version in valid, by 1e-4 px / level or by 1e-5 relative
+     in response; timed beside its bound: the "[refine]" line); the
+     split of the feature stage's device time by part is the program's
+     spans' (python3
      -m portbench.run --workload r16k-features --seed N --seconds 51
      --trace 1), not this script's;
   6. divide-and-conquer slice: the same views through reconstruct with
@@ -182,8 +188,8 @@ camera side (a permutation) for K = 6, 36 and 42 rows, the point side
 against its plain version in float64 and timed beside `loop_ms`, the same
 solve as Python steps over the coupling-only K11 (K10 then K9 for
 pcg_solve_big). Every row also carries its device time per call
-(`device_ms`, torch.profiler). The record (31 rows) reports K1-K3,
-K5, K7, K9, K11, K12, K13 and pcg_solve at the incremental slice's shapes, K4, K6,
+(`device_ms`, torch.profiler). The record (32 rows) reports K1-K3,
+K5, K7, K9, K11, K12, K13, K14 and pcg_solve at the incremental slice's shapes, K4, K6,
 K8, K10 and pcg_solve_big at the merged polish's, the 8-wide K3, K5, K7,
 K11 and pcg_solve (`*_w8`) at phase 11's, the 8-wide K4, K6, K8, K10 and
 pcg_solve_big at phase 13's, K3's sharded mode and the two
@@ -196,11 +202,11 @@ K11's rows count the launches of pcg_solve and K10's those of
 pcg_solve_big, which run their code, at either width; K7's count K3's
 launches that build the Schur-Jacobi blocks), K7's
 K3 times without and with the blocks (`k3_ms`, `k3_device_ms`), and for
-K1, K2, K3, K5, K9, K12, K13 and pcg_solve a row per timed shape under
+K1, K2, K3, K5, K9, K12, K13, K14 and pcg_solve a row per timed shape under
 `shapes` (phase 14's among them).
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
-On every path K13 launches as often as K1 (once per octave call of the
+On every path K13 and K14 launch as often as K1 (once per octave call of the
 feature stage), and no path hands K13's plain version a CUDA tensor where
 forbid_plain watches. Without a CUDA device the script exits non-zero and
 prints no result.
@@ -227,6 +233,9 @@ KERNELS = {
                          "none (sfm_tpu/ops/descriptor.py is plain JAX)"),
     # K13 replaces no TPU kernel: sfm_tpu's pyramid blurs with dense products.
     "blur_levels": ("sfm_tpu_torch/csrc/blur_levels.cu", "none (sfm_tpu/ops/pyramid.py is plain JAX)"),
+    # K14 replaces no TPU kernel: sfm_tpu's refinement is plain JAX.
+    "subpixel_refine": ("sfm_tpu_torch/csrc/subpixel_refine.cu",
+                        "none (sfm_tpu/ops/detect.py refine_candidates is plain JAX)"),
     "match_topk2": ("sfm_tpu_torch/csrc/match_topk.cu", "sfm_tpu/kernels/match_topk.py:74"),
     "fused_ne_payloads": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:366"),
     "fused_cost_sums": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:524"),
@@ -288,7 +297,7 @@ ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k not in INSIDE)
 POLISH_KERNELS = tuple(k for k in BIG_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
 # The refined polish (phase 13): the same at width 8.
 REFINED_POLISH_KERNELS = tuple(k for k in BIG_WIDE_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
-TWO_VIEW_KERNELS = ("dog_extrema_scores", "sift_descriptors", "blur_levels", "match_topk2",
+TWO_VIEW_KERNELS = ("dog_extrema_scores", "sift_descriptors", "blur_levels", "subpixel_refine", "match_topk2",
                     "fused_ne_payloads", "fused_cost_sums", "cam_segment_sum")
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit); the
 # tensor cores' bf16 rate has no counterpart in portbench.peaks.
@@ -674,23 +683,21 @@ DESC_OPS_PER_POINT = 60
 
 
 @contextlib.contextmanager
-def record_descriptor_calls():
-    """Record the arguments (keypoints, dx, dy, config) of every call the
-    feature stage makes of K12's wrapper, by wrapping the extractor's entry
-    for the duration."""
-    from sfm_tpu_torch.ops import sift
+def record_calls(module, name: str):
+    """Record the arguments of every call made of `module.name` (a kernel
+    wrapper as the feature stage's module binds it), by wrapping it for the
+    duration."""
+    calls, inner = [], getattr(module, name)
 
-    calls, inner = [], sift.sift_descriptors
+    def wrapped(*args):
+        calls.append(args)
+        return inner(*args)
 
-    def wrapped(kps, dx, dy, cfg):
-        calls.append((kps, dx, dy, cfg))
-        return inner(kps, dx, dy, cfg)
-
-    sift.sift_descriptors = wrapped
+    setattr(module, name, wrapped)
     try:
         yield calls
     finally:
-        sift.sift_descriptors = inner
+        setattr(module, name, inner)
 
 
 def descriptor_least_bytes(kps, dx) -> int:
@@ -771,10 +778,11 @@ def check_descriptors(device, images, cfg, valid_hw) -> list:
 
     from sfm_tpu_torch import kernels
     from sfm_tpu_torch.kernels import sift_descriptors as k12
+    from sfm_tpu_torch.ops import sift
     from sfm_tpu_torch.ops.sift import extract_features
 
     before = kernels.LAUNCHES["sift_descriptors"]
-    with record_descriptor_calls() as calls:
+    with record_calls(sift, "sift_descriptors") as calls:
         extract_features(images, cfg, valid_hw)
     launched = kernels.LAUNCHES["sift_descriptors"] - before
     if launched != len(calls) or len(calls) != cfg.num_octaves:
@@ -809,25 +817,6 @@ def check_descriptors(device, images, cfg, valid_hw) -> list:
 BLUR_GAP = 1e-6
 
 
-@contextlib.contextmanager
-def record_blur_calls():
-    """Record the arguments (base, sigmas) of every call build_pyramid makes
-    of K13's wrapper, by wrapping the pyramid's entry for the duration."""
-    from sfm_tpu_torch.ops import pyramid
-
-    calls, inner = [], pyramid.blur_levels
-
-    def wrapped(base, sigmas):
-        calls.append((base, sigmas))
-        return inner(base, sigmas)
-
-    pyramid.blur_levels = wrapped
-    try:
-        yield calls
-    finally:
-        pyramid.blur_levels = inner
-
-
 def blur_bytes_ops(base, sigmas) -> tuple[int, int]:
     """K13's least bytes (the base read once, the L levels written once) and
     operations (a multiply-add two, over each level's band in both passes)."""
@@ -852,13 +841,14 @@ def check_blur(device, images) -> list:
     from sfm_tpu_torch import kernels
     from sfm_tpu_torch.config import SiftConfig
     from sfm_tpu_torch.kernels import blur_levels as k13
+    from sfm_tpu_torch.ops import pyramid
     from sfm_tpu_torch.ops.pyramid import build_pyramid
 
     noise = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (8, 256, 256)).astype(np.float32)).to(device)
     rows = []
     for imgs, cfg in ((images, SiftConfig()), (noise, SiftConfig(image_max_dim=256))):
         before = kernels.LAUNCHES["blur_levels"]
-        with record_blur_calls() as calls:
+        with record_calls(pyramid, "blur_levels") as calls:
             build_pyramid(imgs, cfg)
         launched = kernels.LAUNCHES["blur_levels"] - before
         if launched != len(calls) or len(calls) != cfg.num_octaves:
@@ -880,6 +870,116 @@ def check_blur(device, images) -> list:
                              plain_ms=time_ms(lambda: k13.blur_levels_plain(base, sigmas), device, PLAIN_RUNS),
                              library_ms=time_ms(library, device),
                              **bound(*blur_bytes_ops(base, sigmas), FP32_OPS_PER_S)))
+    return rows
+
+
+# K14 against its plain version. A candidate differs where its valid
+# differs, or its x, y or level by more than REFINE_POS_GAP (or, past 1,024
+# px, one fp32 rounding step of the coordinate, 1.2e-4), or (valid on
+# either side) its response or blur by more than REFINE_REL_GAP of the
+# plain value: a decision within rounding of its threshold (the 0.6 step,
+# |offset| < 1, the contrast and edge tests) may flip, since the kernel
+# solves and sums in its own order. At most REFINE_FLIPS of a call's live
+# candidates (score > 0) may differ.
+REFINE_FLIPS = 1e-3
+REFINE_POS_GAP = 1e-4
+REFINE_REL_GAP = 1e-5
+# K14's operations: a round's cube, derivatives, solve, clamp and step ~110,
+# the final cube and tests ~40.
+REFINE_OPS_PER_ROUND = 110
+REFINE_OPS_FINAL = 40
+
+
+def refine_least_bytes(gauss, idx) -> int:
+    """Bytes one K14 call must move: idx and scores read once, the eight
+    [B * K] outputs written once (8 + 6 * 4 + 1 bytes a candidate), and each
+    32-byte sector of the stack that a candidate's first 4 x 3 x 3 cube
+    touches, once (a step moves a cube by one voxel; the sectors it reaches
+    then are not counted)."""
+    import torch
+
+    B, L, H, W = gauss.shape
+    K = idx.shape[1]
+    dev = gauss.device
+    flat = idx.reshape(-1)
+    b = torch.arange(B, device=dev).repeat_interleave(K)
+    lev = (flat // (H * W)).clamp(1, L - 3)
+    y = (flat % (H * W) // W).clamp(2, H - 3)
+    x = (flat % W).clamp(2, W - 3)
+    d = torch.arange(-1, 2, device=dev)
+    planes = (b * L + lev)[:, None] + torch.arange(-1, 3, device=dev)
+    rows = planes[:, :, None] * H + (y[:, None] + d)[:, None, :]
+    taps = rows[..., None] * W + (x[:, None] + d)[:, None, None, :]
+    sectors = torch.unique(taps // 8).numel()   # 8 floats a sector
+    return 32 * sectors + B * K * (8 + 4) + B * K * (8 + 6 * 4 + 1)
+
+
+def refine_gaps(got, ref, scores) -> dict:
+    """K14's output against its plain version's on one call: the candidates
+    that differ (see REFINE_FLIPS), the live ones, those equal in every
+    field, and the largest gaps of the rest."""
+    import torch
+
+    pos = torch.stack([(getattr(got, f) - getattr(ref, f)).abs() for f in ("x", "y", "level")])
+    bar = torch.stack([(getattr(ref, f).abs() * 2.0**-23).clamp_min(REFINE_POS_GAP) for f in ("x", "y", "level")])
+    rel = torch.stack([(getattr(got, f) - getattr(ref, f)).abs() / getattr(ref, f).abs().clamp_min(1e-30)
+                       for f in ("response", "sigma")]).amax(0)
+    either = got.valid | ref.valid
+    differ = (got.valid != ref.valid) | ~(pos <= bar).all(0) | (either & ~(rel <= REFINE_REL_GAP))
+    same = torch.stack([torch.eq(getattr(got, f), getattr(ref, f)) for f in got._fields]).all(0)
+    rest = ~differ
+    return dict(candidates=int(differ.numel()), live=int((scores.reshape(-1) > 0).sum()),
+                differ=int(differ.sum()), identical=int(same.sum()),
+                pos_gap=float(pos.amax(0)[rest].max()) if rest.any() else 0.0,
+                rel_gap=float(rel[rest & either].max()) if (rest & either).any() else 0.0,
+                valid=int(ref.valid.sum()))
+
+
+def check_refine(device, images, cfg, valid_hw, ring) -> list:
+    """K14 as extract_features hands it each octave call, on the ring's
+    chunk of 8 views (octaves 0-3), on the 2048^2 octave of its first two
+    views upsampled, and on a chunk of three of its views at 200^2 (whose
+    last octave holds fewer voxels than the candidate budget): one launch a
+    call, the kernel against its plain version on the card (REFINE_FLIPS),
+    and each call timed (event and device time) beside its bound and the
+    plain version's time."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from sfm_tpu_torch import kernels
+    from sfm_tpu_torch.kernels import subpixel_refine as k14
+    from sfm_tpu_torch.ops import sift
+    from sfm_tpu_torch.ops.sift import extract_features
+    from sfm_tpu_torch.pipeline import ingest
+
+    small_cfg = dataclasses.replace(cfg, image_max_dim=200)
+    small = ingest.load_images(list(ring[:3]), small_cfg)
+    runs = [(images, cfg, valid_hw, None),
+            (images[:2], dataclasses.replace(cfg, upsample_first_octave=True), valid_hw[:2], 1),
+            (torch.from_numpy(small.canvases).to(device), small_cfg,
+             torch.from_numpy(small.valid_hw).to(device), None)]
+    rows = []
+    for imgs, run_cfg, hw, keep in runs:
+        before = kernels.LAUNCHES["subpixel_refine"]
+        with record_calls(sift, "subpixel_refine") as calls:
+            extract_features(imgs, run_cfg, hw)
+        launched = kernels.LAUNCHES["subpixel_refine"] - before
+        if launched != len(calls) or len(calls) != run_cfg.num_octaves:
+            raise AssertionError(f"subpixel_refine: {launched} launches for {len(calls)} calls "
+                                 f"of {run_cfg.num_octaves} octaves")
+        for gauss, idx, scores, call_cfg in calls[:keep]:
+            kernel = functools.partial(k14.subpixel_refine, gauss, idx, scores, call_cfg)
+            plain = functools.partial(k14.subpixel_refine_plain, gauss, idx, scores, call_cfg)
+            gaps = refine_gaps(kernel(), plain(), scores)
+            what = f"{idx.shape[1]} candidates on " + "x".join(map(str, gauss.shape))
+            if gaps["differ"] > REFINE_FLIPS * max(gaps["live"], 1):
+                raise AssertionError(f"subpixel_refine {what}: {json.dumps(gaps)}")
+            ops = idx.numel() * (REFINE_OPS_PER_ROUND * call_cfg.refine_iters + REFINE_OPS_FINAL)
+            rows.append(dict(shape=what, max_abs_err=gaps["pos_gap"], **gaps, calls=1, ms=time_ms(kernel, device),
+                             device_ms=device_ms(kernel, device), plain_ms=time_ms(plain, device, PLAIN_RUNS),
+                             library_ms=None, **bound(refine_least_bytes(gauss, idx), ops, FP32_OPS_PER_S)))
     return rows
 
 
@@ -2803,15 +2903,17 @@ def run_options(device, size: int = SLICE_IMAGE):
 @contextlib.contextmanager
 def forbid_plain():
     """Record every call of a kernel's plain version (the *_plain functions
-    of every kernel module: K1's, K2's, K12's, K13's and the BA kernels')
+    of every kernel module: K1's, K2's, K12's, K13's, K14's and the BA kernels')
     that is handed a CUDA tensor, by wrapping them for the duration: on the
     card every wrapper launches its kernel, so the list must stay empty."""
     import torch
 
-    from sfm_tpu_torch.kernels import ba_kernels, blur_levels, dog_extrema, match_topk, sift_descriptors
+    from sfm_tpu_torch.kernels import (ba_kernels, blur_levels, dog_extrema, match_topk, sift_descriptors,
+                                       subpixel_refine)
 
     calls, saved = [], [(m, n, getattr(m, n))
-                        for m in (ba_kernels, blur_levels, dog_extrema, match_topk, sift_descriptors)
+                        for m in (ba_kernels, blur_levels, dog_extrema, match_topk, sift_descriptors,
+                                  subpixel_refine)
                         for n in dir(m) if n.endswith("_plain")]
 
     def guard(name, fn):
@@ -4098,6 +4200,17 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
             f"{r['shape']}: {1e3 * r['device_ms']:.1f} ({1e3 * r['bound_ms']:.1f}, {r['library_ms']:.3f})"
             for r in k13_rows if r["device_ms"] is not None))
     results["blur_levels"] = dict(k13_rows[0], note="one launch per octave call", shapes=k13_rows)
+    k14_rows = check_refine(device, images, sift_cfg, valid_hw, ring)
+    log_shapes("subpixel_refine", k14_rows)
+    log("[refine] K14 one launch per octave call; candidates that differ from the plain version (valid, "
+        f"> {REFINE_POS_GAP} px / level, > {REFINE_REL_GAP} relative; at most {REFINE_FLIPS} of the live ones) "
+        + ", ".join(f"{r['shape']}: {r['differ']} of {r['live']} live ({r['identical']} of {r['candidates']} "
+                    f"identical)" for r in k14_rows)
+        + f"; largest gaps of the rest {max(r['pos_gap'] for r in k14_rows):.3e} px / level, "
+        f"{max(r['rel_gap'] for r in k14_rows):.3e} relative; device us per call (bound us, plain ms) "
+        + ", ".join(f"{r['shape']}: {1e3 * r['device_ms']:.1f} ({1e3 * r['bound_ms']:.1f}, {r['plain_ms']:.3f})"
+                    for r in k14_rows if r["device_ms"] is not None))
+    results["subpixel_refine"] = dict(k14_rows[0], note="one launch per octave call", shapes=k14_rows)
     del images, valid_hw
     mark("incremental")
     paths = {"two_view": two_view_launches, "incremental": launches}
@@ -4316,11 +4429,12 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
     never = [k["name"] for k in record["kernels"] if k["launches"] == 0]
     if never:
         raise AssertionError(f"kernels launched by no path: {never}")
-    # K1 and K13 each launch once per octave call of the feature stage.
-    blur_off = {name: (p.get("blur_levels", 0), p.get("dog_extrema_scores", 0)) for name, p in paths.items()
-                if p.get("blur_levels", 0) != p.get("dog_extrema_scores", 0)}
-    if blur_off:
-        raise AssertionError(f"blur_levels launches differ from K1's (octave calls): {blur_off}")
+    # K1, K13 and K14 each launch once per octave call of the feature stage.
+    octave_kernels = ("dog_extrema_scores", "blur_levels", "subpixel_refine")
+    octave_off = {name: [p.get(k, 0) for k in octave_kernels] for name, p in paths.items()
+                  if len({p.get(k, 0) for k in octave_kernels}) > 1}
+    if octave_off:
+        raise AssertionError(f"launches of {octave_kernels} differ (octave calls): {octave_off}")
     log(f"[profile] {TRACE_SESSIONS['short']} of {TRACE_SESSIONS['all']} traced sessions recorded fewer "
         f"device launches than another session of the same calls ({TRACE_SESSIONS['empty']} none); they "
         f"missed {TRACE_SESSIONS['missing']} of the {TRACE_SESSIONS['launches']} launches that the fullest "

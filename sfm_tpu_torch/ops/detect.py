@@ -1,8 +1,9 @@
 """Scale-space keypoint detection (port of sfm_tpu/ops/detect.py).
 
 Whole octaves are dense tensor ops over a batch of images: 3x3x3 extremum
-scores (kernel K1 or its plain version), exact top-k candidate selection,
-subpixel refinement as a batch of 3x3 solves, and orientation from a
+scores (kernel K1 or its plain version), exact top-k candidate selection
+(subpixel refinement, a batch of 3x3 solves, is kernel K14 with its plain
+version in kernels/subpixel_refine.py), and orientation from a
 Gaussian-weighted 36-bin gradient histogram. Rejected candidates keep
 valid=False (fixed-capacity padding contract).
 
@@ -60,93 +61,6 @@ def select_candidates(score: torch.Tensor, k_budget: int) -> tuple[torch.Tensor,
     """Top-k over per-image score maps [B, ...]: (flat indices [B, K], scores [B, K])."""
     vals, idx = top_k_stable(score.reshape(score.shape[0], -1), k_budget)
     return idx, vals
-
-
-def _gather_dog_cube(gauss_flat: torch.Tensor, L: int, H: int, W: int, b, l, y, x) -> torch.Tensor:
-    """3x3x3 DoG neighbourhood around DoG voxel (l, y, x) of image b, gathered
-    from the flattened GAUSSIAN stacks (dog[l] = G[l+1] - G[l]). -> [N, 3, 3, 3]."""
-    dev = gauss_flat.device
-    offs_l = torch.arange(-1, 3, device=dev).view(4, 1, 1)
-    offs = torch.arange(-1, 2, device=dev)
-    li = l[:, None, None, None] + offs_l
-    yi = y[:, None, None, None] + offs.view(1, 3, 1)
-    xi = x[:, None, None, None] + offs.view(1, 1, 3)
-    flat_idx = ((b[:, None, None, None] * L + li) * H + yi) * W + xi
-    g4 = gauss_flat[flat_idx]
-    return g4[:, 1:] - g4[:, :-1]
-
-
-def refine_candidates(gauss: torch.Tensor, idx: torch.Tensor, scores: torch.Tensor,
-                      cfg: SiftConfig) -> OctaveKeypoints:
-    """Subpixel/sublevel refinement by iterated 3D quadratic fit.
-
-    gauss: Gaussian stacks [B, L, H, W]; idx/scores [B, K]: flat indices into
-    the DoG volumes [L-1, H, W] and their scores. Returns [B*K] keypoints.
-    """
-    B, L, H, W = gauss.shape
-    Ld = L - 1
-    dev = gauss.device
-    gauss_flat = gauss.reshape(-1)
-    K = idx.shape[1]
-    b = torch.arange(B, device=dev).repeat_interleave(K)
-    idx = idx.reshape(-1)
-    l = (idx // (H * W)).clamp(1, Ld - 2)
-    rem = idx % (H * W)
-    y = (rem // W).clamp(2, H - 3)
-    x = (rem % W).clamp(2, W - 3)
-    alive = scores.reshape(-1) > 0.0
-
-    offset = torch.zeros((idx.shape[0], 3), dtype=torch.float32, device=dev)
-    grad = torch.zeros_like(offset)
-    eye = torch.eye(3, dtype=torch.float32, device=dev)
-    for _ in range(cfg.refine_iters):
-        cube = _gather_dog_cube(gauss_flat, L, H, W, b, l, y, x)
-        dl = 0.5 * (cube[:, 2, 1, 1] - cube[:, 0, 1, 1])
-        dy = 0.5 * (cube[:, 1, 2, 1] - cube[:, 1, 0, 1])
-        dx = 0.5 * (cube[:, 1, 1, 2] - cube[:, 1, 1, 0])
-        c = cube[:, 1, 1, 1]
-        dll = cube[:, 2, 1, 1] + cube[:, 0, 1, 1] - 2 * c
-        dyy = cube[:, 1, 2, 1] + cube[:, 1, 0, 1] - 2 * c
-        dxx = cube[:, 1, 1, 2] + cube[:, 1, 1, 0] - 2 * c
-        dly = 0.25 * (cube[:, 2, 2, 1] - cube[:, 2, 0, 1] - cube[:, 0, 2, 1] + cube[:, 0, 0, 1])
-        dlx = 0.25 * (cube[:, 2, 1, 2] - cube[:, 2, 1, 0] - cube[:, 0, 1, 2] + cube[:, 0, 1, 0])
-        dyx = 0.25 * (cube[:, 1, 2, 2] - cube[:, 1, 2, 0] - cube[:, 1, 0, 2] + cube[:, 1, 0, 0])
-        Hm = torch.stack([
-            torch.stack([dll, dly, dlx], -1),
-            torch.stack([dly, dyy, dyx], -1),
-            torch.stack([dlx, dyx, dxx], -1),
-        ], -2) + 1e-6 * eye
-        g = torch.stack([dl, dy, dx], -1)
-        offset = -torch.linalg.solve_ex(Hm, g[..., None])[0][..., 0]
-        offset = offset.clamp(-1.5, 1.5)
-        grad = g
-        step = torch.where(offset.abs() > 0.6, torch.sign(offset), torch.zeros_like(offset)).long()
-        l = (l + step[:, 0]).clamp(1, Ld - 2)
-        y = (y + step[:, 1]).clamp(2, H - 3)
-        x = (x + step[:, 2]).clamp(2, W - 3)
-
-    cube = _gather_dog_cube(gauss_flat, L, H, W, b, l, y, x)
-    c = cube[:, 1, 1, 1]
-    contrast = c + 0.5 * (grad * offset).sum(-1)
-    converged = offset.abs().amax(-1) < 1.0
-
-    dyy = cube[:, 1, 2, 1] + cube[:, 1, 0, 1] - 2 * c
-    dxx = cube[:, 1, 1, 2] + cube[:, 1, 1, 0] - 2 * c
-    dyx = 0.25 * (cube[:, 1, 2, 2] - cube[:, 1, 2, 0] - cube[:, 1, 0, 2] + cube[:, 1, 0, 0])
-    tr = dxx + dyy
-    det = dxx * dyy - dyx * dyx
-    r = cfg.edge_threshold
-    not_edge = (det > 0) & (tr * tr * r < (r + 1) ** 2 * det)
-
-    good_contrast = contrast.abs() >= cfg.contrast_threshold / cfg.scales_per_octave
-    valid = alive & converged & good_contrast & not_edge
-
-    level = l.float() + offset[:, 0]
-    fy = y.float() + offset[:, 1]
-    fx = x.float() + offset[:, 2]
-    sigma = cfg.sigma0 * torch.exp2(level / cfg.scales_per_octave)
-    return OctaveKeypoints(img=b, x=fx, y=fy, level=level, sigma=sigma,
-                           response=contrast.abs(), angle=torch.zeros_like(fx), valid=valid)
 
 
 _ORI_GRID_N = 13

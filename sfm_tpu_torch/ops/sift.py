@@ -2,14 +2,15 @@
 (port of sfm_tpu/ops/sift.py extract_features).
 
 Batched over images [B, H, W]; per octave: pyramid level stacks, extremum
-scores (kernel K1 when cfg.use_pallas), exact top-k candidates, refinement,
-compaction to the per-octave descriptor budget, orientation (with Lowe's
-second-peak duplicates) and descriptors (kernel K12 on the card). Output
-obeys the padding contract: exactly cfg.max_keypoints slots per image with
-a validity mask. The parts run inside the spans sift.pyramid, sift.detect,
-sift.orientation and sift.descriptors (utils/logging.span), one of each per
-octave; the pyramid's build and the final cross-octave selection have spans
-of their own.
+scores (kernel K1 when cfg.use_pallas), exact top-k candidates, refinement
+(kernel K14 on the card), compaction to the per-octave descriptor budget,
+orientation (with Lowe's second-peak duplicates) and descriptors (kernel
+K12 on the card). Output obeys the padding contract: exactly
+cfg.max_keypoints slots per image with a validity mask. The parts run
+inside the spans sift.pyramid, sift.detect, sift.orientation and
+sift.descriptors (utils/logging.span), one of each per octave; the
+pyramid's build and the final cross-octave selection have spans of their
+own.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ import torch
 from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.kernels.dog_extrema import dog_extrema_scores
 from sfm_tpu_torch.kernels.sift_descriptors import sift_descriptors
+from sfm_tpu_torch.kernels.subpixel_refine import subpixel_refine
 from sfm_tpu_torch.ops import pyramid as pyr
 from sfm_tpu_torch.ops.detect import (
-    OctaveKeypoints, assign_orientation, extrema_score_map, pre_threshold,
-    refine_candidates, select_candidates, take, top_k_stable,
+    OctaveKeypoints, assign_orientation, extrema_score_map, pre_threshold, select_candidates, take,
+    top_k_stable,
 )
 from sfm_tpu_torch.utils.logging import span
 
@@ -65,7 +67,7 @@ def extract_features(images: torch.Tensor, cfg: SiftConfig,
 
         with span("sift.detect"):
             idx, scores = select_candidates(_octave_scores(stack, cfg), k_this)
-            kps = refine_candidates(stack, idx, scores, cfg)               # [B * k_this]
+            kps = subpixel_refine(stack, idx, scores, cfg)                 # [B * k_this]
             # Compact to the survivors before orientation and descriptors.
             sc = torch.where(kps.valid, kps.response, torch.full((), -1.0, device=images.device))
             _, keep = top_k_stable(sc.reshape(B, k_this), desc_budget)

@@ -5,8 +5,8 @@ machines without nvcc.
     python3 tools/cuda_syntax_check.py [SOURCE.cu ...]
 
 Each source under sfm_tpu_torch/csrc/ (by default the bundle-adjustment
-ones, ba_kernels.cu and schur_kernels.cu; sift_descriptors.cu and
-blur_levels.cu parse too) is copied to a temporary directory with its
+ones, ba_kernels.cu and schur_kernels.cu; sift_descriptors.cu, blur_levels.cu
+and subpixel_refine.cu parse too) is copied to a temporary directory with its
 kernel launches (`<<<...>>>`) and inline PTX (`asm
 volatile`) stripped, then parsed by `g++ -std=c++17 -fsyntax-only` against
 a shim header that declares the CUDA keywords, vector types, intrinsics and
@@ -61,6 +61,8 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __frcp_rn(float a) { return 1.0f / a; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 using std::isfinite; using std::max; using std::min;
 typedef struct CUstream_st* cudaStream_t;

@@ -72,8 +72,11 @@
         chunk of 8 views, extract_features with use_pallas True and False
         (identical), K12 on that chunk's four octaves
         (chip_smoke.check_descriptors: one launch a call, the gap to its
-        plain version, event and device time, bound): the first thing to
-        run after touching csrc/dog_extrema.cu or csrc/sift_descriptors.cu
+        plain version, event and device time, bound) and K14 on that
+        chunk's octaves, its upsampled 2048^2 octave and a 3 x 200^2 chunk
+        (chip_smoke.check_refine): the first thing to run after touching
+        csrc/dog_extrema.cu, csrc/sift_descriptors.cu or
+        csrc/subpixel_refine.cu
         (--root DIR as for lm). The stage's device time by part is the
         program's spans': python3 -m portbench.run --workload r16k-features
         --seed N --seconds 51 --trace 1;
@@ -672,6 +675,11 @@ def features_cmd(device, images: int):
         print(f"[features] {card()} sift_descriptors " + json.dumps({f: row[f] for f in cs.SHAPE_FIELDS}),
               flush=True)
     print(f"[features] {card()} sift_descriptors untimed gaps " + json.dumps(rows[0]["untimed"]), flush=True)
+    rows = cs.check_refine(device, chunk, sift_cfg, valid_hw, ring)
+    for row in rows:
+        print(f"[features] {card()} subpixel_refine " + json.dumps(
+            {f: row[f] for f in cs.SHAPE_FIELDS + ("differ", "live", "identical", "candidates", "rel_gap")
+             if f in row}), flush=True)
 
 
 # dogsweep's variants of csrc/dog_extrema.cu: ring depths, and the tiles
