@@ -49,7 +49,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      its first two views upsampled and over three of its views at 200^2
      (one launch a call; at most 1e-3 of the live candidates differ from
      the plain version in valid, by 1e-4 px / level or by 1e-5 relative
-     in response; timed beside its bound: the "[refine]" line); the
+     in response; timed beside its bound: the "[refine]" line), K15 on
+     the same octave calls (one launch a call; the selection bit-equal to
+     top_k_stable's and the kernel's keys to its plain version's; timed
+     beside its bound, the plain version and the full sort it replaced:
+     the "[select]" line); the
      split of the feature stage's device time by part is the program's
      spans' (python3
      -m portbench.run --workload r16k-features --seed N --seconds 51
@@ -236,6 +240,9 @@ KERNELS = {
     # K14 replaces no TPU kernel: sfm_tpu's refinement is plain JAX.
     "subpixel_refine": ("sfm_tpu_torch/csrc/subpixel_refine.cu",
                         "none (sfm_tpu/ops/detect.py refine_candidates is plain JAX)"),
+    # K15 replaces no TPU kernel: sfm_tpu's candidate selection is jax.lax.top_k.
+    "select_keys": ("sfm_tpu_torch/csrc/select_candidates.cu",
+                    "none (sfm_tpu/ops/detect.py select_candidates is jax.lax.top_k)"),
     "match_topk2": ("sfm_tpu_torch/csrc/match_topk.cu", "sfm_tpu/kernels/match_topk.py:74"),
     "fused_ne_payloads": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:366"),
     "fused_cost_sums": ("sfm_tpu_torch/csrc/ba_kernels.cu", "sfm_tpu/kernels/schur_spmv.py:524"),
@@ -297,7 +304,8 @@ ENGINE_KERNELS = tuple(k for k in SMALL_KERNELS if k not in INSIDE)
 POLISH_KERNELS = tuple(k for k in BIG_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
 # The refined polish (phase 13): the same at width 8.
 REFINED_POLISH_KERNELS = tuple(k for k in BIG_WIDE_KERNELS if k not in INSIDE) + ("cam_segment_sum",)
-TWO_VIEW_KERNELS = ("dog_extrema_scores", "sift_descriptors", "blur_levels", "subpixel_refine", "match_topk2",
+TWO_VIEW_KERNELS = ("dog_extrema_scores", "sift_descriptors", "blur_levels", "subpixel_refine", "select_keys",
+                    "match_topk2",
                     "fused_ne_payloads", "fused_cost_sums", "cam_segment_sum")
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit); the
 # tensor cores' bf16 rate has no counterpart in portbench.peaks.
@@ -980,6 +988,67 @@ def check_refine(device, images, cfg, valid_hw, ring) -> list:
             rows.append(dict(shape=what, max_abs_err=gaps["pos_gap"], **gaps, calls=1, ms=time_ms(kernel, device),
                              device_ms=device_ms(kernel, device), plain_ms=time_ms(plain, device, PLAIN_RUNS),
                              library_ms=None, **bound(refine_least_bytes(gauss, idx), ops, FP32_OPS_PER_S)))
+    return rows
+
+
+def check_select(device, images, cfg, valid_hw, ring) -> list:
+    """K15 as extract_features hands it each octave call, on the same three
+    runs as check_refine (the ring's chunk of 8 views, octaves 0-3; the
+    2048^2 octave of its first two views upsampled; three of its views at
+    200^2, whose last octave holds fewer voxels than the candidate budget):
+    one launch a call; the selection (the kernel, then the sort of its keys)
+    equal to top_k_stable's, the full sort it replaced, and the first k of
+    the kernel's sorted keys to its plain version's, bit for bit; each call timed (event and
+    device time) beside its bound, the plain version's time and the full
+    sort's (library_ms)."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from sfm_tpu_torch import kernels
+    from sfm_tpu_torch.kernels import select_candidates as k15
+    from sfm_tpu_torch.ops import detect, sift
+    from sfm_tpu_torch.ops.sift import extract_features
+    from sfm_tpu_torch.pipeline import ingest
+
+    small_cfg = dataclasses.replace(cfg, image_max_dim=200)
+    small = ingest.load_images(list(ring[:3]), small_cfg)
+    runs = [(images, cfg, valid_hw, None),
+            (images[:2], dataclasses.replace(cfg, upsample_first_octave=True), valid_hw[:2], 1),
+            (torch.from_numpy(small.canvases).to(device), small_cfg,
+             torch.from_numpy(small.valid_hw).to(device), None)]
+    rows = []
+    for imgs, run_cfg, hw, keep in runs:
+        before = kernels.LAUNCHES["select_keys"]
+        with record_calls(sift, "select_candidates") as calls:
+            extract_features(imgs, run_cfg, hw)
+        launched = kernels.LAUNCHES["select_keys"] - before
+        if launched != len(calls) or len(calls) != run_cfg.num_octaves:
+            raise AssertionError(f"select_keys: {launched} launches for {len(calls)} calls "
+                                 f"of {run_cfg.num_octaves} octaves")
+        for score, k in calls[:keep]:
+            B = score.shape[0]
+            what = f"{k} candidates of " + "x".join(map(str, score.shape))
+            keys, plain_keys = (torch.full((B, 3 * k), k15.EMPTY, dtype=torch.int64, device=device)
+                                for _ in range(2))
+            kernel = functools.partial(k15.select_keys, score, k, keys)
+            plain = functools.partial(k15.select_keys_plain, score, k, plain_keys)
+            full_sort = functools.partial(detect.top_k_stable, score.reshape(B, -1), k)
+            kernel()
+            plain()
+            idx, vals = detect.select_candidates(score, k)
+            want_vals, want_idx = full_sort()
+            if not (torch.equal(torch.sort(keys, 1).values[:, :k], plain_keys[:, :k]) and torch.equal(idx, want_idx)
+                    and torch.equal(vals, want_vals)):
+                raise AssertionError(f"select_keys {what}: the selection differs from top_k_stable's "
+                                     "or the keys from the plain version's")
+            positives = (score.reshape(B, -1) > 0).sum(1)
+            rows.append(dict(shape=what, max_abs_err=0.0, calls=1, positives=int(positives.min()),
+                             ms=time_ms(kernel, device), device_ms=device_ms(kernel, device),
+                             plain_ms=time_ms(plain, device, PLAIN_RUNS),
+                             library_ms=time_ms(full_sort, device, PLAIN_RUNS),
+                             **bound(nbytes(score) + 8 * B * k, 0, FP32_OPS_PER_S)))
     return rows
 
 
@@ -2903,17 +2972,18 @@ def run_options(device, size: int = SLICE_IMAGE):
 @contextlib.contextmanager
 def forbid_plain():
     """Record every call of a kernel's plain version (the *_plain functions
-    of every kernel module: K1's, K2's, K12's, K13's, K14's and the BA kernels')
-    that is handed a CUDA tensor, by wrapping them for the duration: on the
-    card every wrapper launches its kernel, so the list must stay empty."""
+    of every kernel module: K1's, K2's, K12's, K13's, K14's, K15's and the BA
+    kernels') that is handed a CUDA tensor, by wrapping them for the
+    duration: on the card every wrapper launches its kernel, so the list
+    must stay empty."""
     import torch
 
-    from sfm_tpu_torch.kernels import (ba_kernels, blur_levels, dog_extrema, match_topk, sift_descriptors,
-                                       subpixel_refine)
+    from sfm_tpu_torch.kernels import (ba_kernels, blur_levels, dog_extrema, match_topk, select_candidates,
+                                       sift_descriptors, subpixel_refine)
 
     calls, saved = [], [(m, n, getattr(m, n))
-                        for m in (ba_kernels, blur_levels, dog_extrema, match_topk, sift_descriptors,
-                                  subpixel_refine)
+                        for m in (ba_kernels, blur_levels, dog_extrema, match_topk, select_candidates,
+                                  sift_descriptors, subpixel_refine)
                         for n in dir(m) if n.endswith("_plain")]
 
     def guard(name, fn):
@@ -4211,6 +4281,15 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
         + ", ".join(f"{r['shape']}: {1e3 * r['device_ms']:.1f} ({1e3 * r['bound_ms']:.1f}, {r['plain_ms']:.3f})"
                     for r in k14_rows if r["device_ms"] is not None))
     results["subpixel_refine"] = dict(k14_rows[0], note="one launch per octave call", shapes=k14_rows)
+    k15_rows = check_select(device, images, sift_cfg, valid_hw, ring)
+    log_shapes("select_keys", k15_rows)
+    log(f"[select] K15 one launch per octave call; selection equal to top_k_stable's and keys to the plain "
+        f"version's in all {len(k15_rows)} calls (fewest positives a map "
+        + ", ".join(f"{r['shape']}: {r['positives']}" for r in k15_rows)
+        + "); device us per call (bound us, plain ms, full sort ms) "
+        + ", ".join(f"{r['shape']}: {1e3 * r['device_ms']:.1f} ({1e3 * r['bound_ms']:.1f}, {r['plain_ms']:.3f}, "
+                    f"{r['library_ms']:.3f})" for r in k15_rows if r["device_ms"] is not None))
+    results["select_keys"] = dict(k15_rows[0], note="one launch per octave call", shapes=k15_rows)
     del images, valid_hw
     mark("incremental")
     paths = {"two_view": two_view_launches, "incremental": launches}
@@ -4429,8 +4508,8 @@ def phases(device, config4_rows: dict, config4_launches: dict, phase_s: dict) ->
     never = [k["name"] for k in record["kernels"] if k["launches"] == 0]
     if never:
         raise AssertionError(f"kernels launched by no path: {never}")
-    # K1, K13 and K14 each launch once per octave call of the feature stage.
-    octave_kernels = ("dog_extrema_scores", "blur_levels", "subpixel_refine")
+    # K1, K13, K14 and K15 each launch once per octave call of the feature stage.
+    octave_kernels = ("dog_extrema_scores", "blur_levels", "subpixel_refine", "select_keys")
     octave_off = {name: [p.get(k, 0) for k in octave_kernels] for name, p in paths.items()
                   if len({p.get(k, 0) for k in octave_kernels}) > 1}
     if octave_off:

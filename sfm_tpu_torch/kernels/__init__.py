@@ -59,6 +59,7 @@ LAUNCHES: dict[str, int] = {
     "sift_descriptors": 0,
     "blur_levels": 0,
     "subpixel_refine": 0,
+    "select_keys": 0,
     "match_topk2": 0,
     "fused_ne_payloads": 0,
     "fused_cost_sums": 0,
@@ -102,6 +103,7 @@ _SIGNATURES = {
     "sfm_sift_descriptors": (_P,) * 9 + (_I,) * 6 + (_P,),
     "sfm_blur_levels": (_P, _L, _L, _L) + (_P,) * 5 + (_I,) * 6 + (_P,),
     "sfm_subpixel_refine": (_P, _P, _L, _P, _L) + (_P,) * 8 + (_I,) * 6 + (_F,) * 5 + (_P,),
+    "sfm_select_keys": (_P, _I, _L, _L, _I, _P, _P, _P),
     "sfm_match_topk2": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "sfm_fused_ne_payloads": (_P,) * 12 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 8,
     "sfm_fused_cost_sums": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I) + (_P,) * 6,

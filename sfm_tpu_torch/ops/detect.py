@@ -2,7 +2,8 @@
 
 Whole octaves are dense tensor ops over a batch of images: 3x3x3 extremum
 scores (kernel K1 or its plain version), exact top-k candidate selection
-(subpixel refinement, a batch of 3x3 solves, is kernel K14 with its plain
+(kernel K15 with its plain version in kernels/select_candidates.py;
+subpixel refinement, a batch of 3x3 solves, is kernel K14 with its plain
 version in kernels/subpixel_refine.py), and orientation from a
 Gaussian-weighted 36-bin gradient histogram. Rejected candidates keep
 valid=False (fixed-capacity padding contract).
@@ -19,6 +20,7 @@ import torch
 
 from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.kernels.dog_extrema import scores_from_dog
+from sfm_tpu_torch.kernels.select_candidates import EMPTY, INDEX_MASK, select_keys
 from sfm_tpu_torch.ops.descriptor import sample_gradients
 
 
@@ -58,9 +60,17 @@ def top_k_stable(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
 
 
 def select_candidates(score: torch.Tensor, k_budget: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over per-image score maps [B, ...]: (flat indices [B, K], scores [B, K])."""
-    vals, idx = top_k_stable(score.reshape(score.shape[0], -1), k_budget)
-    return idx, vals
+    """Top-k over per-image score maps [B, ...] of entries >= 0 (K1's: |DoG|
+    or 0): (flat indices [B, K] int64, scores [B, K] float32), exactly
+    top_k_stable's (ties to the lower index; where a map has fewer than K
+    positive entries, its first 0 entries in index order), as compact
+    tensors in memory that follows K, not the maps: kernel K15 (or its
+    plain version) selects each map's keys, a sort of [B, 3K] orders them."""
+    keys = torch.full((score.shape[0], 3 * k_budget), EMPTY, dtype=torch.int64, device=score.device)
+    select_keys(score, k_budget, keys)
+    keys = torch.sort(keys, dim=1).values[:, :k_budget]
+    bits = INDEX_MASK - torch.bitwise_right_shift(keys, 31)
+    return torch.bitwise_and(keys, INDEX_MASK), bits.to(torch.int32).view(torch.float32)
 
 
 _ORI_GRID_N = 13

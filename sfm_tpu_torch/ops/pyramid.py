@@ -56,6 +56,19 @@ def build_pyramid(images: torch.Tensor, cfg: SiftConfig) -> list[torch.Tensor]:
 
 def pyramid_gradients(stack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Central-difference (wrap-around) gradients of [B, L, H, W] -> (dx, dy)."""
-    dx = 0.5 * (torch.roll(stack, -1, dims=-1) - torch.roll(stack, 1, dims=-1))
-    dy = 0.5 * (torch.roll(stack, -1, dims=-2) - torch.roll(stack, 1, dims=-2))
-    return dx, dy
+    return _central_difference(stack, -1), _central_difference(stack, -2)
+
+
+def _central_difference(stack: torch.Tensor, dim: int) -> torch.Tensor:
+    """0.5 * (roll(stack, -1, dim) - roll(stack, 1, dim)), the same ops on
+    the same values, without the two rolled copies: the interior from two
+    shifted views, the two wrapped ends from the opposite edges (a side of
+    one entry has no two ends)."""
+    n = stack.shape[dim]
+    if n == 1:
+        return 0.5 * (torch.roll(stack, -1, dims=dim) - torch.roll(stack, 1, dims=dim))
+    out = torch.empty_like(stack)
+    torch.sub(stack.narrow(dim, 2, n - 2), stack.narrow(dim, 0, n - 2), out=out.narrow(dim, 1, n - 2))
+    torch.sub(stack.narrow(dim, 1, 1), stack.narrow(dim, n - 1, 1), out=out.narrow(dim, 0, 1))
+    torch.sub(stack.narrow(dim, 0, 1), stack.narrow(dim, n - 2, 1), out=out.narrow(dim, n - 1, 1))
+    return out.mul_(0.5)

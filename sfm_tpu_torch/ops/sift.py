@@ -2,15 +2,16 @@
 (port of sfm_tpu/ops/sift.py extract_features).
 
 Batched over images [B, H, W]; per octave: pyramid level stacks, extremum
-scores (kernel K1 when cfg.use_pallas), exact top-k candidates, refinement
-(kernel K14 on the card), compaction to the per-octave descriptor budget,
-orientation (with Lowe's second-peak duplicates) and descriptors (kernel
-K12 on the card). Output obeys the padding contract: exactly
-cfg.max_keypoints slots per image with a validity mask. The parts run
-inside the spans sift.pyramid, sift.detect, sift.orientation and
-sift.descriptors (utils/logging.span), one of each per octave; the
-pyramid's build and the final cross-octave selection have spans of their
-own.
+scores (kernel K1 when cfg.use_pallas), exact top-k candidates (kernel K15
+on the card), refinement (kernel K14 on the card), compaction to the
+per-octave descriptor budget, orientation (with Lowe's second-peak
+duplicates) and descriptors (kernel K12 on the card). Output obeys the
+padding contract: exactly cfg.max_keypoints slots per image with a
+validity mask. The parts run inside the spans sift.pyramid, sift.detect,
+sift.orientation and sift.descriptors (utils/logging.span), one of each
+per octave, the candidate selection inside sift.detect in a child span
+sift.detect.select; the pyramid's build and the final cross-octave
+selection have spans of their own.
 """
 
 from __future__ import annotations
@@ -66,7 +67,10 @@ def extract_features(images: torch.Tensor, cfg: SiftConfig,
         desc_budget = min(cfg.desc_per_octave, k_this)
 
         with span("sift.detect"):
-            idx, scores = select_candidates(_octave_scores(stack, cfg), k_this)
+            score = _octave_scores(stack, cfg)
+            with span("sift.detect.select"):
+                idx, scores = select_candidates(score, k_this)
+            del score
             kps = subpixel_refine(stack, idx, scores, cfg)                 # [B * k_this]
             # Compact to the survivors before orientation and descriptors.
             sc = torch.where(kps.valid, kps.response, torch.full((), -1.0, device=images.device))

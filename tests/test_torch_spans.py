@@ -143,14 +143,17 @@ def test_extract_features_spans():
         extract_features(imgs, SIFT, torch.full((2, 2), 64, dtype=torch.int32))
     got = lg.spans()
     names = {s.name for s in got}
-    assert names == {*PARTS, "sift.pyramid.constants", "sift.descriptors.constants"}
-    # one of each part an octave; the pyramid's build and the final selection besides
-    counts = {part: sum(1 for s in got if s.name == part) for part in PARTS}
-    assert counts == {"sift.pyramid": 3, "sift.detect": 3, "sift.orientation": 2, "sift.descriptors": 2}
+    assert names == {*PARTS, "sift.pyramid.constants", "sift.descriptors.constants", "sift.detect.select"}
+    # one of each part an octave, the candidate selection in a child span of
+    # each octave's detection; the pyramid's build and the final selection
+    # besides
+    counts = {part: sum(1 for s in got if s.name == part) for part in (*PARTS, "sift.detect.select")}
+    assert counts == {"sift.pyramid": 3, "sift.detect": 3, "sift.orientation": 2, "sift.descriptors": 2,
+                      "sift.detect.select": 2}
     assert all(s.attrs == {} for s in got if s.name in PARTS)
     by_id = {s.id: s for s in got}
     for s in got:
-        if s.name.endswith(".constants"):
+        if s.name.endswith((".constants", ".select")):
             assert by_id[s.parent].name == s.name.rsplit(".", 1)[0]
 
 

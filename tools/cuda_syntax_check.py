@@ -5,10 +5,10 @@ machines without nvcc.
     python3 tools/cuda_syntax_check.py [SOURCE.cu ...]
 
 Each source under sfm_tpu_torch/csrc/ (by default the bundle-adjustment
-ones, ba_kernels.cu and schur_kernels.cu; sift_descriptors.cu, blur_levels.cu
-and subpixel_refine.cu parse too) is copied to a temporary directory with its
-kernel launches (`<<<...>>>`) and inline PTX (`asm
-volatile`) stripped, then parsed by `g++ -std=c++17 -fsyntax-only` against
+ones, ba_kernels.cu and schur_kernels.cu; sift_descriptors.cu, blur_levels.cu,
+subpixel_refine.cu and select_candidates.cu parse too) is copied to a
+temporary directory with its kernel launches (`<<<...>>>`) and inline PTX
+(`asm volatile`) stripped, then parsed by `g++ -std=c++17 -fsyntax-only` against
 a shim header that declares the CUDA keywords, vector types, intrinsics and
 runtime calls the sources use. The C entry points instantiate every
 template the library builds (both camera widths of K3-K8, K10, K11 and
@@ -34,6 +34,7 @@ CUDA_RUNTIME_SHIM = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #define __global__
 #define __device__
 #define __host__
@@ -43,6 +44,7 @@ CUDA_RUNTIME_SHIM = r"""
 #define __align__(n) __attribute__((aligned(n)))
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
@@ -54,6 +56,10 @@ inline void __threadfence() {}
 template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
 template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned o = *p; *p += v; return o; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  unsigned long long o = *p; *p += v; return o;
+}
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, sizeof u); return u; }
 template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> T __ldg(const T* p) { return *p; }
 inline float __fadd_rn(float a, float b) { return a + b; }

@@ -74,9 +74,10 @@
         (chip_smoke.check_descriptors: one launch a call, the gap to its
         plain version, event and device time, bound) and K14 on that
         chunk's octaves, its upsampled 2048^2 octave and a 3 x 200^2 chunk
-        (chip_smoke.check_refine): the first thing to run after touching
-        csrc/dog_extrema.cu, csrc/sift_descriptors.cu or
-        csrc/subpixel_refine.cu
+        (chip_smoke.check_refine), K15 on the same octave calls
+        (chip_smoke.check_select): the first thing to run after touching
+        csrc/dog_extrema.cu, csrc/sift_descriptors.cu,
+        csrc/subpixel_refine.cu or csrc/select_candidates.cu
         (--root DIR as for lm). The stage's device time by part is the
         program's spans': python3 -m portbench.run --workload r16k-features
         --seed N --seconds 51 --trace 1;
@@ -680,6 +681,10 @@ def features_cmd(device, images: int):
         print(f"[features] {card()} subpixel_refine " + json.dumps(
             {f: row[f] for f in cs.SHAPE_FIELDS + ("differ", "live", "identical", "candidates", "rel_gap")
              if f in row}), flush=True)
+    rows = cs.check_select(device, chunk, sift_cfg, valid_hw, ring)
+    for row in rows:
+        print(f"[features] {card()} select_keys " + json.dumps(
+            {f: row[f] for f in cs.SHAPE_FIELDS + ("positives",)}), flush=True)
 
 
 # dogsweep's variants of csrc/dog_extrema.cu: ring depths, and the tiles
